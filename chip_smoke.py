@@ -7,31 +7,53 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: requires CUDA, prints the card's name and power limit.
 2. build: compiles the hand-written kernels from the sources in the
-   checkout (nvcc for the flash-attention CUDA C++, Triton for the
-   GroupNorm pair) and prints the build seconds.
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes of the 768² text2img path, bf16 (one fp32 GroupNorm, the
-   UNet output head), with the stated tolerance and CUDA-event times.
+   checkout (nvcc for the one CUDA C++ source, the flash forward and
+   backward; Triton for the GroupNorm pair) and prints the build seconds.
+3. kernels: each forward kernel against its plain PyTorch version on the
+   card at the shapes of the 768² text2img path, bf16 (one fp32 GroupNorm,
+   the UNet output head), with the stated tolerance and CUDA-event times.
 4. reference: the whole path at a small width on the card (kernels, bf16)
    against the same weights and injected noise on the CPU (plain
-   versions, fp32).
+   versions, fp32), beside the plain versions in bf16 on the CPU as the
+   control of how far bf16 alone drifts.
 5. slice: Kandinsky 2.1 text2img at full CONFIG_2_1 width with random bf16
    weights from a seeded generator: 768², prior "25", DDIM 50, CFG 4,
-   batch 1; one warm-up call and one timed call, during which every kernel
-   must be launched.
+   batch 1; one warm-up call and one timed call, during which every
+   forward kernel must be launched.
+6. kernels, backward: the flash backward kernels (K5 dQ, K4 dK/dV) against
+   the plain backward at the decoder training step's UNet attention
+   shapes, and GroupNormFunction's gradients against autograd of the plain
+   formulation, with CUDA-event times.
+7. train, small: the decoder fine-tuning CLI's ``run`` on a small config
+   with seeded 64² PNGs and a CSV in a temporary directory: two steps and
+   a save, then a fresh pipeline that resumes from the save for two more;
+   and one train step on the card (kernels, bf16 compute, fp32
+   parameters) against the same step on the CPU (plain, fp32).
+8. train, full width: the serving pipeline freed, CONFIG_2_1's 1.22B UNet
+   with fp32 parameters and bf16 compute, batch 1 at 768², the YAML's
+   diffusion config, freeze rules and Adafactor (lr 5e-6), EMA 0.9999, no
+   remat; prepare_batch (MoVQ encode, XLM-R, CLIP ViT) and train_step as
+   train_unclip calls them, one warm-up step and five timed steps, during
+   which every kernel must be launched and every trainable parameter must
+   get a finite, non-zero gradient.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-kernels' results as JSON.
+kernels' results as JSON, and the line before that the card's name and
+power limit.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
 import time
 
 PROMPT = "red sand dunes under a violet sky"
+# the kernels that text2img (phases 4 and 5) launches; the backward ones run
+# in training only
+FORWARD_KERNELS = ("group_norm_moments", "group_norm_apply", "flash_attention_fwd")
 
 
 def smi_line() -> str:
@@ -47,7 +69,9 @@ def cuda_ms(fn, iters: int) -> float:
 
     A spin kernel holds the stream while the host enqueues the launches, so
     the events time the device alone: at the UNet's small shapes a launch
-    from Python costs more host time than the kernel runs."""
+    from Python costs more host time than the kernel runs.  The device queues
+    about a thousand pending launches and the host blocks beyond that, so
+    ``iters`` times the launches of one ``fn`` must stay well below it."""
     import torch
 
     fn()
@@ -86,7 +110,7 @@ def check(cond: bool, what: str) -> None:
 def phase_kernels(torch, results):
     from kandinsky2_tpu_torch.ops import group_norm as gn
     from kandinsky2_tpu_torch.ops.flash_attention import (
-        flash_attention,
+        flash_attention_fwd,
         flash_attention_plain,
     )
 
@@ -146,7 +170,7 @@ def phase_kernels(torch, results):
     ]
     for label, (B, T, S, H, d) in attn_shapes:
         q, k, v = randn((B, T, H, d)), randn((B, S, H, d)), randn((B, S, H, d))
-        o, lse = flash_attention(q, k, v)
+        o, lse = flash_attention_fwd(q, k, v)
         o_ref, lse_ref = flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
         # P is rounded to bf16 before P·V (fp32 in the plain version), and O
@@ -157,7 +181,7 @@ def phase_kernels(torch, results):
         tol = 2e-2 * o_max
         lse_err = (lse - lse_ref).abs().max().item()
         lse_tol = 1e-3 * lse_ref.abs().max().item()
-        k_ms, p_ms = timed_pair(lambda: flash_attention(q, k, v),
+        k_ms, p_ms = timed_pair(lambda: flash_attention_fwd(q, k, v),
                                 lambda: flash_attention_plain(q, k, v), 10)
         print(f"K3 flash   {label} B={B} T={T} S={S} H={H} d={d}: max_abs_err "
               f"{err:.3e} (tol {tol:.3e} = 2e-2 of max|o| {o_max:.3e}) "
@@ -174,7 +198,8 @@ def phase_kernels(torch, results):
 def phase_reference(torch, np):
     """The small-width path on the card (kernels, bf16) against the same
     weights on the CPU (plain versions, fp32): each model's forward on the
-    same inputs, then the whole path with the same injected noise."""
+    same inputs, then the whole path with the same injected noise, beside
+    the plain versions in bf16 on the CPU."""
     from kandinsky2_tpu_torch.configs import small_config
     from kandinsky2_tpu_torch.ops import launch_counts, reset_launch_counts
     from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
@@ -185,11 +210,13 @@ def phase_reference(torch, np):
     gpu = Kandinsky2_1(config=cfg, tokenizer1=tok1, tokenizer2=tok2,
                        dtype=torch.bfloat16, device="cuda")
     gpu.init_random_params(torch.Generator(device="cuda").manual_seed(3))
-    cpu = Kandinsky2_1(config=cfg, tokenizer1=tok1, tokenizer2=tok2,
-                       dtype=torch.float32, device="cpu")
-    for name, model in cpu.models().items():
-        src = gpu.models()[name].state_dict()
-        model.load_state_dict({k: v.float().cpu() for k, v in src.items()})
+    cpu, cpu_bf16 = (Kandinsky2_1(config=cfg, tokenizer1=tok1, tokenizer2=tok2,
+                                  dtype=dtype, device="cpu")
+                     for dtype in (torch.float32, torch.bfloat16))
+    for pipe in (cpu, cpu_bf16):
+        for name, model in pipe.models().items():
+            src = gpu.models()[name].state_dict()
+            model.load_state_dict({k: v.cpu() for k, v in src.items()})
 
     g = torch.Generator().manual_seed(5)
     r = lambda *shape: torch.randn(shape, generator=g)
@@ -233,15 +260,19 @@ def phase_reference(torch, np):
     got = gpu.generate_text2img(PROMPT, **kw)
     counts = launch_counts()
     want = cpu.generate_text2img(PROMPT, **kw)
+    control = cpu_bf16.generate_text2img(PROMPT, **kw)
     rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
-    # 15 CFG-4 model calls compound the per-call bf16 rounding: the same
-    # comparison with the plain versions in bf16 on the CPU gives 4e-2
+    rel_bf16 = float(np.linalg.norm(control - want) / np.linalg.norm(want))
+    # 15 CFG-4 model calls compound the per-call bf16 rounding; the control
+    # (the plain versions in bf16 on the CPU, the same weights) shows how
+    # much of the card's error bf16 alone gives: PERF.md keeps both readings
     tol = 0.15
     print(f"reference: small path cuda/bf16 vs cpu/fp32 rel_l2 {rel:.3e} "
-          f"(tol {tol}) launches {json.dumps(counts)}")
+          f"(tol {tol}; cpu/bf16 plain vs cpu/fp32 {rel_bf16:.3e}) "
+          f"launches {json.dumps(counts)}")
     check(bool(np.isfinite(got).all()), "small path on the card is not finite")
     check(rel <= tol, "small path on the card disagrees with the CPU")
-    check(all(n > 0 for n in counts.values()), "small path skipped a kernel")
+    check(all(counts[n] > 0 for n in FORWARD_KERNELS), "small path skipped a kernel")
 
 
 def phase_slice(torch, np, smi: str):
@@ -283,7 +314,7 @@ def phase_slice(torch, np, smi: str):
     check(img.shape == (1, 768, 768, 3), f"image shape {img.shape}")
     check(bool(np.isfinite(img).all()), "image has non-finite values")
     check(float(img.std()) > 0, "image is constant")
-    check(all(n > 0 for n in counts.values()), "a kernel was not launched")
+    check(all(counts[n] > 0 for n in FORWARD_KERNELS), "a kernel was not launched")
     pil = process_images(img)
     check(len(pil) == 1 and pil[0].size == (768, 768), "process_images")
     print(f"slice: image min {img.min():.4f} max {img.max():.4f} "
@@ -291,6 +322,301 @@ def phase_slice(torch, np, smi: str):
     print(f"slice: {seconds:.4f} s/image at 768^2, 50 DDIM steps, prior 25, "
           f"CFG 4, batch 1, bf16 on {smi}")
     return counts, seconds
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in fp32."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def phase_kernels_backward(torch, results):
+    from kandinsky2_tpu_torch.ops import group_norm as gn
+    from kandinsky2_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    # the UNet attention of the decoder training step at 768², batch 1:
+    # (B, T, S = T + 87 encoder tokens, H), d = 64
+    attn_shapes = [
+        ("unet ds2", (1, 2304, 2391, 12)),
+        ("unet ds4", (1, 576, 663, 18)),
+        ("unet ds8/middle", (1, 144, 231, 24)),
+    ]
+    for label, (B, T, S, H) in attn_shapes:
+        q, k, v = randn((B, T, H, 64)), randn((B, S, H, 64)), randn((B, S, H, 64))
+        do = randn((B, T, H, 64))
+        o, lse = flash_attention_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, T)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        ref = flash_attention_bwd_plain(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        # P and dS are rounded to bf16 before their MMAs (fp32 in the plain
+        # version): 2e-2 of the largest reference gradient
+        errs = {}
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            errs[name] = ((got.float() - want.float()).abs().max().item(),
+                          rel_err(got, want))
+            check(errs[name][1] <= 2e-2, f"K4/K5 {name} disagrees at {label}")
+        plain = lambda: flash_attention_bwd_plain(q, k, v, o, lse, do)
+        k5 = lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        k4 = lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        # in turns: plain, K5, K4, K4, K5, plain
+        p1, k5a, k4a = cuda_ms(plain, 10), cuda_ms(k5, 10), cuda_ms(k4, 10)
+        k4b, k5b, p2 = cuda_ms(k4, 10), cuda_ms(k5, 10), cuda_ms(plain, 10)
+        k5_ms, k4_ms, p_ms = (k5a + k5b) / 2, (k4a + k4b) / 2, (p1 + p2) / 2
+        print(f"K5 dQ      {label} B={B} T={T} S={S} H={H} d=64: max_abs_err "
+              f"{errs['dq'][0]:.3e} max_rel_err {errs['dq'][1]:.3e} (tol 2e-2) "
+              f"kernel {k5_ms:.4f} ms")
+        print(f"K4 dK/dV   {label} B={B} T={T} S={S} H={H} d=64: max_abs_err "
+              f"{max(errs['dk'][0], errs['dv'][0]):.3e} max_rel_err dk "
+              f"{errs['dk'][1]:.3e} dv {errs['dv'][1]:.3e} (tol 2e-2) kernel "
+              f"{k4_ms:.4f} ms; plain backward (dq, dk, dv together) {p_ms:.4f} ms")
+        results["flash_attention_bwd_dq"].append(
+            (label, (B, T, S, H, 64), errs["dq"][0], k5_ms, p_ms))
+        results["flash_attention_bwd_dkv"].append(
+            (label, (B, T, S, H, 64), max(errs["dk"][0], errs["dv"][0]), k4_ms, p_ms))
+        del q, k, v, do, o, lse, delta, dq, dk, dv, ref
+
+    # GroupNormFunction at the UNet ds1 shape, with FiLM and SiLU
+    x = randn((1, 96, 96, 384))
+    scale = 1 + 0.1 * randn((384,), torch.float32)
+    bias = 0.1 * randn((384,), torch.float32)
+    fs, fb = 0.1 * randn((1, 1, 1, 384)), randn((1, 1, 1, 384))
+    ins = [t.requires_grad_() for t in (x, scale, bias, fs, fb)]
+    gy = randn((1, 96, 96, 384))
+    y = gn.group_norm(x, scale, bias, 32, 1e-5, swish=1.0, film=(fs, fb))
+    check(y.requires_grad and type(y.grad_fn).__name__ == "GroupNormFunctionBackward",
+          "group_norm on the card carries no gradient")
+    fn = lambda: torch.autograd.grad(
+        gn.group_norm(x, scale, bias, 32, 1e-5, swish=1.0, film=(fs, fb)), ins, gy)
+    plain = lambda: torch.autograd.grad(
+        gn.group_norm_plain(x, scale, bias, 32, 1e-5, swish=1.0, film=(fs, fb)),
+        ins, gy)
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    # the backward is autograd of the same plain formulation: equal up to
+    # bf16 rounding of the gradients of the bf16 inputs
+    check(all(e <= 1e-2 for e in errs), "GroupNormFunction gradients disagree")
+    # about a hundred launches per forward + backward: 4 of them fit the queue
+    f_ms, p_ms = timed_pair(fn, plain, 4)
+    print(f"GroupNormFunction fwd+bwd [1, 9216, 384] FiLM SiLU: max_rel_err x "
+          f"{errs[0]:.3e} scale {errs[1]:.3e} bias {errs[2]:.3e} fs {errs[3]:.3e} "
+          f"fb {errs[4]:.3e} (tol 1e-2); Function {f_ms:.4f} ms, autograd of the "
+          f"plain formulation {p_ms:.4f} ms")
+    torch.cuda.synchronize()
+
+
+def _small_batch(torch, np, mc, seed):
+    rng = np.random.RandomState(seed)
+    arr = lambda *shape: torch.tensor(rng.randn(*shape).astype(np.float32))
+    return {"image_latents": arr(2, 8, 8, 4),
+            "full_emb": arr(2, 12, mc["text_encoder_in_dim1"]),
+            "pooled_emb": arr(2, mc["text_encoder_in_dim2"]),
+            "image_emb": arr(2, mc["image_encoder_in_dim"])}
+
+
+def phase_train_small(torch, np):
+    """The CLI's run with a save and a resume, then one train step on the
+    card against the CPU."""
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    from kandinsky2_tpu_torch.configs import CONFIG_2_1, create_model, schedule_kwargs
+    from kandinsky2_tpu_torch.diffusion import make_schedule
+    from kandinsky2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from kandinsky2_tpu_torch.pipelines.kandinsky2_1 import init_random_
+    from kandinsky2_tpu_torch.train import train_2_1_unclip as cli
+    from kandinsky2_tpu_torch.train.checkpoint import latest_train_state
+    from kandinsky2_tpu_torch.train.train_unclip import unclip_loss
+
+    rng = np.random.RandomState(7)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "img").mkdir()
+        rows = ["image_name,caption"]
+        for i in range(4):
+            Image.fromarray(rng.randint(0, 256, (64, 64, 3), np.uint8)).save(
+                tmp / "img" / f"{i}.png")
+            rows.append(f"{i}.png,a seeded picture {i}")
+        (tmp / "data.csv").write_text("\n".join(rows) + "\n")
+        cfg = cli.small_train_config(str(tmp / "data.csv"), str(tmp / "img"),
+                                     str(tmp / "ckpt"), head_channels=64)
+        reset_launch_counts()
+        first = cli.run(cfg, device="cuda")  # one epoch: 2 steps, saved at 2
+        counts = launch_counts()
+        fname, step = latest_train_state(str(tmp / "ckpt"))
+        check(first.step == 2 and step == 2, "the first run did not save step 2")
+        saved = torch.load(fname, map_location="cpu", weights_only=True)
+        for name, v in first.unet.state_dict().items():
+            check(torch.equal(saved["params"][name], v.cpu()), f"saved {name}")
+        check(all(n > 0 for n in counts.values()), f"small run skipped a kernel: {counts}")
+        del first, saved  # the "kill": the resumed run shares nothing with it
+        second = cli.run(cfg, device="cuda")  # a fresh pipeline resumes at 2
+        opt_steps = {s["step"] for s in second.optimizer.state.values()}
+        check(second.step == 4 and opt_steps == {4},
+              f"the resumed run did not continue from the save: {second.step} {opt_steps}")
+        check(all(bool(torch.isfinite(p).all()) for p in second.unet.parameters()),
+              "resumed parameters not finite")
+        print(f"train small: run 2 steps, save, kill, resume 2 steps: step "
+              f"{second.step}; launches in the first run {json.dumps(counts)}")
+        del second
+
+    mc = cli.small_train_config("", "", "", head_channels=64)["model_config"]
+    cpu = create_model(**mc, dtype=torch.float32)
+    init_random_(cpu, torch.Generator().manual_seed(8))
+    gpu = create_model(**mc, dtype=torch.bfloat16, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    skw = schedule_kwargs(CONFIG_2_1["diffusion_config"], "")
+    batch = _small_batch(torch, np, mc, 9)
+    t = torch.tensor([5, 700])
+    noise = torch.tensor(np.random.RandomState(10).randn(2, 8, 8, 4).astype(np.float32))
+    out = {}
+    reset_launch_counts()
+    for dev, unet in (("cuda", gpu), ("cpu", cpu)):
+        loss, _ = unclip_loss(
+            unet, make_schedule(**skw["make_schedule"], device=dev),
+            {k: v.to(dev) for k, v in batch.items()}, t.to(dev), noise.to(dev),
+            torch.ones(2, device=dev), mean_type=skw["mean_type"],
+            var_type=skw["var_type"], loss_type=skw["loss_type"])
+        loss.backward()
+        out[dev] = (loss.item(), torch.cat([p.grad.float().cpu().flatten()
+                                            for p in unet.parameters()]))
+        if dev == "cuda":
+            counts = launch_counts()
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    g_gpu, g_cpu = out["cuda"][1], out["cpu"][1]
+    grad_rel = ((g_gpu - g_cpu).norm() / g_cpu.norm()).item()
+    # the same step in bf16 against fp32, both on the CPU with the plain
+    # versions, gives 1.6e-4 on the loss and 9.9e-3 on the gradients
+    print(f"train small: one step cuda/bf16 vs cpu/fp32: loss {out['cuda'][0]:.6f} vs "
+          f"{out['cpu'][0]:.6f} rel {loss_rel:.3e} (tol 1e-2); gradient rel_l2 "
+          f"{grad_rel:.3e} (tol 5e-2); launches {json.dumps(counts)}")
+    check(bool(torch.isfinite(g_gpu).all()), "card gradients not finite")
+    check(loss_rel <= 1e-2, "the train step's loss on the card disagrees with the CPU")
+    check(grad_rel <= 5e-2, "the train step's gradients on the card disagree with the CPU")
+    check(all(n > 0 for n in counts.values()), f"the small step skipped a kernel: {counts}")
+
+
+def phase_train_full(torch, np, smi: str):
+    """One warm-up and five timed decoder train steps at full width."""
+    from kandinsky2_tpu_torch.configs import CONFIG_2_1
+    from kandinsky2_tpu_torch.ops import launch_counts, reset_launch_counts
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
+    from kandinsky2_tpu_torch.train import train_2_1_unclip as cli
+    from kandinsky2_tpu_torch.train.optim import decoder_freeze_mask
+    from kandinsky2_tpu_torch.train.train_unclip import make_unclip_train_step
+    from kandinsky2_tpu_torch.utils import stub_tokenizers
+
+    t0 = time.perf_counter()
+    tok1 = stub_tokenizers()[0]
+    pipe = Kandinsky2_1(tokenizer1=tok1, dtype=torch.bfloat16, device="cuda")
+    pipe.init_random_params(torch.Generator(device="cuda").manual_seed(0),
+                            dtype=torch.float32)
+    unet = pipe.unet
+    # train_configs/config_unclip_2_1.yaml: freeze_resblocks, Adafactor at
+    # 5e-6 (the default optimizer), EMA 0.9999, uniform sampler, no remat
+    init_state, train_step = make_unclip_train_step(
+        unet, CONFIG_2_1["diffusion_config"], ema_decay=0.9999, remat=False)
+    mask = decoder_freeze_mask(unet, freeze_resblocks=True, freeze_attention=False)
+    state = init_state(mask, seed=0)
+    prepare_batch = cli.make_prepare_batch(pipe)
+    rng = np.random.RandomState(11)
+    enc = tok1(["red sand dunes under a violet sky"], max_length=77)
+    raw = {"image": np.tanh(rng.randn(1, 768, 768, 3)).astype(np.float32),
+           "clip_image": rng.randn(1, 224, 224, 3).astype(np.float32),
+           "tokens": enc["input_ids"], "mask": enc["attention_mask"]}
+    before = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for n, p in unet.named_parameters() if mask[n])
+    n_all = sum(p.numel() for p in unet.parameters())
+    print(f"train full: built in {time.perf_counter() - t0:.2f} s; UNet {n_all} "
+          f"parameters, {n_train} trainable in {sum(mask.values())} tensors")
+
+    # warm-up step, with every trainable gradient checked before the update
+    report = {}
+
+    def check_grads(opt, args, kwargs):
+        bad = [n for n, p in unet.named_parameters() if mask[n] and (
+            p.grad is None or not bool(torch.isfinite(p.grad).all())
+            or not bool(p.grad.any()))]
+        report.update(checked=sum(mask.values()), bad=bad)
+
+    hook = state.optimizer.register_step_pre_hook(check_grads)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = train_step(state, prepare_batch(raw))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    hook.remove()
+    print(f"train full: warm-up step {warm_s:.3f} s, loss {float(metrics['loss']):.5f}; "
+          f"{report['checked']} trainable tensors checked, {len(report['bad'])} "
+          f"with a missing, non-finite or zero gradient {report['bad'][:5]}")
+    check(not report["bad"], "a trainable parameter got no finite, non-zero gradient")
+
+    t0 = time.perf_counter()
+    prepare_batch(raw)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+
+    reset_launch_counts()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        metrics = train_step(state, prepare_batch(raw))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 5
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"loss not finite: {losses}")
+    check(all(n > 0 for n in counts.values()),
+          f"a kernel was not launched in the timed steps: {counts}")
+    frozen_same = all(torch.equal(p, before[n]) for n, p in unet.named_parameters()
+                      if not mask[n])
+    moved = [n for n, p in unet.named_parameters() if mask[n] and not torch.equal(p, before[n])]
+    check(frozen_same, "a frozen parameter changed")
+    check(len(moved) == sum(mask.values()), "a trained parameter did not move")
+
+    # one more step under the profiler: kernel time against wall time
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_step(state, prepare_batch(raw))
+        torch.cuda.synchronize()
+    # kernels, copies and sets are the events on the device; their self time
+    # is device time.  A record_function range (Optimizer.step) also shows on
+    # the device timeline, spanning kernels already counted: left out.
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+              and not e.is_user_annotation]
+    dev_us = lambda e: e.self_device_time_total
+    kernel_ms = sum(dev_us(e) for e in events) / 1e3
+    check(kernel_ms > 0, "the profiler saw no device time")
+    top = sorted(events, key=lambda e: -dev_us(e))[:8]
+    print("train full: profiled step, kernel time by name (ms, calls): " + "; ".join(
+        f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ({e.count})" for e in top))
+    print(f"train full: losses {losses}; launches in the 5 timed steps "
+          f"{json.dumps(counts)}; trained tensors moved {len(moved)}, frozen unchanged")
+    print(f"train full: {step_s:.4f} s/step (prepare_batch {prep_s:.4f} s of it) at "
+          f"768², batch 1, fp32 parameters, bf16 compute, Adafactor, EMA; kernel "
+          f"time of a profiled step {kernel_ms:.1f} ms, device idle share "
+          f"{1 - kernel_ms / 1e3 / step_s:.3f}; peak device memory {peak:.2f} GiB "
+          f"on {smi}")
+    return counts, step_s
 
 
 def main() -> int:
@@ -330,9 +656,10 @@ def main() -> int:
     print(f"build: nvcc flash_attention.cu {nvcc_s:.2f} s; "
           f"triton group_norm first launches {triton_s:.2f} s")
 
-    # 3. kernels against their plain versions
-    results = {"group_norm_moments": [], "group_norm_apply": [],
-               "flash_attention_fwd": []}
+    # 3. forward kernels against their plain versions
+    results = {name: [] for name in ("group_norm_moments", "group_norm_apply",
+                                     "flash_attention_fwd", "flash_attention_bwd_dkv",
+                                     "flash_attention_bwd_dq")}
     phase_kernels(torch, results)
 
     # 4. the small path against the CPU
@@ -341,6 +668,19 @@ def main() -> int:
 
     # 5. the full-size slice
     counts, seconds = phase_slice(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. backward kernels against their plain versions
+    phase_kernels_backward(torch, results)
+
+    # 7. small training runs
+    phase_train_small(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. full-width decoder training steps
+    train_counts, step_s = phase_train_full(torch, np, smi)
 
     meta = {
         "group_norm_moments": ("triton", "kandinsky2_tpu_torch/ops/group_norm.py",
@@ -349,19 +689,27 @@ def main() -> int:
                              "kandinsky2_tpu/ops/group_norm.py:119"),
         "flash_attention_fwd": ("cuda", "kandinsky2_tpu_torch/csrc/flash_attention.cu",
                                 "kandinsky2_tpu/ops/flash_attention.py:172"),
+        "flash_attention_bwd_dkv": ("cuda", "kandinsky2_tpu_torch/csrc/flash_attention.cu",
+                                    "kandinsky2_tpu/ops/flash_attention.py:74"),
+        "flash_attention_bwd_dq": ("cuda", "kandinsky2_tpu_torch/csrc/flash_attention.cu",
+                                   "kandinsky2_tpu/ops/flash_attention.py:122"),
     }
     kernels = []
     for name, rows in results.items():
         route, source, replaces = meta[name]
         main_row = max(rows, key=lambda r: r[4])  # the heaviest path shape
+        # the forward kernels' main path is the slice (phase 5), the backward
+        # kernels' the full-width train steps (phase 8)
+        launches = train_counts[name] if name.startswith("flash_attention_bwd") \
+            else counts[name]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": counts[name],
+            "launches": launches, "train_launches": train_counts[name],
             "max_abs_err": max(r[2] for r in rows),
             "ms": main_row[3], "plain_ms": main_row[4],
             "timed_shape": f"{main_row[0]} {list(main_row[1])}",
         })
-    print(f"slice: {seconds:.4f} s/image")
+    print(f"slice: {seconds:.4f} s/image; train: {step_s:.4f} s/step")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

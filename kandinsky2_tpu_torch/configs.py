@@ -195,9 +195,15 @@ def create_model(
 def schedule_kwargs(diffusion_config: dict, timestep_respacing=None) -> dict:
     """diffusion_config dict -> make_schedule kwargs + sampler types
     (model_creation.py:86-128)."""
-    from .diffusion.gaussian import MeanType, VarType
+    from .diffusion.gaussian import LossType, MeanType, VarType
 
     dc = diffusion_config
+    if dc.get("use_kl"):
+        loss_type = LossType.RESCALED_KL
+    elif dc.get("rescale_learned_sigmas"):
+        loss_type = LossType.RESCALED_MSE
+    else:
+        loss_type = LossType.MSE
     mean_type = MeanType.START_X if dc.get("predict_xstart") else MeanType.EPSILON
     if dc.get("learn_sigma"):
         var_type = VarType.LEARNED_RANGE
@@ -219,6 +225,7 @@ def schedule_kwargs(diffusion_config: dict, timestep_respacing=None) -> dict:
         ),
         mean_type=mean_type,
         var_type=var_type,
+        loss_type=loss_type,
     )
 
 

@@ -1,5 +1,6 @@
 from . import schedules
 from .gaussian import (
+    LossType,
     MeanType,
     Schedule,
     VarType,
@@ -7,5 +8,7 @@ from .gaussian import (
     make_schedule,
     p_mean_variance,
     predict_xstart_from_eps,
+    q_sample,
+    training_losses,
 )
 from .samplers import DDIMTables, ddim_loop, make_ddim_tables, p_sample_loop

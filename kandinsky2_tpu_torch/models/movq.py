@@ -1,11 +1,13 @@
-"""MoVQ decoder, NHWC, the counterpart of the decode half of
-``kandinsky2_tpu/models/movq.py``: ``SpatialNorm``, ``ResnetBlock``,
-``AttnBlock``, ``Upsample``, the spatially-normalised ``Decoder`` and
-``MOVQ.decode`` with ``post_quant_conv``.  The encoder and the quantizer are
-not ported yet.
+"""MoVQ codec, NHWC, the counterpart of ``kandinsky2_tpu/models/movq.py``:
+``SpatialNorm``, ``ResnetBlock``, ``AttnBlock``, ``Downsample`` (asymmetric
+pad), ``Upsample``, the conv ``Encoder``, the spatially-normalised
+``Decoder``, the ``VectorQuantizer`` and the ``MOVQ`` facade (``encode``
+through ``quant_conv``, ``decode`` through ``post_quant_conv``).
 
 Every norm runs the GroupNorm kernel pair, and the single-head d = 512
-``AttnBlock`` runs the flash-attention kernel, on a CUDA tensor.
+``AttnBlock`` runs the flash-attention kernel, on a CUDA tensor.  The
+encoder's blocks norm with a plain GroupNorm(32, eps 1e-6), the decoder's
+with a ``SpatialNorm`` modulated by the latent.
 """
 
 from __future__ import annotations
@@ -44,47 +46,76 @@ class SpatialNorm(nn.Module):
                 + resize_nearest(self.conv_b(zq), size))
 
 
-class ResnetBlock(nn.Module):
-    """movq_modules.ResnetBlock:120 (no timestep embedding)."""
+def _make_norm(channels, zq_channels, dtype, device):
+    """GroupNorm(32, eps 1e-6) for the encoder (``zq_channels`` None), a
+    SpatialNorm for the decoder (movq_modules.Normalize vs
+    vqgan_blocks.Normalize)."""
+    if zq_channels is None:
+        return GroupNorm32(channels, eps=1e-6, device=device)
+    return SpatialNorm(channels, zq_channels, dtype, device)
 
-    def __init__(self, in_channels, out_channels, zq_channels,
+
+def _apply_norm(norm, x, zq):
+    return norm(x) if zq is None else norm(x, zq)
+
+
+class ResnetBlock(nn.Module):
+    """vqgan_blocks.ResnetBlock:129 / movq_modules.ResnetBlock:120 (no
+    timestep embedding); ``zq_channels`` None for the encoder's blocks."""
+
+    def __init__(self, in_channels, out_channels, zq_channels=None,
                  dtype=torch.float32, device=None):
         super().__init__()
-        self.norm1 = SpatialNorm(in_channels, zq_channels, dtype, device)
+        self.norm1 = _make_norm(in_channels, zq_channels, dtype, device)
         self.conv1 = Conv2d(in_channels, out_channels, dtype=dtype, device=device)
-        self.norm2 = SpatialNorm(out_channels, zq_channels, dtype, device)
+        self.norm2 = _make_norm(out_channels, zq_channels, dtype, device)
         self.conv2 = Conv2d(out_channels, out_channels, dtype=dtype, device=device)
         self.nin_shortcut = (
             Linear(in_channels, out_channels, dtype=dtype, device=device)
             if in_channels != out_channels else None
         )
 
-    def forward(self, x, zq):
-        h = self.conv1(F.silu(self.norm1(x, zq)))
-        h = self.conv2(F.silu(self.norm2(h, zq)))
+    def forward(self, x, zq=None):
+        h = self.conv1(F.silu(_apply_norm(self.norm1, x, zq)))
+        h = self.conv2(F.silu(_apply_norm(self.norm2, h, zq)))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
 
 
 class AttnBlock(nn.Module):
-    """Single-head full spatial self-attention (movq_modules.py:182-225),
-    through the flash-attention kernel with d = C."""
+    """Single-head full spatial self-attention (vqgan_blocks.py:196-239 /
+    movq_modules.py:182-225), through the flash-attention kernel with
+    d = C."""
 
-    def __init__(self, channels, zq_channels, dtype=torch.float32, device=None):
+    def __init__(self, channels, zq_channels=None, dtype=torch.float32,
+                 device=None):
         super().__init__()
-        self.norm = SpatialNorm(channels, zq_channels, dtype, device)
+        self.norm = _make_norm(channels, zq_channels, dtype, device)
         self.q = Linear(channels, channels, dtype=dtype, device=device)
         self.k = Linear(channels, channels, dtype=dtype, device=device)
         self.v = Linear(channels, channels, dtype=dtype, device=device)
         self.proj_out = Linear(channels, channels, dtype=dtype, device=device)
 
-    def forward(self, x, zq):
+    def forward(self, x, zq=None):
         B, H, W, C = x.shape
-        h = self.norm(x, zq)
+        h = _apply_norm(self.norm, x, zq)
         q, k, v = (lin(h).reshape(B, H * W, 1, C) for lin in (self.q, self.k, self.v))
         out = flash_attention(q, k, v)[0].reshape(B, H, W, C)
         return x + self.proj_out(out)
+
+
+class Downsample(nn.Module):
+    """Asymmetric-pad strided conv (vqgan_blocks.py:109-126): one zero row
+    and column at the bottom and right, then a 3x3 conv of stride 2."""
+
+    def __init__(self, channels, dtype=torch.float32, device=None):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, stride=2, padding=0, dtype=dtype,
+                           device=device)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
 
 
 class Upsample(nn.Module):
@@ -150,15 +181,91 @@ class Decoder(nn.Module):
         return self.conv_out(h)
 
 
-class MOVQ(nn.Module):
-    """MoVQ facade (autoencoder.py:160-201), decode half: the latent itself
-    modulates the decoder."""
+class Encoder(nn.Module):
+    """Conv encoder (vqgan_blocks.Encoder:253-367), ``double_z`` False."""
 
-    def __init__(self, z_channels=4, embed_dim=4, ch=128,
+    def __init__(self, ch=128, ch_mult: Sequence[int] = (1, 2, 2, 4),
+                 num_res_blocks=2, attn_resolutions: Sequence[int] = (32,),
+                 resolution=256, in_channels=3, z_channels=4,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        in_ch_mult = (1,) + tuple(ch_mult)
+        self.conv_in = Conv2d(in_channels, ch, **kw)
+        curr_res = resolution
+        self.down = nn.ModuleList()
+        for i_level, mult in enumerate(ch_mult):
+            block_in = ch * in_ch_mult[i_level]
+            block_out = ch * mult
+            blocks, attns = nn.ModuleList(), nn.ModuleList()
+            for _ in range(num_res_blocks):
+                blocks.append(ResnetBlock(block_in, block_out, **kw))
+                block_in = block_out
+                if curr_res in attn_resolutions:
+                    attns.append(AttnBlock(block_in, **kw))
+            level = Container(block=blocks, attn=attns)
+            if i_level != len(ch_mult) - 1:
+                level.downsample = Downsample(block_in, **kw)
+                curr_res //= 2
+            self.down.append(level)
+        self.mid = Container(
+            block_1=ResnetBlock(block_in, block_in, **kw),
+            attn_1=AttnBlock(block_in, **kw),
+            block_2=ResnetBlock(block_in, block_in, **kw),
+        )
+        self.norm_out = GroupNorm32(block_in, eps=1e-6, device=device)
+        self.conv_out = Conv2d(block_in, z_channels, **kw)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for level in self.down:
+            for i, block in enumerate(level.block):
+                h = block(h)
+                if len(level.attn):
+                    h = level.attn[i](h)
+            if hasattr(level, "downsample"):
+                h = level.downsample(h)
+        h = self.mid.block_1(h)
+        h = self.mid.attn_1(h)
+        h = self.mid.block_2(h)
+        return self.conv_out(F.silu(self.norm_out(h)))
+
+
+class VectorQuantizer(nn.Module):
+    """L2 nearest-codebook lookup with the straight-through estimator
+    (quntize.py:80-131)."""
+
+    def __init__(self, n_e=16384, e_dim=4, device=None):
+        super().__init__()
+        self.e_dim = e_dim
+        self.embedding = nn.Embedding(n_e, e_dim, device=device)
+
+    def forward(self, z):
+        """z NHWC with C = e_dim -> (z_q, indices [B, H, W]): argmin of
+        |z|² + |e|² − 2 z·e in fp32."""
+        emb = self.embedding.weight.float()
+        flat = z.reshape(-1, self.e_dim).float()
+        d = (flat.pow(2).sum(1, keepdim=True) + emb.pow(2).sum(1)[None]
+             - 2.0 * flat @ emb.t())
+        idx = torch.argmin(d, dim=1)
+        z_q = emb[idx].reshape(z.shape).to(z.dtype)
+        return z + (z_q - z).detach(), idx.reshape(z.shape[:-1])
+
+
+class MOVQ(nn.Module):
+    """MoVQ facade (autoencoder.py:160-201): ``encode`` returns the
+    pre-quantisation latent (the 2.1 pipeline never quantises on encode,
+    autoencoder.py:176-180); ``decode`` modulates the decoder with the
+    latent itself."""
+
+    def __init__(self, z_channels=4, embed_dim=4, n_embed=16384, ch=128,
                  ch_mult: Sequence[int] = (1, 2, 2, 4), num_res_blocks=2,
                  attn_resolutions: Sequence[int] = (32,), resolution=256,
-                 out_ch=3, dtype=torch.float32, device=None):
+                 in_channels=3, out_ch=3, dtype=torch.float32, device=None):
         super().__init__()
+        # the decode half first: seeded random draws (init_random_ walks the
+        # modules in this order) give the decoder the weights it had before
+        # the encoder was ported
         self.decoder = Decoder(
             ch=ch, out_ch=out_ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
             attn_resolutions=attn_resolutions, resolution=resolution,
@@ -167,6 +274,17 @@ class MOVQ(nn.Module):
         )
         self.post_quant_conv = Linear(embed_dim, z_channels, dtype=dtype,
                                       device=device)
+        self.encoder = Encoder(
+            ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+            attn_resolutions=attn_resolutions, resolution=resolution,
+            in_channels=in_channels, z_channels=z_channels, dtype=dtype,
+            device=device,
+        )
+        self.quantize = VectorQuantizer(n_embed, embed_dim, device=device)
+        self.quant_conv = Linear(z_channels, embed_dim, dtype=dtype, device=device)
+
+    def encode(self, x):
+        return self.quant_conv(self.encoder(x))
 
     def decode(self, quant):
         return self.decoder(self.post_quant_conv(quant), quant)

@@ -1,8 +1,9 @@
 """Attention swap point, the counterpart of ``kandinsky2_tpu/ops/attention.py``.
 
 Unmasked calls (the UNet's spatial attention with the encoder tokens
-prepended to K/V) go to the flash-attention kernel on a CUDA tensor, and to
-its plain version on the CPU.  Masked calls stay plain PyTorch with the JAX
+prepended to K/V) go to ``FlashAttentionFunction``: the flash-attention
+kernels forward and backward on a CUDA tensor, and their plain versions on
+the CPU.  Masked calls stay plain PyTorch with the JAX
 package's semantics: q and k each pre-scaled by ch^-1/4, logits in the
 activation dtype, the additive mask and the softmax in fp32.
 """

@@ -1,15 +1,25 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: the hand-written Hopper kernels,
+their plain PyTorch versions, and the autograd Function that joins them.
 
-Replaces ``kandinsky2_tpu/ops/flash_attention.py`` (``_flash_kernel``, the
-Pallas forward launched by ``_flash_bhd``).  The CUDA source is
-``csrc/flash_attention.cu``; its header note says how the kernel is laid
-out, what bounds it on the H100 and how it handles d = 512.
+Replaces ``kandinsky2_tpu/ops/flash_attention.py``:
+
+* K3 ``flash_attention_fwd`` replaces ``_flash_bhd`` (``_flash_kernel``):
+  O and the per-row log-sum-exp.  Source ``csrc/flash_attention.cu``.
+* K4 ``flash_attention_bwd_dkv`` and K5 ``flash_attention_bwd_dq`` replace
+  ``_flash_bwd_bhd`` (``_flash_bwd_dkv_kernel`` and
+  ``_flash_bwd_dq_kernel``): dK, dV and dQ from the saved LSE and
+  delta = rowsum(dO·O).  Same source.
+* ``FlashAttentionFunction`` is the counterpart of the ``custom_vjp`` of
+  the JAX ``flash_attention``: the forward saves q, k, v, O and LSE, the
+  backward runs K5 and K4.
+
+The CUDA source's header note says how each kernel is laid out, what
+bounds it on the H100 and how it handles ragged T and S.
 
 ``flash_attention(q, k, v)`` takes q [B, T, H, d] and k, v [B, S, H, d]
-(the JAX package's layout) and returns (o [B, T, H, d], lse [B*H, T] fp32).
-For a CPU tensor it runs ``flash_attention_plain``; for a CUDA tensor it
-launches the kernel or raises.
+(the JAX package's layout) and returns (o [B, T, H, d], lse [B*H, T] fp32),
+differentiable in q, k and v.  For CPU tensors both directions run the
+plain versions; for CUDA tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 from ._build import check, load_library
 
 SUPPORTED_HEAD_DIMS = (64, 512)
+BACKWARD_HEAD_DIMS = (64,)
 
 
 def flash_attention_plain(q, k, v):
@@ -37,52 +48,174 @@ def flash_attention_plain(q, k, v):
     return o.permute(0, 2, 1, 3).to(q.dtype), lse.reshape(B * H, T)
 
 
+def flash_attention_bwd_plain(q, k, v, o, lse, do):
+    """(dq, dk, dv) of ``flash_attention_plain`` from the saved O and LSE, in
+    fp32 matmuls: P = exp(scale·q kᵀ − LSE), dS = P ⊙ (dO vᵀ − rowsum(dO·O))
+    · scale, as ``_flash_bwd_bhd`` computes it.  Gradients in q's dtype."""
+    B, T, H, d = q.shape
+    S = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, of, dof = (x.float().permute(0, 2, 1, 3) for x in (q, k, v, o, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.reshape(B, H, T, 1))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    back = lambda x, L: x.permute(0, 2, 1, 3).to(q.dtype).reshape(B, L, H, d)
+    return back(dq, T), back(dk, S), back(dv, S)
+
+
 def _kernel_ok(x: torch.Tensor) -> bool:
     return x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
         s % 8 == 0 for s in x.stride()[:-1]
     )
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Non-causal, unmasked attention.  See the module docstring."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
+def _bhl(x: torch.Tensor):
+    """Element strides (batch, head, row) of a [B, L, H, d] tensor."""
+    return x.stride(0), x.stride(2), x.stride(1)
+
+
+def _check_qkv(name: str, q, k, v, head_dims):
     if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
+        raise RuntimeError(f"{name}: no kernel for device {q.device}")
     B, T, H, d = q.shape
     S = k.shape[1]
     if k.shape != (B, S, H, d) or v.shape != (B, S, H, d):
-        raise ValueError(f"flash_attention: shapes {q.shape} {k.shape} {v.shape}")
+        raise ValueError(f"{name}: shapes {q.shape} {k.shape} {v.shape}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError("flash_attention: the CUDA kernel takes bfloat16 q, k, v")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention: head dim {d} not built (have {SUPPORTED_HEAD_DIMS})"
-        )
+        raise TypeError(f"{name}: the CUDA kernel takes bfloat16 q, k, v")
+    if d not in head_dims:
+        raise ValueError(f"{name}: head dim {d} not built (have {head_dims})")
+    return B, T, S, H, d
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """K3: (o, lse) of non-causal, unmasked attention.  For a CPU tensor the
+    plain version; for a CUDA tensor the kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    B, T, S, H, d = _check_qkv("flash_attention_fwd", q, k, v, SUPPORTED_HEAD_DIMS)
     q, k, v = (x if _kernel_ok(x) else x.contiguous() for x in (q, k, v))
     o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    # element strides as (batch, head, row) for each [B, L, H, d] tensor
-    bhl = lambda x: (x.stride(0), x.stride(2), x.stride(1))
-    strides = (ctypes.c_longlong * 12)(*bhl(q), *bhl(k), *bhl(v), *bhl(o))
-    lib = _lib()
-    flash_attention.launches += 1
+    strides = (ctypes.c_longlong * 12)(*_bhl(q), *_bhl(k), *_bhl(v), *_bhl(o))
+    lib = _lib("k2_flash_fwd_bf16", 5)
+    flash_attention_fwd.launches += 1
     err = lib.k2_flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, H, T, S, d, strides, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    check(err, "flash_attention kernel launch")
+    check(err, "flash_attention_fwd kernel launch")
     return o, lse
 
 
-flash_attention.launches = 0
+flash_attention_fwd.launches = 0
 
 
-def _lib():
+def _launch_bwd(wrapper, entry: str, q, k, v, do, lse, delta, dq, dk, dv):
+    """Launch K5 (``dq`` given) or K4 (``dk``, ``dv`` given) on the card and
+    count the launch on ``wrapper``."""
+    B, T, S, H, d = _check_qkv(entry, q, k, v, BACKWARD_HEAD_DIMS)
+    if do.shape != q.shape or do.dtype != torch.bfloat16:
+        raise ValueError(f"{entry}: dO must be bfloat16 of q's shape")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (B * H, T) or x.dtype != torch.float32:
+            raise ValueError(f"{entry}: {name} must be fp32 [B*H, T]")
+    null = (0, 0, 0)
+    strides = (ctypes.c_longlong * 21)(
+        *_bhl(q), *_bhl(k), *_bhl(v), *_bhl(do),
+        *(null if dq is None else _bhl(dq)), *(null if dk is None else _bhl(dk)),
+        *(null if dv is None else _bhl(dv)),
+    )
+    ptr = lambda x: 0 if x is None else x.data_ptr()
+    wrapper.launches += 1
+    err = getattr(_lib(entry, 9), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
+        B, H, T, S, d, strides, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(err, f"{entry} kernel launch")
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta):
+    """K5: dq [B, T, H, d] on the card.  lse, delta: [B*H, T] fp32."""
+    q, k, v, do = (x if _kernel_ok(x) else x.contiguous() for x in (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _launch_bwd(flash_attention_bwd_dq, "k2_flash_bwd_dq_bf16", q, k, v, do,
+                lse, delta, dq, None, None)
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
+    """K4: (dk, dv), each [B, S, H, d], on the card."""
+    q, k, v, do = (x if _kernel_ok(x) else x.contiguous() for x in (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _launch_bwd(flash_attention_bwd_dkv, "k2_flash_bwd_dkv_bf16", q, k, v, do,
+                lse, delta, None, dk, dv)
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do):
+    """(dq, dk, dv) of ``flash_attention_fwd``.  For CPU tensors the plain
+    version; for CUDA tensors delta = rowsum(dO·O) in fp32, then K5 and K4
+    (``_flash_bwd`` of the JAX package)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do)
+    B, T, H, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, T)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Autograd for flash attention: K3 forward saving (q, k, v, o, lse);
+    K5 + K4 backward (plain versions for CPU tensors).  LSE is an output
+    without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, o, lse, do)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Non-causal, unmasked attention with gradients.  See the module
+    docstring.  With grad mode off (serving runs under ``inference_mode``)
+    it launches the forward directly: no graph is recorded there, and
+    ``Function.apply`` would only add host time to every call."""
+    if not torch.is_grad_enabled():
+        return flash_attention_fwd(q, k, v)
+    return FlashAttentionFunction.apply(q, k, v)
+
+
+def _lib(entry: str, n_ptrs: int):
+    """The kernels' library with ``entry`` bound: ``n_ptrs`` pointers, five
+    ints (B, H, T, S, d), the strides and the stream."""
     lib = load_library("flash_attention.cu")
-    fn = lib.k2_flash_fwd_bf16
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int

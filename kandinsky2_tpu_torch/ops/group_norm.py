@@ -30,6 +30,14 @@ plain version it differs only by fp32 summation order, a relative error of
 about 1e-6·√N on the moments, well inside the bf16 tolerance that the
 comparisons on the card state.
 
+Gradients: ``GroupNormFunction`` is the counterpart of the ``custom_vjp``
+of ``pallas_group_norm``.  Its forward is K1 + ``_coefficients`` + K2 and
+saves only the inputs; its backward recomputes the norm in plain PyTorch
+(``group_norm_plain``, the counterpart of ``_xla_reference``) and
+differentiates that, as the JAX package differentiates its XLA
+formulation.  The JAX package has no GroupNorm backward kernel, so neither
+has the port.
+
 Any C with C % groups == 0 is accepted (the TPU's C % 128 rule was a tiling
 rule of the TPU).  Triton is imported only inside the launching functions.
 """
@@ -207,17 +215,55 @@ def _norm(x, scale, bias, num_groups, eps, swish, film, moments, apply):
     return apply(x3, a, b, swish).reshape(x.shape)
 
 
+def group_norm_plain(x, scale, bias, num_groups: int, eps: float,
+                     swish: float = 0.0, film=None):
+    """The same function through the plain versions of K1 and K2, and
+    differentiable by autograd: the backward target of ``GroupNormFunction``."""
+    return _norm(x, scale, bias, num_groups, eps, swish, film,
+                 group_norm_moments_plain, group_norm_apply_plain)
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """K1 + K2 forward (their plain versions for CPU tensors), saving only
+    the inputs; backward through autograd of ``group_norm_plain`` on the
+    saved inputs.  Gradients for x, scale, bias and the FiLM pair (fs, fb),
+    each None where that input needs none."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, fs, fb, num_groups, eps, swish):
+        ctx.save_for_backward(x, scale, bias, fs, fb)
+        ctx.config = (num_groups, eps, swish)
+        film = None if fs is None else (fs, fb)
+        return _norm(x, scale, bias, num_groups, eps, swish, film,
+                     group_norm_moments, group_norm_apply)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(saved, needs)]
+            x, scale, bias, fs, fb = inputs
+            y = group_norm_plain(x, scale, bias, *ctx.config,
+                                 film=None if fs is None else (fs, fb))
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            grads = iter(torch.autograd.grad(y, wanted, gy) if wanted else ())
+        return (*(next(grads) if n else None for n in needs), None, None, None)
+
+
 def group_norm(x, scale, bias, num_groups: int, eps: float, swish: float = 0.0,
                film=None):
     """GroupNorm over the last (channel) axis of x [B, ..., C], one-pass fp32
     moments, optional FiLM ``film=(fs, fb)`` ([B, C] or [B, 1, 1, C]) and
-    SiLU; output in x's dtype.  Routes to K1 + K2."""
-    return _norm(x, scale, bias, num_groups, eps, swish, film,
-                 group_norm_moments, group_norm_apply)
-
-
-def group_norm_plain(x, scale, bias, num_groups: int, eps: float,
-                     swish: float = 0.0, film=None):
-    """The same function through the plain versions of K1 and K2."""
-    return _norm(x, scale, bias, num_groups, eps, swish, film,
-                 group_norm_moments_plain, group_norm_apply_plain)
+    SiLU; output in x's dtype.  Routes to K1 + K2 through
+    ``GroupNormFunction``, so it is differentiable on every device; with
+    grad mode off (serving runs under ``inference_mode``) it calls them
+    directly, since no graph is recorded there and ``Function.apply`` would
+    only add host time to every call."""
+    if not torch.is_grad_enabled():
+        return _norm(x, scale, bias, num_groups, eps, swish, film,
+                     group_norm_moments, group_norm_apply)
+    fs, fb = (None, None) if film is None else film
+    return GroupNormFunction.apply(x, scale, bias, fs, fb, num_groups,
+                                   float(eps), float(swish))

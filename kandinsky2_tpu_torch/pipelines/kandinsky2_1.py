@@ -1,5 +1,7 @@
 """Kandinsky 2.1 text2img in PyTorch, the counterpart of
-``kandinsky2_tpu/pipelines/kandinsky2_1.py`` (its fused text2img program).
+``kandinsky2_tpu/pipelines/kandinsky2_1.py`` (its fused text2img program),
+and the frozen-encoder helpers of decoder training (``clip_preprocess``,
+``encode_images``, ``movq_encode``).
 
 One eager path per call: CLIP text tower -> guided prior (ancestral ladder)
 -> CLIP ViT on the zero image -> XLM-R + MultilingualCLIP -> UNet
@@ -33,8 +35,26 @@ from ..utils import (
 )
 from ..weights.from_jax import load_jax_params
 
-# submodules of the JAX MOVQ tree that the port does not have yet
-MOVQ_UNPORTED = ("encoder.", "quant_conv.", "quantize.")
+CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+def clip_preprocess(pil_image, image_size: int = 224) -> np.ndarray:
+    """CLIP preprocessing (resize + centre crop + normalise), NHWC
+    [1, S, S, 3] float32; a copy of the JAX package's."""
+    from PIL import Image
+
+    w, h = pil_image.size
+    scale = image_size / min(w, h)
+    pil_image = pil_image.resize(
+        (round(w * scale), round(h * scale)), resample=Image.BICUBIC
+    )
+    w, h = pil_image.size
+    left, top = (w - image_size) // 2, (h - image_size) // 2
+    pil_image = pil_image.crop((left, top, left + image_size, top + image_size))
+    arr = np.asarray(pil_image.convert("RGB"), np.float32) / 255.0
+    arr = (arr - CLIP_IMAGE_MEAN) / CLIP_IMAGE_STD
+    return arr[None]
 
 
 # last layers of residual branches: the reference initialises the UNet's to
@@ -113,10 +133,11 @@ class Kandinsky2_1:
         self.scale = ie["scale"]
         self.movq = MOVQ(
             z_channels=dd["z_channels"], embed_dim=ie["params"]["embed_dim"],
-            ch=dd["ch"], ch_mult=tuple(dd["ch_mult"]),
-            num_res_blocks=dd["num_res_blocks"],
+            n_embed=ie["params"]["n_embed"], ch=dd["ch"],
+            ch_mult=tuple(dd["ch_mult"]), num_res_blocks=dd["num_res_blocks"],
             attn_resolutions=tuple(dd["attn_resolutions"]),
-            resolution=dd["resolution"], out_ch=dd["out_ch"], **kw,
+            resolution=dd["resolution"], in_channels=dd.get("in_channels", 3),
+            out_ch=dd["out_ch"], **kw,
         )
         self.clip_image_size = self.config.get("clip_image_size", 224)
         clip_dim = hp["clip_dim"]
@@ -140,7 +161,10 @@ class Kandinsky2_1:
     def init_random_params(self, generator: Optional[torch.Generator] = None,
                            dtype=None):
         """Random parameters from ``generator`` (seed 0 by default), then cast
-        to ``dtype`` (the activation dtype by default)."""
+        to ``dtype`` (the activation dtype by default).  ``torch.float32``
+        keeps fp32 parameters while every module still computes in the
+        pipeline's dtype: the JAX trainer's policy (fp32 parameters, bf16
+        compute)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         for model in self.models().values():
@@ -152,8 +176,18 @@ class Kandinsky2_1:
         package: one nested dict of arrays per model) through the bridge,
         keeping each parameter's device and dtype."""
         for name, model in self.models().items():
-            skip = MOVQ_UNPORTED if name == "movq" else ()
-            load_jax_params(model, params[name], skip_prefixes=skip)
+            load_jax_params(model, params[name])
+
+    def encode_images(self, image) -> torch.Tensor:
+        """CLIP image embedding of NHWC images already through
+        ``clip_preprocess`` (kandinsky2_1_model.py:177-181)."""
+        return self.clip_vision(torch.as_tensor(image, device=self.device))
+
+    def movq_encode(self, image) -> torch.Tensor:
+        """MoVQ latent (pre-quantisation, not yet scaled) of NHWC images in
+        [-1, 1], in fp32 (``_movq_encode`` of the JAX pipeline)."""
+        x = torch.as_tensor(image, device=self.device).to(self.dtype)
+        return self.movq.encode(x).float()
 
     @torch.inference_mode()
     def generate_text2img(

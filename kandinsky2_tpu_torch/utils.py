@@ -56,18 +56,22 @@ def images_to_uint8(batch: np.ndarray) -> np.ndarray:
     return np.clip(np.rint((arr + 1.0) * 127.5), 0, 255).astype(np.uint8)
 
 
-def stub_tokenizers():
+def stub_tokenizers(vocab_size: int = 250002):
     """Deterministic stand-ins for the XLM-R (HF call) and CLIP BPE
-    tokenizers, for runs with random weights; the same as ``bench.py``'s."""
+    tokenizers, for runs with random weights; the same as ``bench.py``'s.
+    The XLM-R stand-in keeps its ids below ``vocab_size``."""
+    id_range = min(1000, vocab_size - 5)
 
     class HFTok:
         def __call__(self, texts, max_length=77, **kw):
+            if isinstance(texts, str):
+                texts = [texts]
             n = len(texts)
             ids = np.ones((n, max_length), np.int32)
             mask = np.zeros((n, max_length), np.int32)
             for i, t in enumerate(texts):
                 L = min(max_length, 2 + len(t.split()))
-                ids[i, :L] = 5 + (np.arange(L) % 1000)
+                ids[i, :L] = 5 + (np.arange(L) % id_range)
                 mask[i, :L] = 1
             return {"input_ids": ids, "attention_mask": mask}
 

@@ -21,7 +21,7 @@ port key must be filled; anything else raises.
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -81,19 +81,14 @@ def _apply(op: str, a: np.ndarray) -> np.ndarray:
     return a
 
 
-def plan(jax_tree: Mapping, target_shapes: Mapping[str, tuple],
-         skip_prefixes: Iterable[str] = ()) -> dict:
+def plan(jax_tree: Mapping, target_shapes: Mapping[str, tuple]) -> dict:
     """{torch key: (jax path, transform)} for every leaf, checked against the
-    port's ``target_shapes`` ({key: shape}).  Leaves whose torch key starts
-    with one of ``skip_prefixes`` (submodules the port does not have yet)
-    are left out.  Raises on an unmatched or mis-shaped key."""
-    skip = tuple(skip_prefixes)
+    port's ``target_shapes`` ({key: shape}).  Raises on an unmatched or
+    mis-shaped key."""
     out = {}
     unmatched = []
     for path, arr in flatten(jax_tree).items():
         key = torch_key_for(path)
-        if skip and key.startswith(skip):
-            continue
         if key not in target_shapes:
             unmatched.append(key)
             continue
@@ -108,24 +103,22 @@ def plan(jax_tree: Mapping, target_shapes: Mapping[str, tuple],
     return out
 
 
-def jax_to_state_dict(jax_tree: Mapping, module: torch.nn.Module,
-                      skip_prefixes: Iterable[str] = ()) -> dict:
+def jax_to_state_dict(jax_tree: Mapping, module: torch.nn.Module) -> dict:
     """The port state_dict of ``module`` filled from ``jax_tree`` (numpy or
     JAX arrays), as float32 CPU tensors."""
     target = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     flat = flatten(jax_tree)
     return {
         key: torch.from_numpy(np.ascontiguousarray(
-            _apply(op, np.asarray(flat[path], dtype=np.float32))))
-        for key, (path, op) in plan(jax_tree, target, skip_prefixes).items()
+            _apply(op, np.array(flat[path], dtype=np.float32))))
+        for key, (path, op) in plan(jax_tree, target).items()
     }
 
 
-def load_jax_params(module: torch.nn.Module, jax_tree: Mapping,
-                    skip_prefixes: Iterable[str] = ()) -> torch.nn.Module:
+def load_jax_params(module: torch.nn.Module, jax_tree: Mapping) -> torch.nn.Module:
     """Copy ``jax_tree`` into ``module`` in place, keeping each parameter's
     device and dtype."""
-    sd = jax_to_state_dict(jax_tree, module, skip_prefixes)
+    sd = jax_to_state_dict(jax_tree, module)
     with torch.no_grad():
         for key, param in module.state_dict().items():
             param.copy_(sd[key])

@@ -1,5 +1,7 @@
 """The port's hand-written kernels against their plain PyTorch versions on
-the card, at the shapes of the 768² 2.1 text2img path, in bf16.
+the card, at the shapes of the 768² 2.1 text2img path and of the decoder
+training step, in bf16; and the autograd Functions that carry gradients
+through them.
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run where JAX is not installed, without the JAX-pinning conftest:
@@ -13,6 +15,10 @@ import torch
 from kandinsky2_tpu_torch.ops import group_norm as tgn
 from kandinsky2_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
     flash_attention_plain,
 )
 
@@ -59,3 +65,61 @@ def test_flash_kernel_matches_plain(gen, B, T, S, H, d):
     o_max = o_ref.float().abs().max().item()
     assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2 * o_max
     assert (lse - lse_ref).abs().max().item() <= 1e-3 * lse_ref.abs().max().item()
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|, in fp32."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("B,T,S,H", [
+    (1, 2304, 2391, 12), (1, 576, 663, 18), (1, 144, 231, 24), (2, 37, 50, 1),
+])
+def test_flash_backward_kernels_match_plain(gen, B, T, S, H):
+    """K5 (dq) and K4 (dk, dv) at the training path's UNet shapes (d = 64,
+    S = T + 87 encoder tokens) and a ragged toy shape, against the fp32 plain
+    backward from the same saved O and LSE.  P and dS are rounded to bf16
+    before their MMAs: 2e-2 of the largest reference gradient."""
+    d = 64
+    q, k, v = (torch.randn((B, L, H, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for L in (T, S, S))
+    do = torch.randn((B, T, H, d), generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, T)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16, name
+        assert _rel_err(got, ref) <= 2e-2, name
+
+
+def test_functions_carry_gradients_on_the_card(gen):
+    """GroupNorm and flash attention on CUDA tensors that require gradients
+    give outputs with an autograd graph, and input gradients that match
+    autograd of the plain versions."""
+    x = torch.randn((1, 96, 96, 384), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(384, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(384, generator=gen, device="cuda")
+    fs = (0.1 * torch.randn((1, 1, 1, 384), generator=gen, device="cuda")).to(torch.bfloat16)
+    fb = torch.randn((1, 1, 1, 384), generator=gen, device="cuda").to(torch.bfloat16)
+    ins = [t.requires_grad_() for t in (x, scale, bias, fs, fb)]
+    y = tgn.group_norm(x, scale, bias, 32, 1e-5, swish=1.0, film=(fs, fb))
+    assert y.requires_grad and type(y.grad_fn).__name__ == "GroupNormFunctionBackward"
+    gy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    got = torch.autograd.grad(y, ins, gy)
+    want = torch.autograd.grad(
+        tgn.group_norm_plain(x, scale, bias, 32, 1e-5, swish=1.0, film=(fs, fb)), ins, gy)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel_err(g, w) <= 1e-2
+
+    q, k, v = (torch.randn((1, L, 12, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for L in (2304, 2391, 2391))
+    o = flash_attention(q, k, v)[0]
+    assert o.requires_grad and type(o.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    go = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+    got = torch.autograd.grad(o, (q, k, v), go)
+    want = torch.autograd.grad(flash_attention_plain(q, k, v)[0], (q, k, v), go)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel_err(g, w) <= 2e-2

@@ -1,8 +1,8 @@
 """Full-size structure check of the port: the five 2.1 slice models built at
 the full ``CONFIG_2_1`` width on the meta device (nothing allocated) against
 the JAX trees from ``jax.eval_shape`` of ``init``.  The bridge must map every
-JAX leaf of the slice's submodules onto a port key of the transposed shape,
-and fill every port key."""
+JAX leaf onto a port key of the transposed shape, and fill every port key:
+for the MoVQ that includes the encoder, ``quant_conv`` and ``quantize``."""
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +10,6 @@ import pytest
 
 import kandinsky2_tpu.pipelines.kandinsky2_1 as jpipe_mod
 from kandinsky2_tpu_torch.pipelines import Kandinsky2_1 as TorchK21
-from kandinsky2_tpu_torch.pipelines.kandinsky2_1 import MOVQ_UNPORTED
 from kandinsky2_tpu_torch.weights.from_jax import plan
 
 
@@ -46,9 +45,12 @@ def test_fullsize_bridge_covers_model(pipes, name):
     inits, models = pipes
     shapes = jax.eval_shape(inits[name], jax.random.PRNGKey(0))["params"]
     target = {k: tuple(v.shape) for k, v in models[name].state_dict().items()}
-    skip = MOVQ_UNPORTED if name == "movq" else ()
-    mapping = plan(shapes, target, skip_prefixes=skip)
+    mapping = plan(shapes, target)
     assert set(mapping) == set(target)
     n_params = sum(int(jnp.prod(jnp.array(s))) for s in target.values())
     if name == "unet":
         assert 1.2e9 < n_params < 1.25e9  # the 1.22B decoder UNet
+    if name == "movq":
+        for prefix in ("encoder.", "quant_conv.", "quantize.", "decoder."):
+            assert any(k.startswith(prefix) for k in mapping), prefix
+        assert target["quantize.embedding.weight"] == (16384, 4)

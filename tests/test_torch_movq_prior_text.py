@@ -14,7 +14,6 @@ from kandinsky2_tpu.models import text_encoders as jte
 from kandinsky2_tpu_torch.models import movq as tmovq
 from kandinsky2_tpu_torch.models import prior as tprior
 from kandinsky2_tpu_torch.models import text_encoders as tte
-from kandinsky2_tpu_torch.pipelines.kandinsky2_1 import MOVQ_UNPORTED
 from kandinsky2_tpu_torch.weights.from_jax import load_jax_params
 from test_torch_common import MODULE_TOL, assert_close, numpy_params, small_config
 
@@ -32,8 +31,7 @@ def test_movq_decode():
         jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))), 0)
     z = np.random.RandomState(1).randn(1, 8, 8, 4).astype(np.float32)
     want = jax.jit(lambda p, z: jm.apply(p, z, method=jm.decode))(params, z)
-    tm = load_jax_params(tmovq.MOVQ(**kw), params["params"],
-                         skip_prefixes=MOVQ_UNPORTED)
+    tm = load_jax_params(tmovq.MOVQ(n_embed=64, **kw), params["params"])
     with torch.no_grad():
         got = tm.decode(T(z))
     assert got.shape == (1, 64, 64, 3)
