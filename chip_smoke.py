@@ -7,11 +7,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: requires CUDA, prints the card's name and power limit.
 2. build: compiles the hand-written kernels from the sources in the
-   checkout (nvcc for the one CUDA C++ source, the flash forward and
-   backward; Triton for the GroupNorm pair) and prints the build seconds.
+   checkout (one nvcc per CUDA C++ source, all started together: the flash
+   forward and backward, and GroupNorm's statistics; Triton for GroupNorm's
+   apply kernel) and prints the build seconds and ptxas's registers,
+   shared memory and spills per kernel.
 3. kernels: each forward kernel against its plain PyTorch version on the
    card at the shapes of the 768² text2img path, bf16 (one fp32 GroupNorm,
-   the UNet output head), with the stated tolerance and CUDA-event times.
+   the UNet output head), with the stated tolerance; CUDA-event times of
+   the kernel, the plain version and, in turns with them, the one PyTorch
+   call that computes the same function where there is one
+   (``scaled_dot_product_attention``; ``group_norm`` beside the whole
+   GroupNorm op without FiLM and SiLU), each beside its bound.
 4. reference: the whole path at a small width on the card (kernels, bf16)
    against the same weights and injected noise on the CPU (plain
    versions, fp32), beside the plain versions in bf16 on the CPU as the
@@ -19,10 +25,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. slice: Kandinsky 2.1 text2img at full CONFIG_2_1 width with random bf16
    weights from a seeded generator: 768², prior "25", DDIM 50, CFG 4,
    batch 1; one warm-up call and one timed call, during which every
-   forward kernel must be launched.
+   forward kernel must be launched; then host microseconds per group_norm
+   and flash_attention_fwd call under ``inference_mode``, one full-width
+   UNet denoise call and one slice call under ``torch.profiler`` (device
+   ops, device time, wall time, idle share).
 6. kernels, backward: the flash backward kernels (K5 dQ, K4 dK/dV) against
    the plain backward at the decoder training step's UNet attention
-   shapes, and GroupNormFunction's gradients against autograd of the plain
+   shapes, timed in turns with the plain backward and the backward of
+   ``scaled_dot_product_attention``, each beside its bound; and
+   GroupNormFunction's gradients against autograd of the plain
    formulation, with CUDA-event times.
 7. train, small: the decoder fine-tuning CLI's ``run`` on a small config
    with seeded 64² PNGs and a CSV in a temporary directory: two steps and
@@ -39,7 +50,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' results as JSON, and the line before that the card's name and
-power limit.
+power limit.  Bounds are the larger of the bytes a call must move over
+3.35 TB/s and its operations over 989 TFLOP/s (bf16 tensor cores) or
+67 TFLOP/s (fp32), the H100 SXM's data-sheet rates at 700 W.
 """
 
 from __future__ import annotations
@@ -53,7 +66,11 @@ import time
 PROMPT = "red sand dunes under a violet sky"
 # the kernels that text2img (phases 4 and 5) launches; the backward ones run
 # in training only
-FORWARD_KERNELS = ("group_norm_moments", "group_norm_apply", "flash_attention_fwd")
+FORWARD_KERNELS = ("group_norm_stats", "group_norm_apply", "flash_attention_fwd")
+CUDA_SOURCES = ("flash_attention.cu", "group_norm.cu")
+PEAK_BF16 = 989e12   # dense bf16 tensor-core FLOP/s
+PEAK_FP32 = 67e12    # fp32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12  # device-memory bytes/s
 
 
 def smi_line() -> str:
@@ -92,14 +109,52 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def timed_pair(kernel, plain, iters):
-    """Times in turns (plain, kernel, kernel, plain); returns the mean of
-    each pair."""
-    p1 = cuda_ms(plain, iters)
-    k1 = cuda_ms(kernel, iters)
-    k2 = cuda_ms(kernel, iters)
-    p2 = cuda_ms(plain, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def timed_turns(fns: dict, iters: int) -> dict:
+    """Device ms of each function, timed in turns (a, b, c, c, b, a); the
+    mean of each function's two runs."""
+    names = list(fns)
+    runs = {n: [] for n in names}
+    for n in names + names[::-1]:
+        runs[n].append(cuda_ms(fns[n], iters))
+    return {n: sum(v) / len(v) for n, v in runs.items()}
+
+
+def host_us(fn, calls: int = 2000, reps: int = 7) -> float:
+    """Host microseconds per call: the fastest of ``reps`` runs of ``calls``
+    calls, at a shape where the device keeps up with the host."""
+    import torch
+
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return best * 1e6
+
+
+def bound(ops: float, nbytes: float, peak: float):
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    ``ops`` at the rate ``peak`` against ``nbytes`` at PEAK_BYTES."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def device_profile(torch, fn):
+    """Run ``fn`` once under torch.profiler; returns (device ops, device
+    ms, the device events by name).  record_function ranges also show on the device timeline,
+    spanning kernels already counted: left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
+              and not e.is_user_annotation]
+    return (sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3, events)
 
 
 def check(cond: bool, what: str) -> None:
@@ -107,7 +162,23 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _row(label, shape, err, times, bound_ms, bound_by):
+    return {"label": label, "shape": list(shape), "err": err, "ms": times["kernel"],
+            "plain_ms": times["plain"], "library_ms": times.get("library"),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _print_times(name, label, times, bound_ms, bound_by):
+    lib = times.get("library")
+    print(f"{name} {label}: kernel {times['kernel']:.4f} ms plain "
+          f"{times['plain']:.4f} ms library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}; bound {bound_ms:.4f} ms "
+          f"({bound_by}), {bound_ms / times['kernel']:.1%} of it")
+
+
 def phase_kernels(torch, results):
+    import torch.nn.functional as F
+
     from kandinsky2_tpu_torch.ops import group_norm as gn
     from kandinsky2_tpu_torch.ops.flash_attention import (
         flash_attention_fwd,
@@ -128,16 +199,21 @@ def phase_kernels(torch, results):
         ("movq 768^2", (1, 768 * 768, 128), torch.bfloat16),
     ]
     for label, shape, dtype in norm_shapes:
+        B, N, C = shape
+        es = torch.finfo(dtype).bits // 8
         x = randn(shape, dtype)
-        s1, s2 = gn.group_norm_moments(x)
-        p1, p2 = gn.group_norm_moments_plain(x)
+        scale = 1 + 0.1 * randn((C,), torch.float32)
+        bias = 0.1 * randn((C,), torch.float32)
+        film = randn((B, 1, 1, 2 * C)).chunk(2, dim=-1)  # the UNet's FiLM views
+        stats = lambda: gn.group_norm_stats(x, scale, bias, film, 32, 1e-5)
+        stats_plain = lambda: gn.group_norm_stats_plain(x, scale, bias, film, 32, 1e-5)
+        (a, b), (a2, b2), (pa, pb) = stats(), stats(), stats_plain()
         torch.cuda.synchronize()
-        # fp32 sums in another order: relative to the largest moment
-        err1 = max((s1 - p1).abs().max().item(), (s2 - p2).abs().max().item())
-        ref1 = max(p1.abs().max().item(), p2.abs().max().item())
-        tol1 = 1e-5 * ref1
-        B, _, C = shape
-        a, b = randn((B, C), torch.float32), randn((B, C), torch.float32)
+        # fp32 sums in another order: relative to the largest coefficient
+        err1 = max((a - pa).abs().max().item(), (b - pb).abs().max().item())
+        ref1 = max(pa.abs().max().item(), pb.abs().max().item())
+        tol1 = 1e-4 * ref1
+        repeat = torch.equal(a, a2) and torch.equal(b, b2)
         y = gn.group_norm_apply(x, a, b, 1.0)
         yp = gn.group_norm_apply_plain(x, a, b, 1.0)
         torch.cuda.synchronize()
@@ -145,21 +221,35 @@ def phase_kernels(torch, results):
         err2 = (y.float() - yp.float()).abs().max().item()
         ref2 = yp.float().abs().max().item()
         tol2 = (1e-5 if dtype == torch.float32 else 2 ** -7) * max(1.0, ref2)
-        k1_ms, p1_ms = timed_pair(lambda: gn.group_norm_moments(x),
-                                  lambda: gn.group_norm_moments_plain(x), 20)
-        k2_ms, p2_ms = timed_pair(lambda: gn.group_norm_apply(x, a, b, 1.0),
-                                  lambda: gn.group_norm_apply_plain(x, a, b, 1.0),
-                                  20)
-        print(f"K1 moments {label} {shape} {str(dtype)[6:]}: max_abs_err "
-              f"{err1:.3e} (tol {tol1:.3e}) max_rel_err {err1 / ref1:.3e} "
-              f"kernel {k1_ms:.4f} ms plain {p1_ms:.4f} ms")
-        print(f"K2 apply   {label} {shape} {str(dtype)[6:]}: max_abs_err "
-              f"{err2:.3e} (tol {tol2:.3e}) max_rel_err {err2 / ref2:.3e} "
-              f"kernel {k2_ms:.4f} ms plain {p2_ms:.4f} ms")
+        t1 = timed_turns({"kernel": stats, "plain": stats_plain}, 20)
+        t2 = timed_turns({"kernel": lambda: gn.group_norm_apply(x, a, b, 1.0),
+                          "plain": lambda: gn.group_norm_apply_plain(x, a, b, 1.0)}, 20)
+        # x read once; a, b written; scale, bias, fs, fb read: Σx, Σx² per element
+        b1 = bound(3 * B * N * C, B * N * C * es + 2 * B * C * 4 + 2 * C * 4
+                   + 2 * B * C * 2, PEAK_FP32)
+        # x read, y written, a, b read: multiply-add and SiLU per element
+        b2 = bound(6 * B * N * C, 2 * B * N * C * es + 2 * B * C * 4, PEAK_FP32)
+        # the whole op without FiLM and SiLU beside torch's group_norm on the
+        # same memory (a [B, C, N] view of the channels-last activation)
+        with torch.inference_mode():
+            xl, sl, bl = x.permute(0, 2, 1), scale.to(dtype), bias.to(dtype)
+            op = timed_turns({
+                "op": lambda: gn.group_norm(x, scale, bias, 32, 1e-5),
+                "library": lambda: F.group_norm(xl, 32, sl, bl, 1e-5)}, 20)
+        print(f"K1 stats   {label} {shape} {str(dtype)[6:]}: max_abs_err {err1:.3e} "
+              f"(tol {tol1:.3e}) max_rel_err {err1 / ref1:.3e}, bitwise repeatable "
+              f"{repeat}")
+        _print_times("K1 stats  ", label, t1, *b1)
+        print(f"K2 apply   {label} {shape} {str(dtype)[6:]}: max_abs_err {err2:.3e} "
+              f"(tol {tol2:.3e}) max_rel_err {err2 / ref2:.3e}")
+        _print_times("K2 apply  ", label, t2, *b2)
+        print(f"GroupNorm op (K1 + K2, no FiLM, no SiLU) {label}: {op['op']:.4f} ms; "
+              f"torch group_norm {op['library']:.4f} ms")
         check(err1 <= tol1, f"K1 disagrees at {label}")
+        check(repeat, f"K1 is not bitwise repeatable at {label}")
         check(err2 <= tol2, f"K2 disagrees at {label}")
-        results["group_norm_moments"].append((label, shape, err1, k1_ms, p1_ms))
-        results["group_norm_apply"].append((label, shape, err2, k2_ms, p2_ms))
+        results["group_norm_stats"].append(_row(label, shape, err1, t1, *b1))
+        results["group_norm_apply"].append(_row(label, shape, err2, t2, *b2))
 
     # K3 at the path's attention shapes (B, T, S, H, d)
     attn_shapes = [
@@ -181,17 +271,22 @@ def phase_kernels(torch, results):
         tol = 2e-2 * o_max
         lse_err = (lse - lse_ref).abs().max().item()
         lse_tol = 1e-3 * lse_ref.abs().max().item()
-        k_ms, p_ms = timed_pair(lambda: flash_attention_fwd(q, k, v),
-                                lambda: flash_attention_plain(q, k, v), 10)
+        qt, kt, vt = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        times = timed_turns({
+            "kernel": lambda: flash_attention_fwd(q, k, v),
+            "plain": lambda: flash_attention_plain(q, k, v),
+            "library": lambda: F.scaled_dot_product_attention(qt, kt, vt)}, 10)
+        bnd = bound(4 * B * H * T * S * d, 2 * (2 * B * T + 2 * B * S) * H * d
+                    + 4 * B * H * T, PEAK_BF16)
         print(f"K3 flash   {label} B={B} T={T} S={S} H={H} d={d}: max_abs_err "
               f"{err:.3e} (tol {tol:.3e} = 2e-2 of max|o| {o_max:.3e}) "
               f"max_rel_err {err / o_max:.3e} lse_err {lse_err:.3e} "
-              f"(tol {lse_tol:.3e}) kernel {k_ms:.4f} ms plain {p_ms:.4f} ms")
+              f"(tol {lse_tol:.3e})")
+        _print_times("K3 flash  ", label, times, *bnd)
         check(err <= tol, f"K3 output disagrees at {label}")
         check(lse_err <= lse_tol, f"K3 LSE disagrees at {label}")
-        results["flash_attention_fwd"].append(
-            (label, (B, T, S, H, d), err, k_ms, p_ms))
-        del q, k, v, o, o_ref, lse, lse_ref
+        results["flash_attention_fwd"].append(_row(label, (B, T, S, H, d), err, times, *bnd))
+        del q, k, v, o, o_ref, lse, lse_ref, qt, kt, vt
     torch.cuda.synchronize()
 
 
@@ -321,7 +416,64 @@ def phase_slice(torch, np, smi: str):
           f"std {img.std():.4f}; peak device memory {peak:.2f} GiB")
     print(f"slice: {seconds:.4f} s/image at 768^2, 50 DDIM steps, prior 25, "
           f"CFG 4, batch 1, bf16 on {smi}")
+    phase_slice_profile(torch, pipe, kw, seconds, smi)
     return counts, seconds
+
+
+def phase_slice_profile(torch, pipe, kw, seconds, smi):
+    """Host time per norm and attention call, one full-width UNet denoise
+    call and one slice call under the profiler."""
+    from kandinsky2_tpu_torch.ops import group_norm as gn
+    from kandinsky2_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    # small UNet shapes, where the device keeps up with the host
+    x = randn(2, 12, 12, 3072)
+    scale, bias = torch.ones(3072, device="cuda"), torch.zeros(3072, device="cuda")
+    film = randn(2, 1, 1, 6144).chunk(2, dim=-1)
+    q, k, v = randn(2, 144, 24, 64), randn(2, 231, 24, 64), randn(2, 231, 24, 64)
+    with torch.inference_mode():
+        gn_us = host_us(lambda: gn.group_norm(x, scale, bias, 32, 1e-5, swish=1.0,
+                                              film=film))
+        fa_us = host_us(lambda: flash_attention_fwd(q, k, v))
+    print(f"slice: host time per call under inference_mode: group_norm "
+          f"[2, 12, 12, 3072] FiLM SiLU {gn_us:.1f} us; flash_attention_fwd "
+          f"B 2 T 144 S 231 H 24 {fa_us:.1f} us")
+
+    # one CFG-doubled UNet denoise call at 768² (latent 96²)
+    mc = pipe.config["model_config"]
+    unet = pipe.unet
+    with torch.inference_mode():
+        xf_proj, xf_out = unet.encode_conditioning(
+            randn(2, 77, mc["text_encoder_in_dim1"]), randn(2, mc["text_encoder_in_dim2"]),
+            randn(2, mc["image_encoder_in_dim"]))
+        xt = randn(2, 96, 96, mc["in_channels"])
+        t = torch.tensor([981.0, 981.0], device="cuda")
+        call = lambda: unet.denoise(xt, t, xf_proj, xf_out)
+        call()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall_ms = sorted(walls)[1] * 1e3
+        ops, dev_ms, _ = device_profile(torch, call)
+    print(f"slice: one UNet denoise call [2, 96, 96, 4]: {ops} device ops, "
+          f"{dev_ms:.1f} ms of device time, {wall_ms:.1f} ms wall (median of 3), "
+          f"idle share {1 - dev_ms / wall_ms:.3f}")
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ops, dev_ms, events = device_profile(
+        torch, lambda: pipe.generate_text2img(PROMPT, generator=gen, **kw))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    print("slice: profiled call, device time by name (ms, calls): " + "; ".join(
+        f"{e.key[:50]} {e.self_device_time_total / 1e3:.1f} ({e.count})" for e in top))
+    print(f"slice: profiled call {ops} device ops, {dev_ms:.1f} ms of device time; "
+          f"device idle share {1 - dev_ms / 1e3 / seconds:.3f} of the unprofiled "
+          f"{seconds:.4f} s/image on {smi}")
 
 
 def rel_err(got, want) -> float:
@@ -331,6 +483,8 @@ def rel_err(got, want) -> float:
 
 
 def phase_kernels_backward(torch, results):
+    import torch.nn.functional as F
+
     from kandinsky2_tpu_torch.ops import group_norm as gn
     from kandinsky2_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_dkv,
@@ -352,8 +506,9 @@ def phase_kernels_backward(torch, results):
         ("unet ds8/middle", (1, 144, 231, 24)),
     ]
     for label, (B, T, S, H) in attn_shapes:
-        q, k, v = randn((B, T, H, 64)), randn((B, S, H, 64)), randn((B, S, H, 64))
-        do = randn((B, T, H, 64))
+        d = 64
+        q, k, v = randn((B, T, H, d)), randn((B, S, H, d)), randn((B, S, H, d))
+        do = randn((B, T, H, d))
         o, lse = flash_attention_fwd(q, k, v)
         delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, T)
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
@@ -367,25 +522,39 @@ def phase_kernels_backward(torch, results):
             errs[name] = ((got.float() - want.float()).abs().max().item(),
                           rel_err(got, want))
             check(errs[name][1] <= 2e-2, f"K4/K5 {name} disagrees at {label}")
-        plain = lambda: flash_attention_bwd_plain(q, k, v, o, lse, do)
-        k5 = lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta)
-        k4 = lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta)
-        # in turns: plain, K5, K4, K4, K5, plain
-        p1, k5a, k4a = cuda_ms(plain, 10), cuda_ms(k5, 10), cuda_ms(k4, 10)
-        k4b, k5b, p2 = cuda_ms(k4, 10), cuda_ms(k5, 10), cuda_ms(plain, 10)
-        k5_ms, k4_ms, p_ms = (k5a + k5b) / 2, (k4a + k4b) / 2, (p1 + p2) / 2
+        # the library's backward: scaled_dot_product_attention's, for dq, dk
+        # and dv together, from its own saved forward
+        qg, kg, vg = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg)
+        dot = do.permute(0, 2, 1, 3)
+        times = timed_turns({
+            "plain": lambda: flash_attention_bwd_plain(q, k, v, o, lse, do),
+            "k5": lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta),
+            "k4": lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+            "library": lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
+                                                   retain_graph=True)}, 10)
+        qo_bytes, kv_bytes, row_bytes = 2 * B * T * H * d, 2 * B * S * H * d, 4 * B * H * T
+        # K5 reads q, dO, k, v, LSE, delta and writes dq; K4 writes dk, dv
+        b5 = bound(6 * B * H * T * S * d, 3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes,
+                   PEAK_BF16)
+        b4 = bound(8 * B * H * T * S * d, 2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes,
+                   PEAK_BF16)
+        t5 = {"kernel": times["k5"], "plain": times["plain"], "library": times["library"]}
+        t4 = {"kernel": times["k4"], "plain": times["plain"], "library": times["library"]}
         print(f"K5 dQ      {label} B={B} T={T} S={S} H={H} d=64: max_abs_err "
-              f"{errs['dq'][0]:.3e} max_rel_err {errs['dq'][1]:.3e} (tol 2e-2) "
-              f"kernel {k5_ms:.4f} ms")
+              f"{errs['dq'][0]:.3e} max_rel_err {errs['dq'][1]:.3e} (tol 2e-2)")
+        _print_times("K5 dQ     ", label, t5, *b5)
         print(f"K4 dK/dV   {label} B={B} T={T} S={S} H={H} d=64: max_abs_err "
               f"{max(errs['dk'][0], errs['dv'][0]):.3e} max_rel_err dk "
-              f"{errs['dk'][1]:.3e} dv {errs['dv'][1]:.3e} (tol 2e-2) kernel "
-              f"{k4_ms:.4f} ms; plain backward (dq, dk, dv together) {p_ms:.4f} ms")
+              f"{errs['dk'][1]:.3e} dv {errs['dv'][1]:.3e} (tol 2e-2)")
+        _print_times("K4 dK/dV  ", label, t4, *b4)
+        print("  (plain: the whole plain backward; library: the backward of "
+              "scaled_dot_product_attention, dq, dk and dv together)")
         results["flash_attention_bwd_dq"].append(
-            (label, (B, T, S, H, 64), errs["dq"][0], k5_ms, p_ms))
+            _row(label, (B, T, S, H, d), errs["dq"][0], t5, *b5))
         results["flash_attention_bwd_dkv"].append(
-            (label, (B, T, S, H, 64), max(errs["dk"][0], errs["dv"][0]), k4_ms, p_ms))
-        del q, k, v, do, o, lse, delta, dq, dk, dv, ref
+            _row(label, (B, T, S, H, d), max(errs["dk"][0], errs["dv"][0]), t4, *b4))
+        del q, k, v, do, o, lse, delta, dq, dk, dv, ref, qg, kg, vg, out, dot
 
     # GroupNormFunction at the UNet ds1 shape, with FiLM and SiLU
     x = randn((1, 96, 96, 384))
@@ -409,7 +578,8 @@ def phase_kernels_backward(torch, results):
     # bf16 rounding of the gradients of the bf16 inputs
     check(all(e <= 1e-2 for e in errs), "GroupNormFunction gradients disagree")
     # about a hundred launches per forward + backward: 4 of them fit the queue
-    f_ms, p_ms = timed_pair(fn, plain, 4)
+    t = timed_turns({"function": fn, "plain": plain}, 4)
+    f_ms, p_ms = t["function"], t["plain"]
     print(f"GroupNormFunction fwd+bwd [1, 9216, 384] FiLM SiLU: max_rel_err x "
           f"{errs[0]:.3e} scale {errs[1]:.3e} bias {errs[2]:.3e} fs {errs[3]:.3e} "
           f"fb {errs[4]:.3e} (tol 1e-2); Function {f_ms:.4f} ms, autograd of the "
@@ -644,20 +814,27 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.load_library("flash_attention.cu")
+    _build.build(*(_build.CSRC_DIR / src for src in CUDA_SOURCES))
+    for src in CUDA_SOURCES:
+        _build.load_library(src)
     nvcc_s = time.perf_counter() - t0
+    for src in CUDA_SOURCES:
+        report = _build.PTXAS_REPORTS.get(src, "(built before this run)")
+        lines = [ln.strip() for ln in report.splitlines()
+                 if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+        print(f"build: ptxas {src}: " + " | ".join(lines))
     t0 = time.perf_counter()
     group_norm._triton_kernels()
     x = torch.randn((1, 64, 64), device="cuda", dtype=torch.bfloat16)
-    s1, _ = group_norm.group_norm_moments(x)
-    group_norm.group_norm_apply(x, s1, s1, 1.0)
+    a = torch.ones((1, 64), device="cuda")
+    group_norm.group_norm_apply(x, a, a, 1.0)
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
-    print(f"build: nvcc flash_attention.cu {nvcc_s:.2f} s; "
-          f"triton group_norm first launches {triton_s:.2f} s")
+    print(f"build: nvcc {' + '.join(CUDA_SOURCES)} in parallel {nvcc_s:.2f} s; "
+          f"triton group_norm_apply first launch {triton_s:.2f} s")
 
     # 3. forward kernels against their plain versions
-    results = {name: [] for name in ("group_norm_moments", "group_norm_apply",
+    results = {name: [] for name in ("group_norm_stats", "group_norm_apply",
                                      "flash_attention_fwd", "flash_attention_bwd_dkv",
                                      "flash_attention_bwd_dq")}
     phase_kernels(torch, results)
@@ -683,8 +860,8 @@ def main() -> int:
     train_counts, step_s = phase_train_full(torch, np, smi)
 
     meta = {
-        "group_norm_moments": ("triton", "kandinsky2_tpu_torch/ops/group_norm.py",
-                               "kandinsky2_tpu/ops/group_norm.py:86"),
+        "group_norm_stats": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
+                             "kandinsky2_tpu/ops/group_norm.py:86"),
         "group_norm_apply": ("triton", "kandinsky2_tpu_torch/ops/group_norm.py",
                              "kandinsky2_tpu/ops/group_norm.py:119"),
         "flash_attention_fwd": ("cuda", "kandinsky2_tpu_torch/csrc/flash_attention.cu",
@@ -697,7 +874,7 @@ def main() -> int:
     kernels = []
     for name, rows in results.items():
         route, source, replaces = meta[name]
-        main_row = max(rows, key=lambda r: r[4])  # the heaviest path shape
+        main_row = max(rows, key=lambda r: r["plain_ms"])  # the heaviest path shape
         # the forward kernels' main path is the slice (phase 5), the backward
         # kernels' the full-width train steps (phase 8)
         launches = train_counts[name] if name.startswith("flash_attention_bwd") \
@@ -705,9 +882,11 @@ def main() -> int:
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "train_launches": train_counts[name],
-            "max_abs_err": max(r[2] for r in rows),
-            "ms": main_row[3], "plain_ms": main_row[4],
-            "timed_shape": f"{main_row[0]} {list(main_row[1])}",
+            "max_abs_err": max(r["err"] for r in rows),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "timed_shape": f"{main_row['label']} {main_row['shape']}",
         })
     print(f"slice: {seconds:.4f} s/image; train: {step_s:.4f} s/step")
     print(smi_line())

@@ -4,12 +4,15 @@ package ``kandinsky2_tpu`` (the reference, which this package never
 imports).
 
     from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
-    pipe = Kandinsky2_1(tokenizer1=..., tokenizer2=..., device="cuda")
+    pipe = Kandinsky2_1(tokenizer1=..., tokenizer2=...)  # on the card
     pipe.init_random_params(torch.Generator("cuda").manual_seed(0))
     images = pipe.generate_text2img("a red cat", num_steps=50, h=768, w=768)
 
 Decoder fine-tuning: ``python -m kandinsky2_tpu_torch.train.train_2_1_unclip
 --config train_configs/config_unclip_2_1.yaml`` (``train/``).
+
+The entry points (``Kandinsky2_1``, the CLI's ``build_pipeline`` and ``run``)
+run on the card unless given ``device="cpu"``, as the CPU tests do.
 
 The GroupNorm and flash-attention kernels, forward and backward (``ops/``),
 are written by hand for Hopper and built at first use into

@@ -8,39 +8,70 @@
 // (_flash_kernel, launched by _flash_bhd): non-causal, unmasked
 // softmax(q k^T / sqrt(d)) v with an online softmax, writing O and the
 // per-row log-sum-exp (natural log) as [B*H, T] fp32 for a later backward.
+// The scale 1/sqrt(d) is applied in fp32 and P is rounded to bf16 before
+// P V, at both head dims.
 //
-// Design.
-// * One block per (batch*head, q-tile).  The TPU's sequential kv grid axis
-//   becomes a loop inside the block over 64-row K/V tiles staged in shared
-//   memory with cp.async (the V copy overlaps the Q K^T product).
-// * Tensor cores through mma.sync m16n8k16 (bf16 x bf16 -> fp32).  Each warp
-//   owns 16 query rows.  The fp32 score fragment is rescaled, exponentiated
-//   and repacked in registers as the bf16 A operand of the P V product
-//   (the FlashAttention-2 register layout), so P never touches memory.
-// * Running max, running sum and the O accumulator stay fp32, in registers.
-// * Ragged tails: q rows >= T and kv rows >= S are zero-filled by cp.async;
-//   scores of kv columns >= S are set to -inf.  The wrapper does no padding.
+// Bound on the H100: 4 T S d FLOP per head against operands that fit in
+// the 50 MB L2, so the work is for the tensor cores: 989 TFLOP/s of bf16
+// (34 us at the UNet's ds2 call, B*H 24, T 2304, S 2391; 176 us at the
+// MoVQ's d = 512 call, T = S = 9216).
 //
-// Head dims.  d = 64 (UNet AttentionBlock): 4 warps along the rows, a
-// 64-row q-tile, 27.6 KB of shared memory.
-// d = 512 (MoVQ AttnBlock, one head over 9216 tokens): a 64-row fp32
-// accumulator would be 128 KB, half the SM's register file, before the Q
-// fragments and scores, so the block takes a q-tile of 16 rows and splits
-// d over 8 warps: each warp keeps the O accumulator of its 64-wide d-slice
-// in registers and computes a partial Q K^T over that slice; the 8 partial
-// score tiles are summed through shared memory (36 KB with padding).  K
-// and V tiles are 64 x 512 bf16 (65 KB each with padding), so the block
-// uses 182 KB of dynamic shared memory, set with
-// cudaFuncSetAttribute(MaxDynamicSharedMemorySize).
+// d = 64 (UNet AttentionBlock): wgmma + TMA, warp-specialised.
+// * One block per (batch*head, q-tile): two or three consumer warpgroups
+//   of 64 q rows each and one producer warp (288 or 416 threads); the
+//   launch picks the count that needs fewer waves of blocks over the SMs.
+// * The producer's lane 0 issues TMA loads (cp.async.bulk.tensor, 4-d
+//   tensor maps over (d, H, T or S, B) with byte strides, so any
+//   16-byte-aligned strided view is read in place and the out-of-bounds
+//   zero fill stops at T or S, never reading the next batch's rows): Q once,
+//   then 128-row K and V tiles into a ring of STAGES stages, each with a
+//   "full" mbarrier per tensor (K and V land separately, so S = Q K^T
+//   starts before V arrives) and one "empty" mbarrier the consumers arrive
+//   on when they are done with the stage.
+// * Every tile is 64 bf16 = 128 bytes wide, so the TMA writes it with the
+//   128-byte swizzle that wgmma reads without bank conflicts.
+// * Consumer warpgroups: S = Q K^T with wgmma.m64n128k16 from shared memory
+//   (K-major K), the online softmax in registers in the log2 domain, then
+//   O += P V with wgmma.m64n64k16, P as the A operand from registers (the
+//   fp32 S fragment repacked as bf16) and V from shared memory as an
+//   MN-major B (the transpose flag), so V is never transposed.
+// * Ragged tails: the TMA zero-fills rows past T and S; scores of kv columns
+//   >= S are set to -inf; rows >= T are not stored.  No padding.
+// * One block per SM (81 or 89 KB of shared memory): the ds2 call's 12 x 24
+//   = 288 blocks of three warpgroups run in 2.2 waves.
 //
-// Bound on the H100: both head dims do 4*T*S*d FLOP per head against
-// operands that fit in the 50 MB L2 (174 GFLOP against 19 MB for the MoVQ
-// call), so the work is for the tensor cores; mma.sync reaches only part of
-// the wgmma rate, which a later kernel (wgmma + TMA, warp-specialised)
-// should recover.  At d = 512 each 16-row block also streams all of K and V
-// from L2 and reads every warp's partial scores from shared memory; the
-// padding of every shared-memory row keeps those accesses and the fragment
-// loads free of bank conflicts.
+// d = 512 (MoVQ AttnBlock, one head over 9216 tokens): the same machinery.
+// * A 64-row fp32 O accumulator of 512 columns is 128 KB, more than one
+//   warpgroup's registers, so one block takes 64 q rows with four consumer
+//   warpgroups and one producer warp (544 threads).  Warpgroup w owns
+//   O columns 128 w .. + 127 (64 registers a thread) and score columns
+//   16 w .. + 15 of each 64-row kv tile: S over the full d with
+//   wgmma.m64n16k16 (32 k-steps), so no partial scores are exchanged.
+// * A TMA box with the 128-byte swizzle is at most 64 bf16 wide, so each
+//   512-wide row of Q, K and V loads as 8 boxes into 8 swizzled sub-tiles.
+//   Shared memory: Q 64 KB, one K and one V tile of 64 rows, 64 KB each,
+//   P 8 KB, 203 KB in all.  K and V have their own full and empty
+//   barriers, so K of tile j + 1 loads while P V of tile j runs and V of
+//   tile j + 1 while S of tile j + 1 runs.
+// * Online softmax across the four warpgroups: each writes its row maxima
+//   to shared memory, a named barrier (bar.sync 1, 512) joins the
+//   consumers, and every warpgroup takes the same maximum over the four.
+//   Each writes its 16 columns of P to shared memory as bf16 in the
+//   swizzled layout (fence.proxy.async before the barrier), and each
+//   warpgroup runs O += P V with P as a shared-memory A operand and its
+//   128 columns of V as an MN-major B (two 64-column sub-tiles, 8 KB apart
+//   as the leading-byte offset).  Row sums stay per warpgroup until the
+//   epilogue adds the four.
+// * 9216 / 64 = 144 blocks on 132 SMs with one block per SM (203 KB of
+//   shared memory): the last 12 blocks run as a second wave.
+//
+// ptxas (-Xptxas -v, sm_90a, CUDA 12.9), printed by chip_smoke.py's build
+// phase: d = 64 126 registers with two or three consumer warpgroups, no
+// spills, 81 or 89 KB of dynamic shared memory; d = 512 96 registers and 48
+// bytes of spill stores and loads (the 544-thread block caps the
+// registers), 203 KB of dynamic shared memory.  The backward: K4 172
+// registers, K5 168, no spills, 37,376 and 36,864 bytes of static shared
+// memory.
 
 // ---- Backward (K4 dK/dV, K5 dQ) ----
 //
@@ -90,6 +121,7 @@
 // ldmatrix.trans) should recover.  Head dim 64 only: the UNet's attention,
 // the one the training path differentiates.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -214,211 +246,695 @@ __device__ __forceinline__ void mma_abt(float* acc, uint32_t (*a)[4],
   }
 }
 
-// ---- Forward (K3) ----
+// ---- Hopper primitives: mbarriers, TMA, wgmma ----
 
-constexpr int BN = 64;  // kv rows per tile
-// row pitch (floats) of the partial score tiles: with 64 the eight row
-// groups of a warp hit the same banks; 72 makes each float2 phase
-// conflict-free
-constexpr int SLD = BN + 8;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-template <int D, int WM, int WD>
-__global__ void __launch_bounds__(WM * WD * 32)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int T, int S,
-                 ll qsb, ll qsh, ll qst, ll ksb, ll ksh, ll kst,
-                 ll vsb, ll vsh, ll vst, ll osb, ll osh, ll ost,
-                 float scale_log2) {
-  constexpr int BM = 16 * WM;      // q rows per block
-  constexpr int DW = D / WD;       // d-slice per warp
-  constexpr int LD = D + 8;        // padded shared-memory row (elements)
-  constexpr int NT_S = BN / 8;     // score n-tiles per warp
-  constexpr int NT_O = DW / 8;     // output n-tiles per warp
-  constexpr int KQ = DW / 16;      // k-steps of Q K^T per warp
-  constexpr int NTHREADS = WM * WD * 32;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BM * LD;
-  bf16* Vs = Ks + BN * LD;
-  float* Sp = reinterpret_cast<float*>(Vs + BN * LD);  // [WD][BM][SLD]
+// one arrival that also expects `bytes` of TMA traffic
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a wait of more
+// than about ten seconds traps, so that a protocol fault ends the launch
+// with an error instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long start = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > 20000000000LL) __trap();
+  } while (!done);
+}
+
+// one TMA load of a box of a 4-d tensor map at coordinates (c0, c1, c2, c3),
+// completing on the mbarrier `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile written with the 128-byte
+// swizzle, starting at `addr` (1024-byte aligned atoms of 8 rows x 128 B):
+// lbo and sbo in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// 2^x with the MUFU instruction alone (no range scaling for denormal
+// results, which flush to 0): the softmax of the wgmma forwards is bound
+// by its issue rate at d = 64, where exp2 costs as much as the products
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// order later reads of an accumulator after the wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory
+// (K-major B); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the fragment
+// layout of mma.m16n8k16 per warp), B from shared memory (MN-major).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16], A and B from shared memory
+// (K-major B); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float* d, uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory
+// (MN-major B); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k16_ss_mn(float* d, uint64_t da, uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---- TMA tensor maps ----
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime, so that the
+// library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map over a [B, L, H, D] bf16 tensor with element strides
+// (b, h, l) = st[0..2], as a 4-d map (d, H, L, B): boxes of 64 columns
+// (128 bytes, the widest the 128-byte swizzle takes) and `rows` rows of one
+// head, zero fill out of bounds.
+bool make_map(CUtensorMap* map, const void* ptr, int D, int B, int L, int H,
+              const ll* st, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---- Forward (K3), head dim 64: wgmma + TMA ----
+
+namespace fwd64 {
+
+constexpr int D = 64;
+constexpr int BN = 128;         // kv rows per tile
+constexpr int STAGES = 2;       // K/V ring depth
+constexpr int ROW = D * 2;      // bytes of a row: one 128-byte swizzle row
+constexpr int TILE_BYTES = BN * ROW;
+
+// the block of CONSUMERS warpgroups (64 q rows each) and the producer warp
+template <int CONSUMERS>
+struct Block {
+  static constexpr int BM = 64 * CONSUMERS;  // q rows per block
+  static constexpr int NTHREADS = CONSUMERS * 128 + 32;
+  static constexpr int Q_BYTES = BM * ROW;
+  static constexpr int SMEM = 1024 /* alignment slack */ + Q_BYTES +
+                              2 * STAGES * TILE_BYTES + 8 * (1 + 3 * STAGES);
+};
+
+template <int CONSUMERS>
+__global__ void __launch_bounds__(Block<CONSUMERS>::NTHREADS, 1)
+flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     bf16* __restrict__ o, float* __restrict__ lse, int H, int T,
+                     int S, ll osb, ll osh, ll ost, float scale_log2) {
+  constexpr int BM = Block<CONSUMERS>::BM;
+  constexpr int Q_BYTES = Block<CONSUMERS>::Q_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  // shared-memory map: Q, K[STAGES], V[STAGES], then the mbarriers
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + Q_BYTES;
+  const uint32_t sv = sk + STAGES * TILE_BYTES;
+  const uint32_t bar = sv + STAGES * TILE_BYTES;
+  const uint32_t q_full = bar;
+  auto k_full = [&](int s) { return bar + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bar + 8 * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bar + 8 * (1 + 2 * STAGES + s); };
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int m0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / WD, wd = warp % WD;
-  const int g = lane >> 2, tig = lane & 3;
-
-  const bf16* qb = q + b * qsb + h * qsh;
-  const bf16* kb = k + b * ksb + h * ksh;
-  const bf16* vb = v + b * vsb + h * vsh;
-
-  load_tile<D, LD, NTHREADS>(Qs, qb, qst, m0, BM, T);
-  cp_async_commit();
-
-  uint32_t qf[KQ][4];
-  float oacc[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
-  float m_i[2] = {-INFINITY, -INFINITY};
-  float l_i[2] = {0.f, 0.f};
-
-  const bf16* qrow = Qs + (wm * 16 + g) * LD + wd * DW + tig * 2;
   const int ntiles = (S + BN - 1) / BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS * 4) {
+    // producer: lane 0 keeps the ring of K/V stages full
+    if (lane == 0) {
+      mbar_expect_tx(q_full, Q_BYTES);
+      tma_load_4d(sq, &tq, q_full, 0, h, m0, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(empty(s), ((j / STAGES) - 1) & 1);
+        mbar_expect_tx(k_full(s), TILE_BYTES);
+        tma_load_4d(sk + s * TILE_BYTES, &tk, k_full(s), 0, h, j * BN, b);
+        mbar_expect_tx(v_full(s), TILE_BYTES);
+        tma_load_4d(sv + s * TILE_BYTES, &tv, v_full(s), 0, h, j * BN, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: q rows m0 + 64 wg .. + 63; this warp's 16 of them
+  const int wg = warp >> 2, wr = warp & 3;
+  const int g = lane >> 2, tig = lane & 3;
+  const uint64_t qdesc = sw128_desc(sq + wg * 64 * ROW, 16, 1024);
+
+  // accumulator element i sits at row g + 8 ((i >> 1) & 1) of this warp's
+  // 16 rows, column 8 (i >> 2) + 2 tig + (i & 1)
+  float oacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+  float m_i[2] = {-INFINITY, -INFINITY};
+  float l_i[2] = {0.f, 0.f};  // this thread's part of the row sums
+
+  mbar_wait(q_full, 0);
   for (int j = 0; j < ntiles; ++j) {
+    const int s = j % STAGES;
+    const uint32_t parity = (j / STAGES) & 1;
+    const uint64_t kdesc = sw128_desc(sk + s * TILE_BYTES, 16, 1024);
+    const uint64_t vdesc = sw128_desc(sv + s * TILE_BYTES, 16, 1024);
+
+    // S = Q K^T: four k-steps of 16 along d (32 bytes into each swizzled row)
+    float sacc[64];
+    mbar_wait(k_full(s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n128k16_ss(sacc, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<64>(sacc);
+
+    // online softmax in the log2 domain
     const int n0 = j * BN;
-    __syncthreads();  // every warp is done with the previous K/V/Sp tiles
-    load_tile<D, LD, NTHREADS>(Ks, kb, kst, n0, BN, S);
-    cp_async_commit();
-    load_tile<D, LD, NTHREADS>(Vs, vb, vst, n0, BN, S);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q and K have landed; V may still be in flight
-    __syncthreads();
-    if (j == 0) load_a_frags<KQ, LD>(qf, qrow);
-
-    // S = Q K^T over this warp's d-slice
-    float s[NT_S][4];
+    if (n0 + BN > S) {
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const bf16* krow = Ks + (nt * 8 + g) * LD + wd * DW + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < KQ; ++kk) {
-        mma_bf16_16816(s[nt], qf[kk], ld32(krow + kk * 16),
-                       ld32(krow + kk * 16 + 8));
+      for (int i = 0; i < 64; ++i) {
+        if (n0 + 8 * (i >> 2) + 2 * tig + (i & 1) >= S) sacc[i] = -INFINITY;
       }
     }
-    if (WD > 1) {
-      // sum the partial score tiles of the WD warps sharing these rows
-      float* mine = Sp + (wd * BM + wm * 16 + g) * SLD + tig * 2;
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        *reinterpret_cast<float2*>(mine + nt * 8) = make_float2(s[nt][0], s[nt][1]);
-        *reinterpret_cast<float2*>(mine + 8 * SLD + nt * 8) =
-            make_float2(s[nt][2], s[nt][3]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      }
-      for (int w = 0; w < WD; ++w) {
-        const float* part = Sp + (w * BM + wm * 16 + g) * SLD + tig * 2;
-#pragma unroll
-        for (int nt = 0; nt < NT_S; ++nt) {
-          float2 lo = *reinterpret_cast<const float2*>(part + nt * 8);
-          float2 hi = *reinterpret_cast<const float2*>(part + 8 * SLD + nt * 8);
-          s[nt][0] += lo.x;
-          s[nt][1] += lo.y;
-          s[nt][2] += hi.x;
-          s[nt][3] += hi.y;
-        }
-      }
-    }
-
-    // online softmax in the log2 domain; rows g (e = 0, 1) and g + 8 (e = 2, 3)
     float mloc[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int col = n0 + nt * 8 + tig * 2 + (e & 1);
-        float val = col < S ? s[nt][e] * scale_log2 : -INFINITY;
-        s[nt][e] = val;
-        mloc[e >> 1] = fmaxf(mloc[e >> 1], val);
-      }
-    }
+    for (int i = 0; i < 64; ++i) mloc[(i >> 1) & 1] = fmaxf(mloc[(i >> 1) & 1], sacc[i]);
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mloc[r] = fmaxf(mloc[r], __shfl_xor_sync(0xffffffffu, mloc[r], 1));
       mloc[r] = fmaxf(mloc[r], __shfl_xor_sync(0xffffffffu, mloc[r], 2));
-      float m_new = fmaxf(m_i[r], mloc[r]);
-      alpha[r] = exp2f(m_i[r] - m_new);
+      const float m_new = fmaxf(m_i[r], mloc[r] * scale_log2);
+      alpha[r] = fast_exp2(m_i[r] - m_new);
       m_i[r] = m_new;
-    }
-    float rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[nt][e] - m_i[e >> 1]);
-        s[nt][e] = p;
-        rsum[e >> 1] += p;
-      }
+      l_i[r] *= alpha[r];
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
-      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
-      l_i[r] = l_i[r] * alpha[r] + rsum[r];
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i >> 1) & 1;
+      sacc[i] = fast_exp2(fmaf(sacc[i], scale_log2, -m_i[r]));
+      l_i[r] += sacc[i];
     }
 #pragma unroll
-    for (int nt = 0; nt < NT_O; ++nt) {
-      oacc[nt][0] *= alpha[0];
-      oacc[nt][1] *= alpha[0];
-      oacc[nt][2] *= alpha[1];
-      oacc[nt][3] *= alpha[1];
-    }
-
-    cp_async_wait<0>();
-    __syncthreads();  // V tile visible to every warp
-
-    // O += P V over this warp's d-slice
+    for (int i = 0; i < 32; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    // P in bf16 as the A fragments of the eight k-steps of P V
+    uint32_t pa[BN / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s, kk);
-      mma_ab<NT_O, LD>(oacc, a, Vs + (kk * 16 + tig * 2) * LD + wd * DW + g);
+      pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
     }
+
+    // O += P V: eight k-steps of 16 kv rows (2048 bytes each)
+    mbar_wait(v_full(s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_m64n64k16_rs(oacc, pa[kk], vdesc + kk * (16 * ROW >> 4));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<32>(oacc);
+    mbar_arrive(empty(s));
   }
 
-  // epilogue: O / l in the input dtype, LSE = ln(l) + max in natural log
+  // epilogue: O / l in bf16, LSE = ln(l) + max in natural log
   const float LN2 = 0.6931471805599453f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = m0 + wm * 16 + g + 8 * r;
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+    const int row = m0 + wg * 64 + wr * 16 + g + 8 * r;
     if (row >= T) continue;
     const float inv = 1.f / l_i[r];
-    bf16* orow = o + b * osb + h * osh + static_cast<ll>(row) * ost + wd * DW +
-                 tig * 2;
+    bf16* orow = o + b * osb + h * osh + static_cast<ll>(row) * ost + tig * 2;
 #pragma unroll
-    for (int nt = 0; nt < NT_O; ++nt) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + nt * 8) = __floats2bfloat162_rn(
-          oacc[nt][2 * r] * inv, oacc[nt][2 * r + 1] * inv);
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) = __floats2bfloat162_rn(
+          oacc[4 * c + 2 * r] * inv, oacc[4 * c + 2 * r + 1] * inv);
     }
-    if (wd == 0 && tig == 0) {
-      lse[static_cast<ll>(bh) * T + row] = (m_i[r] + log2f(l_i[r])) * LN2;
-    }
+    if (tig == 0) lse[static_cast<ll>(bh) * T + row] = (m_i[r] + log2f(l_i[r])) * LN2;
   }
 }
 
-template <int D, int WM, int WD>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int T, int S, const ll* st, cudaStream_t stream) {
-  constexpr int BM = 16 * WM;
-  constexpr int LD = D + 8;
-  size_t smem = static_cast<size_t>(BM + 2 * BN) * LD * sizeof(bf16);
-  if (WD > 1) smem += static_cast<size_t>(WD) * BM * SLD * sizeof(float);
-  auto kern = flash_fwd_kernel<D, WM, WD>;
+template <int CONSUMERS>
+int launch_with(const void* q, const void* k, const void* v, void* o, void* lse,
+                int B, int H, int T, int S, const ll* st, cudaStream_t stream) {
+  typedef Block<CONSUMERS> Blk;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, B, T, H, st, Blk::BM) ||
+      !make_map(&tk, k, D, B, S, H, st + 3, BN) || !make_map(&tv, v, D, B, S, H, st + 6, BN))
+    return -2;
+  auto kern = flash_fwd_d64_kernel<CONSUMERS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Blk::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((T + Blk::BM - 1) / Blk::BM, B * H);
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  kern<<<grid, Blk::NTHREADS, Blk::SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), H, T, S, st[9],
+      st[10], st[11], scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Three warpgroups (192 q rows) a block unless two (128 rows) need fewer
+// waves of blocks over the SMs, or as few with more SMs busy: on the
+// H100 three win at the UNet's ds2 and ds4 calls (more warps to hide the
+// softmax behind the tensor cores), two at ds8 (48 heads of 144 rows).
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+           int H, int T, int S, const ll* st, cudaStream_t stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const ll n2 = static_cast<ll>((T + 127) / 128) * B * H;
+  const ll n3 = static_cast<ll>((T + 191) / 192) * B * H;
+  const ll w2 = (n2 + sms - 1) / sms, w3 = (n3 + sms - 1) / sms;
+  if (w2 < w3 || (w2 == w3 && n2 > n3))
+    return launch_with<2>(q, k, v, o, lse, B, H, T, S, st, stream);
+  return launch_with<3>(q, k, v, o, lse, B, H, T, S, st, stream);
+}
+
+}  // namespace fwd64
+
+// ---- Forward (K3), head dim 512: wgmma + TMA ----
+
+namespace fwd512 {
+
+constexpr int D = 512;
+constexpr int BM = 64;          // q rows per block
+constexpr int BN = 64;          // kv rows per tile
+constexpr int CONSUMERS = 4;    // warpgroups: 16 score columns, 128 O columns each
+constexpr int NTHREADS = CONSUMERS * 128 + 32;  // + the producer warp
+constexpr int SUB = 64 * 128;   // one 64-row x 64-column swizzled sub-tile
+constexpr int TILE_BYTES = 8 * SUB;  // 64 rows x 512 columns
+constexpr int P_BYTES = BM * BN * 2;
+constexpr int SMEM = 1024 /* alignment slack */ + 3 * TILE_BYTES + P_BYTES +
+                     2 * CONSUMERS * BM * 4 + 8 * 5;
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      bf16* __restrict__ o, float* __restrict__ lse, int H, int T,
+                      int S, ll osb, ll osh, ll ost, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  // shared-memory map: Q, K, V (each 8 sub-tiles of 64 columns), P, the
+  // row-max exchange, the row-sum exchange, then the mbarriers
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + TILE_BYTES;
+  const uint32_t sv = sk + TILE_BYTES;
+  const uint32_t sp = sv + TILE_BYTES;
+  unsigned char* base = smem_raw + (sq - smem_addr(smem_raw));
+  float* red_max = reinterpret_cast<float*>(base + 3 * TILE_BYTES + P_BYTES);
+  float* red_sum = red_max + CONSUMERS * BM;
+  const uint32_t bar = sp + P_BYTES + 2 * CONSUMERS * BM * 4;
+  const uint32_t q_full = bar, k_full = bar + 8, k_empty = bar + 16;
+  const uint32_t v_full = bar + 24, v_empty = bar + 32;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int m0 = blockIdx.x * BM;
+  const int ntiles = (S + BN - 1) / BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(k_empty, CONSUMERS * 128);
+    mbar_init(v_empty, CONSUMERS * 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS * 4) {
+    // producer: one K and one V buffer, each refilled as soon as the
+    // consumers release it (K after S = Q K^T, V after O += P V)
+    if (lane == 0) {
+      mbar_expect_tx(q_full, TILE_BYTES);
+      for (int c = 0; c < 8; ++c) tma_load_4d(sq + c * SUB, &tq, q_full, 64 * c, h, m0, b);
+      for (int j = 0; j < ntiles; ++j) {
+        if (j > 0) mbar_wait(k_empty, (j - 1) & 1);
+        mbar_expect_tx(k_full, TILE_BYTES);
+        for (int c = 0; c < 8; ++c)
+          tma_load_4d(sk + c * SUB, &tk, k_full, 64 * c, h, j * BN, b);
+        if (j > 0) mbar_wait(v_empty, (j - 1) & 1);
+        mbar_expect_tx(v_full, TILE_BYTES);
+        for (int c = 0; c < 8; ++c)
+          tma_load_4d(sv + c * SUB, &tv, v_full, 64 * c, h, j * BN, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: score columns 16 wg .. + 15 of each kv tile and
+  // O columns 128 wg .. + 127; this warp's 16 of the 64 q rows
+  const int wg = warp >> 2, wr = warp & 3;
+  const int g = lane >> 2, tig = lane & 3;
+  const int row0 = wr * 16 + g;  // this thread's rows: row0 and row0 + 8
+
+  float oacc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) oacc[i] = 0.f;
+  float m_i[2] = {-INFINITY, -INFINITY};
+  float l_i[2] = {0.f, 0.f};  // this thread's part of its warpgroup's row sums
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const uint32_t parity = j & 1;
+
+    // S[:, 16 wg .. + 15] = Q K^T over all 512 columns: 32 k-steps, 8 per
+    // sub-tile (32 bytes into each swizzled row)
+    float sacc[8];
+    mbar_wait(k_full, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * SUB + (kk & 3) * 32;
+      wgmma_m64n16k16_ss(sacc, sw128_desc(sq + off, 16, 1024),
+                         sw128_desc(sk + off + wg * 16 * 128, 16, 1024), kk);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<8>(sacc);
+    mbar_arrive(k_empty);
+
+    // row max over this warpgroup's columns, then over the four
+    const int n0 = j * BN + wg * 16;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (n0 + 8 * (i >> 2) + 2 * tig + (i & 1) >= S) sacc[i] = -INFINITY;
+    }
+    float mloc[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mloc[(i >> 1) & 1] = fmaxf(mloc[(i >> 1) & 1], sacc[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mloc[r] = fmaxf(mloc[r], __shfl_xor_sync(0xffffffffu, mloc[r], 1));
+      mloc[r] = fmaxf(mloc[r], __shfl_xor_sync(0xffffffffu, mloc[r], 2));
+      if (tig == 0) red_max[wg * BM + row0 + 8 * r] = mloc[r];
+    }
+    consumers_sync();
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mt = red_max[row0 + 8 * r];
+#pragma unroll
+      for (int w = 1; w < CONSUMERS; ++w) mt = fmaxf(mt, red_max[w * BM + row0 + 8 * r]);
+      const float m_new = fmaxf(m_i[r], mt * scale_log2);
+      alpha[r] = fast_exp2(m_i[r] - m_new);
+      m_i[r] = m_new;
+      l_i[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = (i >> 1) & 1;
+      sacc[i] = fast_exp2(fmaf(sacc[i], scale_log2, -m_i[r]));
+      l_i[r] += sacc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+
+    // P (bf16) into shared memory in the swizzled layout wgmma reads: row
+    // r, 16-byte chunk c at r * 128 + ((c ^ (r & 7)) * 16)
+    unsigned char* pbase = base + 3 * TILE_BYTES;
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) {
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      const int chunk = 2 * wg + (i >> 2);
+      *reinterpret_cast<uint32_t*>(pbase + row * 128 + ((chunk ^ (row & 7)) * 16) +
+                                   tig * 4) = pack_bf16(sacc[i], sacc[i + 1]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    consumers_sync();
+
+    // O[:, 128 wg .. + 127] += P V: four k-steps of 16 kv rows; the
+    // warpgroup's 128 columns are sub-tiles 2 wg and 2 wg + 1 of V (MN-major
+    // B, 8 KB apart)
+    mbar_wait(v_full, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      wgmma_m64n128k16_ss_mn(oacc, sw128_desc(sp + kk * 32, 16, 1024),
+                             sw128_desc(sv + 2 * wg * SUB + kk * 16 * 128, SUB, 1024),
+                             1);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<64>(oacc);
+    mbar_arrive(v_empty);
+  }
+
+  // epilogue: the row sums of the four warpgroups, O / l in bf16, LSE
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+    if (tig == 0) red_sum[wg * BM + row0 + 8 * r] = l_i[r];
+  }
+  consumers_sync();
+  const float LN2 = 0.6931471805599453f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = red_sum[row0 + 8 * r];
+#pragma unroll
+    for (int w = 1; w < CONSUMERS; ++w) l += red_sum[w * BM + row0 + 8 * r];
+    const int row = m0 + row0 + 8 * r;
+    if (row >= T) continue;
+    const float inv = 1.f / l;
+    bf16* orow = o + b * osb + h * osh + static_cast<ll>(row) * ost + wg * 128 + tig * 2;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) = __floats2bfloat162_rn(
+          oacc[4 * c + 2 * r] * inv, oacc[4 * c + 2 * r + 1] * inv);
+    }
+    if (wg == 0 && tig == 0)
+      lse[static_cast<ll>(bh) * T + row] = (m_i[r] + log2f(l)) * LN2;
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+           int H, int T, int S, const ll* st, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, B, T, H, st, BM) || !make_map(&tk, k, D, B, S, H, st + 3, BN) ||
+      !make_map(&tv, v, D, B, S, H, st + 6, BN))
+    return -2;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_fwd_d512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((T + BM - 1) / BM, B * H);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  kern<<<grid, WM * WD * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, T, S, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2);
+  flash_fwd_d512_kernel<<<grid, NTHREADS, SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), H, T, S, st[9],
+      st[10], st[11], scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace fwd512
 
 // ---- Backward (K4, K5), head dim 64 ----
 
@@ -726,15 +1242,17 @@ int launch(bool dkv, const Args& a, int B, cudaStream_t stream) {
 
 // q: [B, T, H, D] and k, v: [B, S, H, D] given by element strides
 // st = {q_b, q_h, q_t, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_t} with the
-// last dim contiguous and 16-byte aligned rows; o like q; lse [B*H, T] fp32.
-// Returns a cudaError_t (0 on success), or -1 for an unsupported head dim.
+// last dim contiguous, 16-byte aligned rows and (for d = 64, read by TMA)
+// strides that are multiples of 8 elements; o like q; lse [B*H, T] fp32.
+// Returns a cudaError_t (0 on success), -1 for an unsupported head dim, or
+// -2 if a TMA tensor map could not be made.
 extern "C" int k2_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int B, int H, int T,
                                  int S, int D, const ll* strides,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64, 4, 1>(q, k, v, o, lse, B, H, T, S, strides, s);
-  if (D == 512) return launch<512, 1, 8>(q, k, v, o, lse, B, H, T, S, strides, s);
+  if (D == 64) return fwd64::launch(q, k, v, o, lse, B, H, T, S, strides, s);
+  if (D == 512) return fwd512::launch(q, k, v, o, lse, B, H, T, S, strides, s);
   return -1;
 }
 

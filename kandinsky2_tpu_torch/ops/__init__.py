@@ -11,7 +11,7 @@ from . import group_norm as _group_norm
 from .attention import qkv_attention
 
 KERNEL_WRAPPERS = {
-    "group_norm_moments": _group_norm.group_norm_moments,
+    "group_norm_stats": _group_norm.group_norm_stats,
     "group_norm_apply": _group_norm.group_norm_apply,
     "flash_attention_fwd": _flash.flash_attention_fwd,
     "flash_attention_bwd_dkv": _flash.flash_attention_bwd_dkv,

@@ -14,7 +14,10 @@ Replaces ``kandinsky2_tpu/ops/flash_attention.py``:
   backward runs K5 and K4.
 
 The CUDA source's header note says how each kernel is laid out, what
-bounds it on the H100 and how it handles ragged T and S.
+bounds it on the H100 and how it handles ragged T and S.  At d = 64 the
+forward reads q, k and v through TMA tensor maps built from their strides,
+so the UNet's q (a strided view of the fused qkv projection) is read in
+place; a tensor TMA cannot address is made contiguous first.
 
 ``flash_attention(q, k, v)`` takes q [B, T, H, d] and k, v [B, S, H, d]
 (the JAX package's layout) and returns (o [B, T, H, d], lse [B*H, T] fp32),
@@ -69,14 +72,21 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do):
 
 
 def _kernel_ok(x: torch.Tensor) -> bool:
+    """Whether the kernels (and TMA, which needs 16-byte aligned rows and
+    positive strides of whole 16-byte units) can read ``x`` in place."""
     return x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
-        s % 8 == 0 for s in x.stride()[:-1]
+        s > 0 and s % 8 == 0 for n, s in zip(x.shape[:-1], x.stride()[:-1]) if n > 1
     )
 
 
 def _bhl(x: torch.Tensor):
-    """Element strides (batch, head, row) of a [B, L, H, d] tensor."""
-    return x.stride(0), x.stride(2), x.stride(1)
+    """Element strides (batch, head, row) of a [B, L, H, d] tensor.  A dim of
+    size 1 is never stepped over, so it gets its contiguous stride, whatever
+    the view says."""
+    B, L, H, d = x.shape
+    dense = (L * H * d, H * d, d)
+    st = [s if n > 1 else c for n, s, c in zip(x.shape, x.stride(), dense)]
+    return st[0], st[2], st[1]
 
 
 def _check_qkv(name: str, q, k, v, head_dims):

@@ -1,86 +1,65 @@
-"""Fused GroupNorm(+FiLM)(+SiLU) over channels-last activations: two Triton
+"""Fused GroupNorm(+FiLM)(+SiLU) over channels-last activations: two
 kernels for Hopper, and the plain PyTorch version of each.
 
 Replaces the Pallas TPU pair of ``kandinsky2_tpu/ops/group_norm.py``:
 
-* K1 ``group_norm_moments`` replaces ``_moments`` (``_moments_kernel``):
-  one pass over x [B, N, C] giving per-(b, c) Σx and Σx² in fp32.
-* K2 ``group_norm_apply`` replaces ``_apply`` (``_apply_kernel``):
-  y = silu?(x·a + b) with per-(b, c) fp32 coefficients, cast back to x's
-  dtype inside the kernel.
+* K1 ``group_norm_stats`` replaces ``_moments`` (``_moments_kernel``) and
+  the XLA glue ``_coefficients`` after it: one CUDA C++ launch
+  (``csrc/group_norm.cu``) reads x [B, N, C] once, sums Σx and Σx² in fp32,
+  finishes the cross-block reduction itself, and writes per-(b, c) fp32
+  coefficients a, b with the group statistics (var = max(E[x²] − mean², 0),
+  rsqrt(var + eps)), the affine scale/bias and the FiLM pair (1 + fs, fb)
+  folded in.  Its source note gives the design and the bound.
+* K2 ``group_norm_apply`` replaces ``_apply`` (``_apply_kernel``), a Triton
+  kernel: y = silu?(x·a + b), cast back to x's dtype inside the kernel.
 
-Between them, ``_coefficients`` is plain PyTorch on [B, C] tensors, as it is
-XLA glue in the JAX package: group combine, var = max(E[x²] − mean², 0),
-rsqrt(var + eps), and the fold of the affine scale/bias and of the FiLM
-pair (1 + fs, fb) into a and b.
+A GroupNorm on the card is those two launches.  Bound on the H100: both
+kernels do a few flops per element, so they are bound by device-memory
+bytes: K1 reads x once, K2 reads x and writes y once (2 reads + 1 write of
+the activation in all, the floor for an exact normalisation that needs its
+statistics before it can write).  K2 keeps every access a coalesced,
+masked [BLOCK_N, BLOCK_C] tile along the contiguous channel axis.
 
-Bound on the H100: both kernels do a few flops per element, so they are
-bound by device-memory bytes: K1 reads x once, K2 reads x and writes y once
-(2 reads + 1 write of the activation in all, the floor for an exact
-normalisation that needs its statistics before it can write).  The design
-keeps every access a coalesced, masked [BLOCK_N, BLOCK_C] tile along the
-contiguous channel axis, and launches enough programs to fill the 132 SMs:
-K1 splits the N axis into up to ``_MOMENT_PROGRAMS`` / (B·C/BLOCK_C) row
-ranges.
-
-Cross-block reduction: K1 writes one fp32 partial sum per (b, row range, c)
-and the partials are summed in the glue (a second pass over a [B, splits, C]
-tensor), never with atomics.  The result is deterministic; against the
-plain version it differs only by fp32 summation order, a relative error of
-about 1e-6·√N on the moments, well inside the bf16 tolerance that the
-comparisons on the card state.
+K1's sums are taken in an order fixed by the shape, so its a and b are
+bitwise repeatable; against the plain version they differ by fp32
+summation order only, a relative error of about 1e-6·√N on the moments.
 
 Gradients: ``GroupNormFunction`` is the counterpart of the ``custom_vjp``
-of ``pallas_group_norm``.  Its forward is K1 + ``_coefficients`` + K2 and
-saves only the inputs; its backward recomputes the norm in plain PyTorch
+of ``pallas_group_norm``.  Its forward is K1 + K2 and saves only the
+inputs; its backward recomputes the norm in plain PyTorch
 (``group_norm_plain``, the counterpart of ``_xla_reference``) and
 differentiates that, as the JAX package differentiates its XLA
 formulation.  The JAX package has no GroupNorm backward kernel, so neither
 has the port.
 
 Any C with C % groups == 0 is accepted (the TPU's C % 128 rule was a tiling
-rule of the TPU).  Triton is imported only inside the launching functions.
+rule of the TPU), up to 1024 loads of a row for K1.  Triton is imported
+only inside the launching function; the CUDA source is built at first use.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-_MOMENT_PROGRAMS = 1024
-_MOMENT_BLOCK_N = 32
+from ._build import check, load_library
+
 _APPLY_BLOCK_ELEMS = 8192
+# K1's launch geometry (about two blocks per SM on the H100's 132);
+# _STATS_UNROLL is UNROLL in csrc/group_norm.cu
+_STATS_BLOCKS = 2 * 132
+_STATS_UNROLL = 8
+_STATS_MAX_CHUNKS = 1024
+_MAX_BATCH = 4096
+_counters: dict = {}
 
 
 @functools.lru_cache(maxsize=None)
 def _triton_kernels():
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def moments_kernel(x_ptr, s1_ptr, s2_ptr, N, C, rows_per_split,
-                       BLOCK_N: tl.constexpr, BLOCK_C: tl.constexpr):
-        b = tl.program_id(0)
-        cb = tl.program_id(1)
-        sp = tl.program_id(2)
-        cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        n_start = sp * rows_per_split
-        n_end = tl.minimum(n_start + rows_per_split, N)
-        base = x_ptr + b.to(tl.int64) * N * C
-        acc1 = tl.zeros([BLOCK_N, BLOCK_C], dtype=tl.float32)
-        acc2 = tl.zeros([BLOCK_N, BLOCK_C], dtype=tl.float32)
-        for n0 in range(n_start, n_end, BLOCK_N):
-            rows = n0 + tl.arange(0, BLOCK_N)
-            mask = (rows[:, None] < n_end) & cmask[None, :]
-            offs = rows[:, None].to(tl.int64) * C + cols[None, :]
-            xv = tl.load(base + offs, mask=mask, other=0.0).to(tl.float32)
-            acc1 += xv
-            acc2 += xv * xv
-        out = (b * tl.num_programs(2) + sp).to(tl.int64) * C + cols
-        tl.store(s1_ptr + out, tl.sum(acc1, axis=0), mask=cmask)
-        tl.store(s2_ptr + out, tl.sum(acc2, axis=0), mask=cmask)
 
     @triton.jit
     def apply_kernel(x_ptr, a_ptr, b_ptr, y_ptr, N, C, SWISH: tl.constexpr,
@@ -101,7 +80,7 @@ def _triton_kernels():
             y = y * tl.sigmoid(y)
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    return triton, moments_kernel, apply_kernel
+    return triton, apply_kernel
 
 
 def _block_c(C: int) -> int:
@@ -119,67 +98,6 @@ def group_norm_moments_plain(x3: torch.Tensor):
     """(Σx, Σx²) over N of x3 [B, N, C], each [B, C] fp32."""
     x32 = x3.float()
     return x32.sum(1), (x32 * x32).sum(1)
-
-
-def group_norm_moments(x3: torch.Tensor):
-    """K1.  For a CPU tensor the plain version; for a CUDA tensor the Triton
-    kernel, whose per-range partials are summed here."""
-    if x3.device.type == "cpu":
-        return group_norm_moments_plain(x3)
-    _check_cuda(x3, "group_norm_moments")
-    triton, moments_kernel, _ = _triton_kernels()
-    B, N, C = x3.shape
-    block_c = _block_c(C)
-    ncb = triton.cdiv(C, block_c)
-    max_splits = triton.cdiv(N, _MOMENT_BLOCK_N)
-    splits = max(1, min(max_splits, triton.cdiv(_MOMENT_PROGRAMS, B * ncb)))
-    rows = triton.cdiv(triton.cdiv(N, splits), _MOMENT_BLOCK_N) * _MOMENT_BLOCK_N
-    splits = triton.cdiv(N, rows)
-    s1 = torch.empty((B, splits, C), dtype=torch.float32, device=x3.device)
-    s2 = torch.empty_like(s1)
-    group_norm_moments.launches += 1
-    moments_kernel[(B, ncb, splits)](
-        x3, s1, s2, N, C, rows,
-        BLOCK_N=_MOMENT_BLOCK_N, BLOCK_C=block_c, num_warps=4,
-    )
-    return s1.sum(1), s2.sum(1)
-
-
-group_norm_moments.launches = 0
-
-
-def group_norm_apply_plain(x3, a, b, swish: float):
-    """silu?(x·a + b) in fp32, cast to x's dtype; a, b [B, C] fp32."""
-    y = x3.float() * a[:, None, :] + b[:, None, :]
-    if swish:
-        y = y * torch.sigmoid(y * swish)
-    return y.to(x3.dtype)
-
-
-def group_norm_apply(x3, a, b, swish: float):
-    """K2.  For a CPU tensor the plain version; for a CUDA tensor the Triton
-    kernel."""
-    if x3.device.type == "cpu":
-        return group_norm_apply_plain(x3, a, b, swish)
-    _check_cuda(x3, "group_norm_apply")
-    if swish not in (0.0, 1.0):
-        raise ValueError("group_norm_apply: the kernel takes swish 0 or 1")
-    triton, _, apply_kernel = _triton_kernels()
-    B, N, C = x3.shape
-    block_c = _block_c(C)
-    block_n = _APPLY_BLOCK_ELEMS // block_c
-    a = a.float().contiguous()
-    b = b.float().contiguous()
-    y = torch.empty_like(x3)
-    group_norm_apply.launches += 1
-    apply_kernel[(triton.cdiv(N, block_n), triton.cdiv(C, block_c), B)](
-        x3, a, b, y, N, C, SWISH=bool(swish),
-        BLOCK_N=block_n, BLOCK_C=block_c, num_warps=4,
-    )
-    return y
-
-
-group_norm_apply.launches = 0
 
 
 def _coefficients(s1, s2, cnt, scale, bias, film, g, eps):
@@ -202,16 +120,148 @@ def _coefficients(s1, s2, cnt, scale, bias, film, g, eps):
     return a, b
 
 
-def _norm(x, scale, bias, num_groups, eps, swish, film, moments, apply):
+def group_norm_stats_plain(x3, scale, bias, film, num_groups: int, eps: float):
+    """K1's function in plain PyTorch: the moments, then ``_coefficients``.
+    Returns (a, b), each [B, C] fp32."""
+    s1, s2 = group_norm_moments_plain(x3)
+    cnt = float(x3.shape[1] * (x3.shape[2] // num_groups))
+    return _coefficients(s1, s2, cnt, scale, bias, film, num_groups, eps)
+
+
+def _vec(x3: torch.Tensor) -> int:
+    """Elements per load: the widest of 16, 8, 4 or 2 bytes that C and the
+    data pointer allow."""
+    size = x3.element_size()
+    vec = 16 // size
+    while vec > 1 and (x3.shape[2] % vec or x3.data_ptr() % (vec * size)):
+        vec //= 2
+    return vec
+
+
+def _param(t: torch.Tensor, name: str, B: int, C: int) -> int:
+    """1 for a bf16 tensor, 0 for fp32, of C values ([C]) or B rows of C
+    with a unit last stride (FiLM's [B, C] or [B, 1, 1, C]); raises for
+    anything else."""
+    if not t.is_cuda or t.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"group_norm_stats: {name} must be bf16 or fp32 on the card")
+    if t.numel() != B * C or t.shape[-1] != C or t.stride(-1) != 1 or (
+            B > 1 and t.shape[0] != B):
+        raise ValueError(f"group_norm_stats: {name} must hold {B} rows of {C}")
+    return int(t.dtype == torch.bfloat16)
+
+
+def group_norm_stats(x3, scale, bias, film, num_groups: int, eps: float):
+    """K1: (a, b), each [B, C] fp32.  For a CPU tensor the plain version;
+    for a CUDA tensor one launch of the CUDA kernel."""
+    if x3.device.type == "cpu":
+        return group_norm_stats_plain(x3, scale, bias, film, num_groups, eps)
+    _check_cuda(x3, "group_norm_stats")
+    if x3.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError("group_norm_stats: the kernel takes bf16 or fp32 x")
+    B, N, C = x3.shape
+    if C % num_groups:
+        raise ValueError(f"group_norm_stats: C={C} not divisible by {num_groups}")
+    vec = _vec(x3)
+    chunks = C // vec
+    if chunks > _STATS_MAX_CHUNKS or B > _MAX_BATCH:
+        raise ValueError(f"group_norm_stats: shape {tuple(x3.shape)} too wide")
+    param_bf16 = _param(scale, "scale", 1, C)
+    if _param(bias, "bias", 1, C) != param_bf16:
+        raise TypeError("group_norm_stats: scale and bias must share a dtype")
+    fs = fb = None
+    film_sb, film_bf16 = 0, 0
+    if film is not None:
+        fs, fb = film
+        film_bf16 = _param(fs, "fs", B, C)
+        film_sb = fs.stride(0) if B > 1 else 0
+        if _param(fb, "fb", B, C) != film_bf16 or (B > 1 and fb.stride(0) != film_sb):
+            raise TypeError("group_norm_stats: fs and fb must share a dtype and strides")
+    # rows of a split: a multiple of the block's rows times the unroll
+    ty = 1 if chunks >= 256 else 256 // chunks
+    gran = ty * _STATS_UNROLL
+    splits = max(1, min(-(-N // gran), -(-_STATS_BLOCKS // B)))
+    rows = -(-(-(-N // splits)) // gran) * gran
+    splits = -(-N // rows)
+    # one allocation: a, b, then the per-block partials (B * splits * G * 2)
+    buf = torch.empty(2 * B * C + B * splits * num_groups * 2, dtype=torch.float32,
+                      device=x3.device)
+    a = buf[:B * C].view(B, C)
+    b = buf[B * C:2 * B * C].view(B, C)
+    counter = _counters.get(x3.device)
+    if counter is None:
+        counter = _counters[x3.device] = torch.zeros(
+            _MAX_BATCH, dtype=torch.int32, device=x3.device)
+    ptr = buf.data_ptr()
+    group_norm_stats.launches += 1
+    err = _stats_lib().k2_group_norm_stats(
+        x3.data_ptr(), int(x3.dtype == torch.bfloat16), vec, B, N, C,
+        num_groups, splits, rows, ptr + 8 * B * C, counter.data_ptr(),
+        scale.data_ptr(), bias.data_ptr(), param_bf16,
+        None if fs is None else fs.data_ptr(), None if fb is None else fb.data_ptr(),
+        film_sb, film_bf16, eps, float(N * (C // num_groups)),
+        ptr, ptr + 4 * B * C, torch.cuda.current_stream(x3.device).cuda_stream,
+    )
+    check(err, "group_norm_stats kernel launch")
+    return a, b
+
+
+group_norm_stats.launches = 0
+
+
+def _stats_lib():
+    lib = load_library("group_norm.cu")
+    fn = lib.k2_group_norm_stats
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, I, I, I, I, I, I, P, P, P, P, I, P, P,
+                       ctypes.c_longlong, I, ctypes.c_float, ctypes.c_float,
+                       P, P, P]
+        fn.restype = I
+    return lib
+
+
+def group_norm_apply_plain(x3, a, b, swish: float):
+    """silu?(x·a + b) in fp32, cast to x's dtype; a, b [B, C] fp32."""
+    y = x3.float() * a[:, None, :] + b[:, None, :]
+    if swish:
+        y = y * torch.sigmoid(y * swish)
+    return y.to(x3.dtype)
+
+
+def group_norm_apply(x3, a, b, swish: float):
+    """K2.  For a CPU tensor the plain version; for a CUDA tensor the Triton
+    kernel."""
+    if x3.device.type == "cpu":
+        return group_norm_apply_plain(x3, a, b, swish)
+    _check_cuda(x3, "group_norm_apply")
+    if swish not in (0.0, 1.0):
+        raise ValueError("group_norm_apply: the kernel takes swish 0 or 1")
+    triton, apply_kernel = _triton_kernels()
+    B, N, C = x3.shape
+    block_c = _block_c(C)
+    block_n = _APPLY_BLOCK_ELEMS // block_c
+    a = a.float().contiguous()
+    b = b.float().contiguous()
+    y = torch.empty_like(x3)
+    group_norm_apply.launches += 1
+    apply_kernel[(triton.cdiv(N, block_n), triton.cdiv(C, block_c), B)](
+        x3, a, b, y, N, C, SWISH=bool(swish),
+        BLOCK_N=block_n, BLOCK_C=block_c, num_warps=4,
+    )
+    return y
+
+
+group_norm_apply.launches = 0
+
+
+def _norm(x, scale, bias, num_groups, eps, swish, film, stats, apply):
     B, C = x.shape[0], x.shape[-1]
     if C % num_groups:
         raise ValueError(f"group_norm: C={C} not divisible by {num_groups}")
     x3 = x.reshape(B, -1, C)
     if not x3.is_contiguous():
         x3 = x3.contiguous()
-    s1, s2 = moments(x3)
-    cnt = float(x3.shape[1] * (C // num_groups))
-    a, b = _coefficients(s1, s2, cnt, scale, bias, film, num_groups, eps)
+    a, b = stats(x3, scale, bias, film, num_groups, eps)
     return apply(x3, a, b, swish).reshape(x.shape)
 
 
@@ -220,7 +270,7 @@ def group_norm_plain(x, scale, bias, num_groups: int, eps: float,
     """The same function through the plain versions of K1 and K2, and
     differentiable by autograd: the backward target of ``GroupNormFunction``."""
     return _norm(x, scale, bias, num_groups, eps, swish, film,
-                 group_norm_moments_plain, group_norm_apply_plain)
+                 group_norm_stats_plain, group_norm_apply_plain)
 
 
 class GroupNormFunction(torch.autograd.Function):
@@ -235,7 +285,7 @@ class GroupNormFunction(torch.autograd.Function):
         ctx.config = (num_groups, eps, swish)
         film = None if fs is None else (fs, fb)
         return _norm(x, scale, bias, num_groups, eps, swish, film,
-                     group_norm_moments, group_norm_apply)
+                     group_norm_stats, group_norm_apply)
 
     @staticmethod
     def backward(ctx, gy):
@@ -263,7 +313,7 @@ def group_norm(x, scale, bias, num_groups: int, eps: float, swish: float = 0.0,
     only add host time to every call."""
     if not torch.is_grad_enabled():
         return _norm(x, scale, bias, num_groups, eps, swish, film,
-                     group_norm_moments, group_norm_apply)
+                     group_norm_stats, group_norm_apply)
     fs, fb = (None, None) if film is None else film
     return GroupNormFunction.apply(x, scale, bias, fs, fb, num_groups,
                                    float(eps), float(swish))

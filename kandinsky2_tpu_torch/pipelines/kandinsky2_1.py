@@ -100,7 +100,7 @@ class Kandinsky2_1:
     def __init__(self, config: Optional[dict] = None, tokenizer1=None,
                  tokenizer2=None, clip_mean=None, clip_std=None,
                  task_type: str = "text2img", dtype=torch.bfloat16,
-                 device="cpu"):
+                 device="cuda"):
         if task_type != "text2img":
             raise NotImplementedError("the PyTorch port runs text2img only")
         self.config = deep_copy_config(config or CONFIG_2_1)

@@ -93,7 +93,7 @@ def make_prepare_batch(pipe: Kandinsky2_1):
     return prepare_batch
 
 
-def build_pipeline(cfg: dict, device="cpu") -> Kandinsky2_1:
+def build_pipeline(cfg: dict, device="cuda") -> Kandinsky2_1:
     """The five-model pipeline with random fp32 parameters from seed 0 (and
     ``params_path`` loaded into the UNet), computing in bf16."""
     tok_name = cfg["data"]["train"].get("tokenizer_name")
@@ -113,7 +113,7 @@ def build_pipeline(cfg: dict, device="cpu") -> Kandinsky2_1:
     return pipe
 
 
-def run(cfg: dict, device="cpu"):
+def run(cfg: dict, device="cuda"):
     """Train as the YAML ``cfg`` says; returns the final ``TrainState``."""
     if cfg.get("inpainting"):
         raise NotImplementedError("the PyTorch port trains text2img only")

@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Time this tree's GroupNorm statistics (K1) and flash forward (K3) against
+another commit's, in one process on one NVIDIA GPU.
+
+    python3 kernel_ab.py OTHER_DIR
+
+OTHER_DIR is an unpacked ``git archive`` of the commit to compare against
+(the parent of a change, or a variant of this tree).  Its
+``kandinsky2_tpu_torch`` package is imported under another name, so both
+versions live in one process, and its kernels are built from its own
+sources.  Every pair is timed in turns (other, this, this, other):
+
+* the flash forward at the 768² text2img path's shapes: device ms, each
+  version checked against the plain version first;
+* GroupNorm at the path's shapes: device ms of the statistics (K1; in a
+  tree from before K1 took the coefficients in, its moments kernel and the
+  coefficient glue) and of the whole op with FiLM and SiLU, and host us per
+  call of the whole op, of the statistics and of K2 under
+  ``inference_mode`` at a small shape, where the device keeps up with the
+  host;
+* host us per flash forward call.
+
+Prints one line per measurement, after the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import importlib
+import importlib.util
+import sys
+from pathlib import Path
+
+from chip_smoke import check, cuda_ms, host_us, smi_line
+
+
+def turns(fns: dict, measure) -> dict:
+    """Each measurement of the two functions in turns (a, b, b, a), averaged."""
+    (na, fa), (nb, fb) = fns.items()
+    a1, b1, b2, a2 = measure(fa), measure(fb), measure(fb), measure(fa)
+    return {na: (a1 + a2) / 2, nb: (b1 + b2) / 2}
+
+
+def main(argv) -> int:
+    import torch
+
+    from kandinsky2_tpu_torch.ops import flash_attention as fa
+    from kandinsky2_tpu_torch.ops import group_norm as gn
+
+    if len(argv) != 2 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = Path(argv[1]).resolve() / "kandinsky2_tpu_torch"
+    print(f"card: {smi_line()}; other tree {argv[1]}")
+    spec = importlib.util.spec_from_file_location(
+        "other_k2", other / "__init__.py", submodule_search_locations=[str(other)])
+    sys.modules["other_k2"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["other_k2"])
+    ofa = importlib.import_module("other_k2.ops.flash_attention")
+    ogn = importlib.import_module("other_k2.ops.group_norm")
+    other_fwd = ofa.flash_attention_fwd
+
+    def other_stats(x3, scale, bias, film):
+        if hasattr(ogn, "group_norm_stats"):
+            return ogn.group_norm_stats(x3, scale, bias, film, 32, 1e-5)
+        cnt = float(x3.shape[1] * (x3.shape[2] // 32))
+        return ogn._coefficients(*ogn.group_norm_moments(x3), cnt, scale, bias,
+                                 film, 32, 1e-5)
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    for label, (B, T, S, H, d) in [
+        ("unet ds2", (2, 2304, 2391, 12, 64)), ("unet ds4", (2, 576, 663, 18, 64)),
+        ("unet ds8/middle", (2, 144, 231, 24, 64)), ("movq attn", (1, 9216, 9216, 1, 512)),
+    ]:
+        q, k, v = randn(B, T, H, d), randn(B, S, H, d), randn(B, S, H, d)
+        o_ref = fa.flash_attention_plain(q, k, v)[0].float()
+        for name, fn in (("other", other_fwd), ("this", fa.flash_attention_fwd)):
+            err = (fn(q, k, v)[0].float() - o_ref).abs().max().item()
+            check(err <= 2e-2 * o_ref.abs().max().item(), f"{name} K3 wrong at {label}")
+        t = turns({"other": lambda: other_fwd(q, k, v),
+                   "this": lambda: fa.flash_attention_fwd(q, k, v)},
+                  lambda fn: cuda_ms(fn, 10))
+        print(f"K3 {label} B={B} T={T} S={S} H={H} d={d}: other {t['other']:.4f} ms, "
+              f"this {t['this']:.4f} ms")
+        del q, k, v, o_ref
+
+    with torch.inference_mode():
+        for label, shape in [("unet ds1", (2, 96, 96, 384)), ("unet ds8", (2, 12, 12, 3072)),
+                             ("movq 768^2", (1, 768, 768, 128))]:
+            B, C = shape[0], shape[-1]
+            x = randn(*shape)
+            x3 = x.reshape(B, -1, C)
+            scale, bias = torch.ones(C, device="cuda"), torch.zeros(C, device="cuda")
+            film = randn(B, 1, 1, 2 * C).chunk(2, dim=-1)
+            stats = {
+                "other": lambda: other_stats(x3, scale, bias, film),
+                "this": lambda: gn.group_norm_stats(x3, scale, bias, film, 32, 1e-5)}
+            op = {"other": lambda: ogn.group_norm(x, scale, bias, 32, 1e-5, 1.0, film),
+                  "this": lambda: gn.group_norm(x, scale, bias, 32, 1e-5, 1.0, film)}
+            ts = turns(stats, lambda fn: cuda_ms(fn, 10))
+            to = turns(op, lambda fn: cuda_ms(fn, 4))
+            print(f"GroupNorm {label} {list(shape)} FiLM SiLU: statistics other "
+                  f"{ts['other']:.4f} ms, this {ts['this']:.4f} ms; whole op other "
+                  f"{to['other']:.4f} ms, this {to['this']:.4f} ms")
+            if label == "unet ds8":  # the device keeps up with the host here
+                th = turns(op, host_us)
+                ths = turns(stats, host_us)
+                a, b = gn.group_norm_stats(x3, scale, bias, film, 32, 1e-5)
+                k2 = host_us(lambda: gn.group_norm_apply(x3, a, b, 1.0))
+                print(f"GroupNorm {label} host per call: whole op other "
+                      f"{th['other']:.1f} us, this {th['this']:.1f} us; statistics "
+                      f"other {ths['other']:.1f} us, this {ths['this']:.1f} us; "
+                      f"this tree's K2 (Triton launcher) {k2:.1f} us")
+
+        q, k, v = randn(2, 144, 24, 64), randn(2, 231, 24, 64), randn(2, 231, 24, 64)
+        th = turns({"other": lambda: other_fwd(q, k, v),
+                    "this": lambda: fa.flash_attention_fwd(q, k, v)}, host_us)
+        print(f"K3 host per call B 2 T 144 S 231 H 24: other {th['other']:.1f} us, "
+              f"this {th['this']:.1f} us")
+    torch.cuda.synchronize()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -50,9 +50,53 @@ def test_group_norm_kernels_match_plain(gen, shape, eps):
     assert (got.float() - want.float()).abs().max().item() <= 2 ** -5
 
 
+@pytest.mark.parametrize("C", [128, 384, 512, 3072])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_stats_kernel_matches_plain(gen, C, dtype):
+    """K1 (one launch: moments, cross-block finish, coefficients with the
+    affine pair and FiLM folded in) against its plain version at a ragged N,
+    and bitwise equal over two calls."""
+    B, N = 2, 1999
+    x = (0.5 + torch.randn((B, N, C), generator=gen, device="cuda")).to(dtype)
+    scale = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+    bias = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+    fsb = torch.randn((B, 1, 1, 2 * C), generator=gen, device="cuda").to(torch.bfloat16)
+    for film in (None, fsb.chunk(2, dim=-1)):  # the UNet's strided FiLM views
+        got = tgn.group_norm_stats(x, scale, bias, film, 32, 1e-5)
+        again = tgn.group_norm_stats(x, scale, bias, film, 32, 1e-5)
+        want = tgn.group_norm_stats_plain(x, scale, bias, film, 32, 1e-5)
+        torch.cuda.synchronize()
+        for g, a, w in zip(got, again, want):
+            assert g.dtype == torch.float32 and g.shape == (B, C)
+            assert torch.equal(g, a)
+            # fp32 sums in another order: about 1e-6 sqrt(N) of the moments
+            assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def test_group_norm_launches_two_kernels(gen):
+    """A GroupNorm on the card is K1 + K2: at most two kernels, counted by
+    the profiler, with FiLM and SiLU, with grad mode off and on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn((2, 24, 24, 768), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = torch.ones(768, device="cuda")
+    bias = torch.zeros(768, device="cuda")
+    film = torch.randn((2, 1, 1, 1536), generator=gen, device="cuda").chunk(2, dim=-1)
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad):
+            tgn.group_norm(x, scale, bias, 32, 1e-5, swish=1.0, film=film)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                tgn.group_norm(x, scale, bias, 32, 1e-5, swish=1.0, film=film)
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")
+                   and not e.is_user_annotation]
+        assert 1 <= len(kernels) <= 2, [e.name for e in kernels]
+
+
 @pytest.mark.parametrize("B,T,S,H,d", [
-    (2, 2304, 2391, 12, 64), (2, 144, 231, 24, 64), (1, 9216, 9216, 1, 512),
-    (1, 100, 77, 1, 512),
+    (2, 2304, 2391, 12, 64), (2, 144, 231, 24, 64), (2, 100, 187, 3, 64),
+    (1, 9216, 9216, 1, 512), (1, 100, 77, 1, 512), (1, 100, 187, 1, 512),
 ])
 def test_flash_kernel_matches_plain(gen, B, T, S, H, d):
     q, k, v = (torch.randn((B, L, H, d), generator=gen, device="cuda")
@@ -62,6 +106,22 @@ def test_flash_kernel_matches_plain(gen, B, T, S, H, d):
     torch.cuda.synchronize()
     # P is rounded to bf16 before P·V (fp32 in the plain version), and O to
     # bf16 at the end; |o| shrinks as 1/sqrt(S), so the bound is relative
+    o_max = o_ref.float().abs().max().item()
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2 * o_max
+    assert (lse - lse_ref).abs().max().item() <= 1e-3 * lse_ref.abs().max().item()
+
+
+def test_flash_kernel_reads_the_unet_q_view_in_place(gen):
+    """The UNet's q is a strided view of the fused qkv projection (row
+    stride 3·C, head stride 3·64): the forward reads it through its tensor
+    map, as it is, and agrees with the plain version."""
+    B, T, H, d = 2, 576, 18, 64
+    qkv = torch.randn((B, T, H, 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.split(d, dim=-1)
+    assert not q.is_contiguous()
+    o, lse = flash_attention(q, k, v)
+    o_ref, lse_ref = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
     o_max = o_ref.float().abs().max().item()
     assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2 * o_max
     assert (lse - lse_ref).abs().max().item() <= 1e-3 * lse_ref.abs().max().item()

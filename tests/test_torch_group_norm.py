@@ -1,6 +1,7 @@
-"""The port's GroupNorm pair (K1 moments + K2 apply, ``kandinsky2_tpu_torch/
+"""The port's GroupNorm pair (K1 statistics + K2 apply, ``kandinsky2_tpu_torch/
 ops/group_norm.py``) against the JAX package's Pallas kernels in interpret
-mode and its plain XLA reference, in fp32 at 1e-4."""
+mode and its plain XLA reference: the whole norm in fp32 at 1e-4, K1's
+coefficients at 1e-5."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,6 +9,7 @@ import pytest
 import torch
 
 from kandinsky2_tpu.models import layers as jax_layers
+from kandinsky2_tpu.ops import group_norm as jgn
 from kandinsky2_tpu.ops.group_norm import _xla_reference, pallas_group_norm
 from kandinsky2_tpu_torch.models.layers import GroupNorm32
 from kandinsky2_tpu_torch.ops import group_norm as tgn
@@ -48,9 +50,10 @@ def test_group_norm_matches_pallas_and_xla(film, swish, eps):
 
 
 def test_moments_and_apply_plain_pieces():
-    """K1 and K2 separately: per-channel sums and the fused multiply-add."""
+    """K1's plain moments and K2 separately: per-channel sums and the fused
+    multiply-add."""
     x, _, _, _ = _inputs(1, shape=(2, 40, 96))
-    s1, s2 = tgn.group_norm_moments(torch.from_numpy(x))
+    s1, s2 = tgn.group_norm_moments_plain(torch.from_numpy(x))
     np.testing.assert_allclose(s1.numpy(), x.sum(1), rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(s2.numpy(), (x * x).sum(1), rtol=1e-5, atol=1e-3)
     a = np.random.RandomState(2).randn(2, 96).astype(np.float32)
@@ -60,6 +63,32 @@ def test_moments_and_apply_plain_pieces():
     z = x * a[:, None] + b[:, None]
     np.testing.assert_allclose(y.numpy(), z / (1 + np.exp(-z)), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("film", [False, True])
+def test_group_norm_stats_matches_pallas_moments_and_coefficients(dtype, film):
+    """K1's function (``group_norm_stats`` on a CPU tensor, its plain
+    version) against the JAX package's ``_moments`` Pallas kernel in
+    interpret mode followed by its ``_coefficients`` glue: the per-(b, c)
+    coefficients a and b, from bf16 or fp32 x, at 1e-5 of the largest."""
+    x, scale, bias, fpair = _inputs(7, shape=(2, 24, 128), film=film)
+    # bf16 inputs are rounded once, then given exactly to both frameworks
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(xt.float().numpy()).astype(getattr(jnp, dtype))
+    B, N, C = x.shape
+    s1, s2 = jgn._moments(xj, jgn._pick_tn(N, C, xj.dtype.itemsize), True)
+    fs, fb = (None, None) if fpair is None else (jnp.asarray(f) for f in fpair)
+    want = jgn._coefficients(s1, s2, jnp.float32(N * (C // 32)), jnp.asarray(scale),
+                             jnp.asarray(bias), fs, fb, 32, 1e-5)
+    tf = None if fpair is None else tuple(torch.from_numpy(f) for f in fpair)
+    got = tgn.group_norm_stats(xt, torch.from_numpy(scale), torch.from_numpy(bias),
+                               tf, 32, 1e-5)
+    for name, g, w in zip("ab", got, want):
+        w = np.asarray(w)
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 1e-5 * np.abs(w).max(), f"{name}: {err:.3e}"
 
 
 def test_any_channel_count_divisible_by_groups():
@@ -76,7 +105,7 @@ def test_any_channel_count_divisible_by_groups():
 def test_wrappers_refuse_devices_without_a_kernel():
     x = torch.empty((1, 8, 64), device="meta")
     with pytest.raises(RuntimeError):
-        tgn.group_norm_moments(x)
+        tgn.group_norm_stats(x, x[0, 0], x[0, 0], None, 32, 1e-5)
     with pytest.raises(RuntimeError):
         tgn.group_norm_apply(x, x[:, 0], x[:, 0], 0.0)
 

@@ -1,10 +1,14 @@
 """The PyTorch port must not load JAX, flax, optax or the JAX package:
 importing every submodule of ``kandinsky2_tpu_torch`` in a fresh
-interpreter leaves none of them in ``sys.modules``."""
+interpreter leaves none of them in ``sys.modules``, and the scripts that
+run on the card import none of them."""
 
+import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 _CHECK = """
 import importlib, pkgutil, sys
@@ -27,3 +31,20 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 23
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_ab.py"])
+def test_scripts_import_no_jax(script):
+    """The card's scripts import neither JAX nor the JAX package, at any
+    depth of their code."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, script)) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert "kandinsky2_tpu_torch" in names
+    assert not names & {"jax", "jaxlib", "flax", "optax", "kandinsky2_tpu"}, names

@@ -103,7 +103,8 @@ def test_text2img_seeded_end_to_end(monkeypatch):
     conv_out["kernel"] = conv_out["kernel"] * np.float32(0.01)
     jp.params = jax.tree_util.tree_map(jnp.asarray, params)
     tp = TorchK21(config=cfg, tokenizer1=tok1, tokenizer2=tok2,
-                  clip_mean=clip_mean, clip_std=clip_std, dtype=torch.float32)
+                  clip_mean=clip_mean, clip_std=clip_std, dtype=torch.float32,
+                  device="cpu")
     tp.load_jax_params(params)
 
     steps, prior_steps, h = 10, "5", 64
@@ -141,7 +142,7 @@ def test_random_init_drives_small_path():
     the CPU: seeded generator init, bf16 cast, finite non-constant image."""
     tok1, tok2 = stub_tokenizers()
     tp = TorchK21(config=small_config(), tokenizer1=tok1, tokenizer2=tok2,
-                  dtype=torch.bfloat16)
+                  dtype=torch.bfloat16, device="cpu")
     tp.init_random_params(torch.Generator().manual_seed(0))
     assert all(p.dtype == torch.bfloat16 for p in tp.unet.parameters())
     img = tp.generate_text2img("a cat", num_steps=5, guidance_scale=4, h=64, w=64,
@@ -149,3 +150,14 @@ def test_random_init_drives_small_path():
                                .manual_seed(1), output="float")
     assert img.shape == (1, 64, 64, 3)
     assert np.isfinite(img).all() and img.std() > 0
+
+
+def test_entry_points_default_to_the_card():
+    """The pipeline, the CLI's ``build_pipeline`` and ``run`` run on the card
+    unless the caller asks for the CPU."""
+    import inspect
+
+    from kandinsky2_tpu_torch.train import train_2_1_unclip as tcli
+
+    for fn in (TorchK21.__init__, tcli.build_pipeline, tcli.run):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn

@@ -470,7 +470,7 @@ def test_run_rejects_what_the_port_lacks(change):
     other than the learning rate."""
     cfg = dict(tcli.small_train_config("", "", ""), **change)
     with pytest.raises(NotImplementedError):
-        tcli.run(cfg)
+        tcli.run(cfg, device="cpu")
 
 
 def test_loader_batches_match_jax(tmp_path):
