@@ -29,10 +29,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    and flash_attention_fwd call under ``inference_mode``, one full-width
    UNet denoise call and one slice call under ``torch.profiler`` (device
    ops, device time, wall time, idle share).
-6. kernels, backward: the flash backward kernels (K5 dQ, K4 dK/dV) against
-   the plain backward at the decoder training step's UNet attention
-   shapes, timed in turns with the plain backward and the backward of
-   ``scaled_dot_product_attention``, each beside its bound; and
+6. kernels, backward: the flash backward kernels (K5 dQ and delta, K4
+   dK/dV) against the plain backward at the decoder training step's UNet
+   attention shapes and a ragged toy shape, bitwise repeatable, K5's delta
+   against rowsum(dO·O); timed in turns with the plain backward, the whole
+   backward (K5 + K4) and the backward of ``scaled_dot_product_attention``,
+   each beside its bound; and
    GroupNormFunction's gradients against autograd of the plain
    formulation, with CUDA-event times.
 7. train, small: the decoder fine-tuning CLI's ``run`` on a small config
@@ -45,8 +47,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    diffusion config, freeze rules and Adafactor (lr 5e-6), EMA 0.9999, no
    remat; prepare_batch (MoVQ encode, XLM-R, CLIP ViT) and train_step as
    train_unclip calls them, one warm-up step and five timed steps, during
-   which every kernel must be launched and every trainable parameter must
-   get a finite, non-zero gradient.
+   which every kernel must be launched (K4 and K5 22 times a step) and
+   every trainable parameter must get a finite, non-zero gradient.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' results as JSON, and the line before that the card's name and
@@ -487,6 +489,7 @@ def phase_kernels_backward(torch, results):
 
     from kandinsky2_tpu_torch.ops import group_norm as gn
     from kandinsky2_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_attention_bwd_plain,
@@ -499,21 +502,25 @@ def phase_kernels_backward(torch, results):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     # the UNet attention of the decoder training step at 768², batch 1:
-    # (B, T, S = T + 87 encoder tokens, H), d = 64
+    # (B, T, S = T + 87 encoder tokens, H), d = 64; and a ragged toy shape
+    # (T and S below one tile), checked but not timed
     attn_shapes = [
         ("unet ds2", (1, 2304, 2391, 12)),
         ("unet ds4", (1, 576, 663, 18)),
         ("unet ds8/middle", (1, 144, 231, 24)),
+        ("ragged toy", (2, 37, 50, 1)),
     ]
     for label, (B, T, S, H) in attn_shapes:
         d = 64
         q, k, v = randn((B, T, H, d)), randn((B, S, H, d)), randn((B, S, H, d))
         do = randn((B, T, H, d))
         o, lse = flash_attention_fwd(q, k, v)
-        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, T)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        k5 = lambda: flash_attention_bwd_dq(q, k, v, o, do, lse)
+        (dq, delta), (dq2, delta2) = k5(), k5()
+        k4 = lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        (dk, dv), (dk2, dv2) = k4(), k4()
         ref = flash_attention_bwd_plain(q, k, v, o, lse, do)
+        delta_ref = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, T)
         torch.cuda.synchronize()
         # P and dS are rounded to bf16 before their MMAs (fp32 in the plain
         # version): 2e-2 of the largest reference gradient
@@ -522,39 +529,61 @@ def phase_kernels_backward(torch, results):
             errs[name] = ((got.float() - want.float()).abs().max().item(),
                           rel_err(got, want))
             check(errs[name][1] <= 2e-2, f"K4/K5 {name} disagrees at {label}")
+        # one writer per element and no atomics: two calls are bitwise equal
+        repeat = all(torch.equal(a, b) for a, b in
+                     ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
+        check(repeat, f"K4/K5 are not bitwise repeatable at {label}")
+        # delta: the same fp32 products as rowsum(dO·O), summed in another order
+        delta_err = rel_err(delta, delta_ref)
+        check(delta_err <= 1e-5, f"K5's delta disagrees at {label}")
+        print(f"K5 dQ      {label} B={B} T={T} S={S} H={H} d=64: max_abs_err "
+              f"{errs['dq'][0]:.3e} max_rel_err {errs['dq'][1]:.3e} (tol 2e-2); delta "
+              f"max_rel_err {delta_err:.3e} (tol 1e-5); bitwise repeatable {repeat}")
+        print(f"K4 dK/dV   {label} B={B} T={T} S={S} H={H} d=64: max_abs_err "
+              f"{max(errs['dk'][0], errs['dv'][0]):.3e} max_rel_err dk "
+              f"{errs['dk'][1]:.3e} dv {errs['dv'][1]:.3e} (tol 2e-2)")
+        if label == "ragged toy":
+            continue
         # the library's backward: scaled_dot_product_attention's, for dq, dk
-        # and dv together, from its own saved forward
+        # and dv together (delta included), from its own saved forward
         qg, kg, vg = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(qg, kg, vg)
         dot = do.permute(0, 2, 1, 3)
         times = timed_turns({
             "plain": lambda: flash_attention_bwd_plain(q, k, v, o, lse, do),
-            "k5": lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta),
-            "k4": lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+            "k5": k5, "k4": k4,
+            "backward": lambda: flash_attention_bwd(q, k, v, o, lse, do),
             "library": lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
                                                    retain_graph=True)}, 10)
         qo_bytes, kv_bytes, row_bytes = 2 * B * T * H * d, 2 * B * S * H * d, 4 * B * H * T
-        # K5 reads q, dO, k, v, LSE, delta and writes dq; K4 writes dk, dv
-        b5 = bound(6 * B * H * T * S * d, 3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes,
+        # K5 reads q, dO, O, k, v and LSE, writes dq and delta; K4 reads q,
+        # dO, k, v, LSE and delta, writes dk and dv; the whole backward reads
+        # q, dO, O, k, v and LSE and writes dq, dk and dv.  K5 and K4 each
+        # recompute S and dP (6 and 8 T·S·d FLOP); the function itself needs
+        # S, dP, dV, dK and dQ once each: 10 T·S·d
+        b5 = bound(6 * B * H * T * S * d, 4 * qo_bytes + 2 * kv_bytes + 2 * row_bytes,
                    PEAK_BF16)
         b4 = bound(8 * B * H * T * S * d, 2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes,
                    PEAK_BF16)
+        bb = bound(10 * B * H * T * S * d, 4 * qo_bytes + 4 * kv_bytes + row_bytes,
+                   PEAK_BF16)
         t5 = {"kernel": times["k5"], "plain": times["plain"], "library": times["library"]}
         t4 = {"kernel": times["k4"], "plain": times["plain"], "library": times["library"]}
-        print(f"K5 dQ      {label} B={B} T={T} S={S} H={H} d=64: max_abs_err "
-              f"{errs['dq'][0]:.3e} max_rel_err {errs['dq'][1]:.3e} (tol 2e-2)")
+        tb = {"kernel": times["backward"], "plain": times["plain"],
+              "library": times["library"]}
         _print_times("K5 dQ     ", label, t5, *b5)
-        print(f"K4 dK/dV   {label} B={B} T={T} S={S} H={H} d=64: max_abs_err "
-              f"{max(errs['dk'][0], errs['dv'][0]):.3e} max_rel_err dk "
-              f"{errs['dk'][1]:.3e} dv {errs['dv'][1]:.3e} (tol 2e-2)")
         _print_times("K4 dK/dV  ", label, t4, *b4)
-        print("  (plain: the whole plain backward; library: the backward of "
-              "scaled_dot_product_attention, dq, dk and dv together)")
+        _print_times("K5 + K4   ", label, tb, *bb)
+        print(f"  (plain: the whole plain backward; library: the backward of "
+              f"scaled_dot_product_attention, dq, dk and dv together; K5 + K4: "
+              f"flash_attention_bwd, {times['backward'] / times['library']:.2f}x "
+              f"the library's time)")
         results["flash_attention_bwd_dq"].append(
             _row(label, (B, T, S, H, d), errs["dq"][0], t5, *b5))
         results["flash_attention_bwd_dkv"].append(
             _row(label, (B, T, S, H, d), max(errs["dk"][0], errs["dv"][0]), t4, *b4))
-        del q, k, v, do, o, lse, delta, dq, dk, dv, ref, qg, kg, vg, out, dot
+        del qg, kg, vg, out, dot
+    del q, k, v, do, o, lse, delta, dq, dk, dv, ref, dq2, dk2, dv2, delta2
 
     # GroupNormFunction at the UNet ds1 shape, with FiLM and SiLU
     x = randn((1, 96, 96, 384))
@@ -756,6 +785,10 @@ def phase_train_full(torch, np, smi: str):
     check(all(np.isfinite(losses)), f"loss not finite: {losses}")
     check(all(n > 0 for n in counts.values()),
           f"a kernel was not launched in the timed steps: {counts}")
+    # CONFIG_2_1's UNet attends at ds 2, 4 and 8 in 3 input and 4 output
+    # blocks a level, and in the middle block: 22 attention backwards a step
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        check(counts[name] == 22 * 5, f"{name} launched {counts[name]} times in 5 steps")
     frozen_same = all(torch.equal(p, before[n]) for n, p in unet.named_parameters()
                       if not mask[n])
     moved = [n for n, p in unet.named_parameters() if mask[n] and not torch.equal(p, before[n])]
@@ -779,6 +812,10 @@ def phase_train_full(torch, np, smi: str):
     top = sorted(events, key=lambda e: -dev_us(e))[:8]
     print("train full: profiled step, kernel time by name (ms, calls): " + "; ".join(
         f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ({e.count})" for e in top))
+    bwd = {k: [e for e in events if k in e.key] for k in ("flash_bwd_dq", "flash_bwd_dkv")}
+    print("train full: profiled step, flash backward kernels (ms, calls): " + "; ".join(
+        f"{k} {sum(dev_us(e) for e in v) / 1e3:.3f} ({sum(e.count for e in v)})"
+        for k, v in bwd.items()))
     print(f"train full: losses {losses}; launches in the 5 timed steps "
           f"{json.dumps(counts)}; trained tensors moved {len(moved)}, frozen unchanged")
     print(f"train full: {step_s:.4f} s/step (prepare_batch {prep_s:.4f} s of it) at "
@@ -821,7 +858,7 @@ def main() -> int:
     for src in CUDA_SOURCES:
         report = _build.PTXAS_REPORTS.get(src, "(built before this run)")
         lines = [ln.strip() for ln in report.splitlines()
-                 if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+                 if any(w in ln for w in ("Compiling entry", "Used", "spill", "wgmma"))]
         print(f"build: ptxas {src}: " + " | ".join(lines))
     t0 = time.perf_counter()
     group_norm._triton_kernels()

@@ -69,57 +69,89 @@
 // phase: d = 64 126 registers with two or three consumer warpgroups, no
 // spills, 81 or 89 KB of dynamic shared memory; d = 512 96 registers and 48
 // bytes of spill stores and loads (the 544-thread block caps the
-// registers), 203 KB of dynamic shared memory.  The backward: K4 172
-// registers, K5 168, no spills, 37,376 and 36,864 bytes of static shared
-// memory.
+// registers), 203 KB of dynamic shared memory.
 
 // ---- Backward (K4 dK/dV, K5 dQ) ----
 //
 // Replaces the Pallas TPU kernels of kandinsky2_tpu/ops/flash_attention.py
-// launched by _flash_bwd_bhd: _flash_bwd_dkv_kernel (K4) and
-// _flash_bwd_dq_kernel (K5).  Both recompute the probabilities from the
-// forward's saved log-sum-exp instead of storing the [T, S] matrix:
+// launched by _flash_bwd_bhd: _flash_bwd_dq_kernel (K5) and
+// _flash_bwd_dkv_kernel (K4), and the delta = rowsum(dO * O) that
+// _flash_bwd_bhd computes in XLA before them.  Both recompute the
+// probabilities from the forward's saved log-sum-exp instead of storing the
+// [T, S] matrix:
 //
 //   S  = scale * Q K^T            (fp32)
 //   P  = exp(S - LSE)             (0 for q rows >= T and kv rows >= S)
 //   dP = dO V^T
-//   dS = P * (dP - delta) * scale, delta = rowsum(dO * O) from the wrapper
+//   dS = P * (dP - delta) * scale, delta = rowsum(dO * O)
 //   dV = P^T dO,  dK = dS^T Q,  dQ = dS K
 //
-// Design.
-// * Two kernels, as on the TPU, so that every output has one writer: no
-//   atomics, and the result does not depend on the order blocks run in.
-//   K5: one block per (batch*head, 64-row q-tile), looping over 64-row K/V
-//   tiles; K4: one block per (batch*head, 64-row kv-tile), looping over
-//   64-row Q/dO tiles.  The TPU's sequential grid axis becomes that loop.
-// * Tensor cores through mma.sync m16n8k16; four warps, each owning 16 rows
-//   of the block's tile.  The operand that stays fixed over the loop is held
-//   in registers as A fragments (Q and dO in K5, K and V in K4).
-// * K4 works in the transposed frame: each warp computes S^T = K Q^T and
-//   dP^T = V dO^T for its 16 kv rows, so P^T and dS^T come out of the MMA in
-//   the C-fragment layout that repacks in registers (c_to_a) as the A operand
-//   of dV += P^T dO and dK += dS^T Q.  No tile of P or dS is transposed
-//   through shared memory.  The cost is register pressure: three 16x64
-//   fp32 tiles (P^T, then dS^T in its place, and the dK and dV
-//   accumulators) beside the K and V fragments, about 130 live registers a
-//   thread; dP^T is formed 8 columns at a time.
-// * P and dS are rounded to bf16 only as MMA operands; everything else is
-//   fp32 in registers.  LSE (natural log, [B*H, T], T unpadded, as the
-//   forward writes it) is used in the log2 domain.
-// * Ragged tails: Q/dO rows >= T and K/V rows >= S are zero-filled by
-//   cp.async, P is masked to 0 outside [T, S], and rows past the tails are
-//   not stored.  The wrapper pads nothing.
-// * Shared memory: four 64 x 72 bf16 tiles (a row pitch of 72 keeps the
-//   32-bit fragment loads and the 16-bit column loads free of bank
-//   conflicts), 36 KB, plus K4's per-tile LSE and delta, within the 48 KB of
-//   static shared memory.
-//
 // Bound on the H100: per head, K5 does 6 T S d FLOP and K4 8 T S d against
-// operands that fit in L2, so both are for the tensor cores; mma.sync and
-// the 16-bit loads of the B operands of P^T dO, dS^T Q and dS K keep them
-// well below the wgmma rate, which a later kernel (wgmma + TMA,
-// ldmatrix.trans) should recover.  Head dim 64 only: the UNet's attention,
-// the one the training path differentiates.
+// operands that fit in the 50 MB L2, so both are for the tensor cores:
+// 26 us and 34 us at 989 TFLOP/s for the training step's ds2 call (B*H 12,
+// T 2304, S 2391).  At d = 64 the exponentials (T S of them, on the 16
+// MUFU lanes of an SM) and the elementwise work between the products cost
+// as much issue time as the products themselves, so the design keeps
+// several warpgroups on each SM and forms P while dP is still in the
+// tensor cores.
+//
+// Design: wgmma + TMA, the machinery of the d = 64 forward (tensor maps,
+// mbarriers, 128-byte swizzled tiles).
+// * Two kernels, as on the TPU, so that every output element has one
+//   writer: no atomics, and sums in a fixed order, so dq, dk, dv and delta
+//   are bitwise repeatable and do not depend on the order blocks run in.
+//   K5 runs first and writes delta [B*H, T] fp32 for K4, on the same stream.
+// * Each block computes 64 rows with one warpgroup, so the small training
+//   shapes get many blocks (ds8: 72 for K5, 96 for K4), and
+//   several blocks share an SM: warpgroups an SM are what hides the
+//   exponentials (one block an SM instead of two read 1.42x slower for K5
+//   and 1.33x for K4 at ds2 on the H100).  The count is set by registers:
+//   K5 fits 128 a thread (four blocks), K4 needs 164 (two blocks; three
+//   left a lone fourth block on 60 SMs at ds2 and read 1.3x slower).
+// * TMA loads over 4-d tensor maps (d, H, L, B) with byte strides, so the
+//   UNet's strided q view and any 16-byte aligned strided dO are read in
+//   place and the zero fill stops at T or S within each batch.
+// * K5 (dQ): one block per (batch*head, 64 q rows), 128 threads, four
+//   blocks an SM (122 registers, 49 KB of shared memory).  Thread 0 loads
+//   Q and dO once and 64-row K and V tiles into a ring of two stages, each
+//   with one full barrier; once the warpgroup is done with a stage
+//   (__syncthreads, since a warp's wgmma wait does not cover the other
+//   warps' parts of the product) it refills it: no producer warp, no empty
+//   barriers.  Prologue, while the loads fly: delta for the block's rows
+//   from O and dO in device memory (each row's four threads sum 16
+//   columns in fp32 and shuffle), kept in registers and written for K4;
+//   LSE in the log2 domain (+inf past T, so P is 0 there).  Per tile:
+//   S = Q K^T and dP = dO V^T (m64n64k16, both operands from shared
+//   memory) as two groups; P = ex2(S scale log2e - LSE log2e) (the bare
+//   ex2.approx.ftz) while dP runs, masked past S; dS / scale = P (dP -
+//   delta) packed to bf16 A fragments in registers; dQ += dS K (m64n64k16,
+//   dS from registers, K as an MN-major B through the transpose flag, as
+//   the forward reads V).
+// * K4 (dK, dV), in the transposed frame: one block per (batch*head, 64 kv
+//   rows), one consumer warpgroup and a producer warp (160 threads), two
+//   blocks an SM (__launch_bounds__(160, 2): about 168 registers; 164
+//   used, 66 KB of shared memory).  The producer's lane 0 loads K and V
+//   once and 64-row Q and dO tiles into a ring of three stages; its lanes
+//   write each tile's LSE log2e and delta (+inf and 0 past T) into shared
+//   memory with the stage and arrive on its full barrier beside the TMA
+//   bytes; the consumers arrive on the stage's empty barrier.  (K5's
+//   protocol, thread 0 refilling after a __syncthreads with the consumers
+//   staging the rows, read 1.17x slower at ds2 at two blocks an SM;
+//   presumably half K5's blocks an SM hide less of each barrier's stall.)
+//   Per tile:
+//   S^T = K Q^T and dP^T = V dO^T (m64n64k16, Q and dO K-major) as two
+//   groups; P^T = ex2(S^T scale log2e - LSE[col]) while dP^T runs; P^T and
+//   dS^T / scale = P^T (dP^T - delta[col]) come out of the tensor cores as
+//   accumulators whose rows are kv rows, so they repack in registers as the
+//   A operands of dV += P^T dO and dK += dS^T Q (dO and Q as MN-major Bs):
+//   no tile is transposed.  Accumulators dK 32, dV 32, S^T 32, dP^T 32 a
+//   thread; issuing dV before dS^T was formed spilled at 166 registers.
+// * scale = 1/sqrt(64) = 1/8 is a power of two, so it is applied once to dQ
+//   and dK at the end: the bf16 rounding of dS is the same.  P and dS are
+//   rounded to bf16 only as operands; everything else is fp32.
+// * Rows past T or S are not stored.  Head dim 64 only: the UNet's
+//   attention, the one the training path differentiates.
+// ptxas (-Xptxas -v, sm_90a): K5 122 registers, K4 164, no spills.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -132,118 +164,9 @@ namespace {
 typedef __nv_bfloat16 bf16;
 typedef long long ll;
 
-// Device helpers of the forward and the backward: the bf16 mma.sync tile
-// product, cp.async copies with zero-fill, and the fragment loads.  Fragment
-// layouts are those of mma.sync.m16n8k16 (A row-major 16x16, B column-major
-// 16x8, C 16x8 fp32): lane = 4 * g + tig holds A/C rows g and g + 8, columns
-// 2 * tig, 2 * tig + 1 (+ 8), and B rows (k) 2 * tig, 2 * tig + 1 (+ 8) of
-// column g.
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld16(const bf16* p) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p));
-}
-
-// Copy `rows` rows of D bf16 values (row stride `stride` elements) starting
-// at global row `row0` into shared memory with row pitch LD; rows at or past
-// `limit` are zero-filled.
-template <int D, int LD, int NTHREADS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          ll stride, int row0, int rows,
-                                          int limit) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * CPR; c += NTHREADS) {
-    int r = c / CPR;
-    int col = (c % CPR) * 8;
-    bool ok = row0 + r < limit;
-    const bf16* g = src + (ok ? static_cast<ll>(row0 + r) * stride : 0) + col;
-    cp_async16(dst + r * LD + col, g, ok);
-  }
-}
-
-// A fragments (16 rows x 16k per k-step) of the 16-row slice of a
-// shared-memory tile that starts at `row` (pitch LD): the operand held in
-// registers across a loop (Q in the forward, K and V in the dK/dV pass).
-template <int KSTEPS, int LD>
-__device__ __forceinline__ void load_a_frags(uint32_t (*f)[4], const bf16* row) {
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    f[kk][0] = ld32(row + kk * 16);
-    f[kk][1] = ld32(row + 8 * LD + kk * 16);
-    f[kk][2] = ld32(row + kk * 16 + 8);
-    f[kk][3] = ld32(row + 8 * LD + kk * 16 + 8);
-  }
-}
-
-// The C fragments of n-tiles 2 kk and 2 kk + 1 of a 16-row fp32 tile,
-// rounded to bf16 and repacked in registers as the A operand of k-step kk
-// (the FlashAttention-2 register layout): the tile never touches memory.
-__device__ __forceinline__ void c_to_a(uint32_t* a, float (*c)[4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// acc[16 x 8*NT] += a[16 x 16] * X[16 x 8*NT], where X is rows kk*16 ..
-// kk*16+15 of a row-major shared-memory tile (pitch LD) whose rows are the
-// k index: `x` points at row 16 kk + 2 tig, column g.
-template <int NT, int LD>
-__device__ __forceinline__ void mma_ab(float (*acc)[4], const uint32_t* a,
-                                       const bf16* x) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const bf16* p = x + nt * 8;
-    uint32_t b0 = ld16(p) | (ld16(p + LD) << 16);
-    uint32_t b1 = ld16(p + 8 * LD) | (ld16(p + 9 * LD) << 16);
-    mma_bf16_16816(acc[nt], a, b0, b1);
-  }
-}
-
-// acc[16 x 8] += A[16 x 16*KSTEPS] * Y^T, where Y is an 8-row slice of a
-// row-major shared-memory tile whose columns are the k index: `y` points at
-// row g, column 2 tig.
-template <int KSTEPS>
-__device__ __forceinline__ void mma_abt(float* acc, uint32_t (*a)[4],
-                                        const bf16* y) {
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    mma_bf16_16816(acc, a[kk], ld32(y + kk * 16), ld32(y + kk * 16 + 8));
-  }
 }
 
 // ---- Hopper primitives: mbarriers, TMA, wgmma ----
@@ -316,8 +239,10 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed groups of wgmma are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // 2^x with the MUFU instruction alone (no range scaling for denormal
@@ -334,6 +259,14 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// keep an A operand held in registers alive, unchanged, until the wgmma
+// wait that follows the product reading it
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory
@@ -396,6 +329,29 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory
+// (K-major B); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 // D[64 x 16] (+)= A[64 x 16] B[16 x 16], A and B from shared memory
 // (K-major B); scale_d = 0 overwrites D.
@@ -599,7 +555,7 @@ flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_m64n128k16_ss(sacc, qdesc + 2 * kk, kdesc + 2 * kk, kk);
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs<64>(sacc);
 
     // online softmax in the log2 domain
@@ -648,7 +604,7 @@ flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < BN / 16; ++kk)
       wgmma_m64n64k16_rs(oacc, pa[kk], vdesc + kk * (16 * ROW >> 4));
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs<32>(oacc);
     mbar_arrive(empty(s));
   }
@@ -819,7 +775,7 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
                          sw128_desc(sk + off + wg * 16 * 128, 16, 1024), kk);
     }
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs<8>(sacc);
     mbar_arrive(k_empty);
 
@@ -884,7 +840,7 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
                              1);
     }
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_regs<64>(oacc);
     mbar_arrive(v_empty);
   }
@@ -936,303 +892,397 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 
 }  // namespace fwd512
 
-// ---- Backward (K4, K5), head dim 64 ----
+// ---- Backward (K4 dK/dV, K5 dQ), head dim 64: wgmma + TMA ----
 
 namespace bwd {
 
 constexpr int D = 64;
-constexpr int BM = 64;  // q rows per tile
-constexpr int BN = 64;  // kv rows per tile
-constexpr int LD = D + 8;
-constexpr int NTHREADS = 128;
-constexpr int KSTEPS = D / 16;  // k-steps of a product over d
-constexpr int NT_D = D / 8;     // n-tiles of a 16 x d tile
-constexpr int NT_R = 64 / 8;    // n-tiles of a 16 x 64 tile of P or dS
+constexpr int ROW = D * 2;             // bytes of a row: one 128-byte swizzle row
+constexpr int OWN = 64;                // rows a block owns: q rows (K5), kv rows (K4)
+constexpr int OWN_BYTES = OWN * ROW;
+constexpr int TILE = 64;               // rows of a streamed tile: kv rows (K5), q rows (K4)
+constexpr int TILE_BYTES = TILE * ROW;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Element strides (batch, head, row) of the [B, L, H, D] tensors, in the
-// order q, k, v, dO, dQ, dK, dV.
-struct Strides {
-  ll s[21];
+// K5: one warpgroup, whose thread 0 issues the TMA loads; K and V tiles in
+// a ring of two stages; four blocks an SM
+constexpr int DQ_THREADS = 128;
+constexpr int DQ_STAGES = 2;
+constexpr int DQ_SMEM = 1024 /* alignment slack */ + 2 * OWN_BYTES +
+                        2 * DQ_STAGES * TILE_BYTES + 8 * (1 + DQ_STAGES);
+
+// K4: one consumer warpgroup and a producer warp; Q and dO tiles with
+// their rows' LSE (log2 domain) and delta in a ring of three stages; two
+// blocks an SM
+constexpr int DKV_THREADS = 128 + 32;
+constexpr int DKV_STAGES = 3;
+constexpr int DKV_ROWS = 2 * TILE * 4;
+constexpr int DKV_SMEM = 1024 /* alignment slack */ + 2 * OWN_BYTES +
+                         DKV_STAGES * (2 * TILE_BYTES + DKV_ROWS) + 8 * (1 + 2 * DKV_STAGES);
+
+// element strides (batch, head, row) of a [B, L, H, D] tensor
+struct Rows {
+  ll b, h, l;
 };
 
-struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
-  const float* lse;
-  const float* delta;
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
-  int H, T, S;
-  float scale;  // 1 / sqrt(D)
-  Strides st;
-};
+__device__ __forceinline__ ll at(const Rows& r, int b, int h, int row) {
+  return b * r.b + h * r.h + static_cast<ll>(row) * r.l;
+}
 
-// Tensor `i` (in the order of Strides) of batch b and head h, and its row
-// stride.  Kernel parameters are indexed with constants only, so the
-// struct stays in the parameter bank.
-#define HEAD(ptr, i) ((ptr) + b * a.st.s[3 * (i)] + h * a.st.s[3 * (i) + 1])
-#define ROW_STRIDE(i) (a.st.s[3 * (i) + 2])
-
-__device__ __forceinline__ void store_rows(bf16* out, ll row_stride,
-                                           float (*acc)[4], int row0, int limit,
-                                           int g, int tig) {
+// rows row0 + g and row0 + g + 8 (those below `limit`) of a 64-column fp32
+// accumulator in the wgmma layout, times `mul`, as bf16
+__device__ __forceinline__ void store_rows(bf16* out, const Rows& st, int b, int h,
+                                           int row0, int limit, const float* acc,
+                                           float mul, int g, int tig) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= limit) continue;
-    bf16* p = out + static_cast<ll>(row) * row_stride + tig * 2;
+    bf16* p = out + at(st, b, h, row) + tig * 2;
 #pragma unroll
-    for (int nt = 0; nt < NT_D; ++nt) {
-      *reinterpret_cast<__nv_bfloat162*>(p + nt * 8) =
-          __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * c) =
+          __floats2bfloat162_rn(acc[4 * c + 2 * r] * mul, acc[4 * c + 2 * r + 1] * mul);
     }
   }
 }
 
-// K5: dQ for one 64-row q-tile.
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Args a) {
-  __shared__ __align__(16) bf16 Qs[BM * LD];
-  __shared__ __align__(16) bf16 dOs[BM * LD];
-  __shared__ __align__(16) bf16 Ks[BN * LD];
-  __shared__ __align__(16) bf16 Vs[BN * LD];
+// K5: dQ and delta for 64 q rows of one (batch, head).
+__global__ void __launch_bounds__(DQ_THREADS, 4)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    bf16* __restrict__ dq, int H, int T, int S, Rows ost, Rows dost,
+                    Rows dqst, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  // shared-memory map: Q, dO, K[STAGES], V[STAGES], then the mbarriers
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sdo = sq + OWN_BYTES;
+  const uint32_t sk = sdo + OWN_BYTES;
+  const uint32_t sv = sk + DQ_STAGES * TILE_BYTES;
+  const uint32_t bar = sv + DQ_STAGES * TILE_BYTES;
+  const uint32_t qdo_full = bar;
+  auto full = [&](int s) { return bar + 8 * (1 + s); };
 
   const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int m0 = blockIdx.x * BM;
+  const int b = bh / H, h = bh % H;
+  const int m0 = blockIdx.x * OWN;
+  const int ntiles = (S + TILE - 1) / TILE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const float scale_log2 = a.scale * LOG2E;
 
-  load_tile<D, LD, NTHREADS>(Qs, HEAD(a.q, 0), ROW_STRIDE(0), m0, BM, a.T);
-  load_tile<D, LD, NTHREADS>(dOs, HEAD(a.dout, 3), ROW_STRIDE(3), m0,
-                             BM, a.T);
-  cp_async_commit();
+  // K and V tile j into stage s
+  auto load_kv = [&](int j, int s) {
+    mbar_expect_tx(full(s), 2 * TILE_BYTES);
+    tma_load_4d(sk + s * TILE_BYTES, &tk, full(s), 0, h, j * TILE, b);
+    tma_load_4d(sv + s * TILE_BYTES, &tv, full(s), 0, h, j * TILE, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) mbar_init(full(s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(qdo_full, 2 * OWN_BYTES);
+    tma_load_4d(sq, &tq, qdo_full, 0, h, m0, b);
+    tma_load_4d(sdo, &tdo, qdo_full, 0, h, m0, b);
+    for (int j = 0; j < DQ_STAGES && j < ntiles; ++j) load_kv(j, j);
+  }
 
-  // this thread's rows: g (C elements 0, 1) and g + 8 (elements 2, 3)
+  // prologue, while the loads fly: delta = rowsum(dO * O) in fp32 from
+  // device memory, each of the row's four threads summing 16 columns; LSE
+  // in the log2 domain.  Rows past T get delta 0 and LSE +inf, so their P
+  // is 0.  This thread's rows are m0 + 16 warp + g (+ 8).
+  const float scale_log2 = scale * LOG2E;
   float lse2[2], dlt[2];
-  bool row_ok[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = m0 + warp * 16 + g + 8 * r;
-    row_ok[r] = row < a.T;
-    const ll i = static_cast<ll>(bh) * a.T + row;
-    lse2[r] = row_ok[r] ? a.lse[i] * LOG2E : 0.f;
-    dlt[r] = row_ok[r] ? a.delta[i] : 0.f;
+    float sum = 0.f;
+    if (row < T) {
+      const uint4* po = reinterpret_cast<const uint4*>(o + at(ost, b, h, row) + tig * 16);
+      const uint4* pd = reinterpret_cast<const uint4*>(dout + at(dost, b, h, row) + tig * 16);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const uint4 vo = po[c], vd = pd[c];
+        const __nv_bfloat162* xo = reinterpret_cast<const __nv_bfloat162*>(&vo);
+        const __nv_bfloat162* xd = reinterpret_cast<const __nv_bfloat162*>(&vd);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 fo = __bfloat1622float2(xo[e]), fd = __bfloat1622float2(xd[e]);
+          sum = fmaf(fo.x, fd.x, sum);
+          sum = fmaf(fo.y, fd.y, sum);
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    dlt[r] = sum;
+    lse2[r] = row < T ? lse[static_cast<ll>(bh) * T + row] * LOG2E : INFINITY;
+    if (row < T && tig == 0) delta[static_cast<ll>(bh) * T + row] = sum;
   }
+  __syncthreads();  // the barriers are initialised
 
-  uint32_t qf[KSTEPS][4], dof[KSTEPS][4];
-  float dq[NT_D][4];
+  const uint64_t qdesc = sw128_desc(sq, 16, 1024);
+  const uint64_t dodesc = sw128_desc(sdo, 16, 1024);
+  float dqacc[32];
 #pragma unroll
-  for (int nt = 0; nt < NT_D; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
+  for (int i = 0; i < 32; ++i) dqacc[i] = 0.f;
 
-  const bf16* kb = HEAD(a.k, 1);
-  const bf16* vb = HEAD(a.v, 2);
-  const int ntiles = (a.S + BN - 1) / BN;
+  mbar_wait(qdo_full, 0);
   for (int j = 0; j < ntiles; ++j) {
-    const int n0 = j * BN;
-    __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile<D, LD, NTHREADS>(Ks, kb, ROW_STRIDE(1), n0, BN, a.S);
-    cp_async_commit();
-    load_tile<D, LD, NTHREADS>(Vs, vb, ROW_STRIDE(2), n0, BN, a.S);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q, dO and K have landed; V may be in flight
-    __syncthreads();
-    if (j == 0) {
-      load_a_frags<KSTEPS, LD>(qf, Qs + (warp * 16 + g) * LD + tig * 2);
-      load_a_frags<KSTEPS, LD>(dof, dOs + (warp * 16 + g) * LD + tig * 2);
-    }
+    const int s = j % DQ_STAGES;
+    const uint64_t kdesc = sw128_desc(sk + s * TILE_BYTES, 16, 1024);
+    const uint64_t vdesc = sw128_desc(sv + s * TILE_BYTES, 16, 1024);
 
-    // P = exp(scale Q K^T - LSE), masked past S and T
-    float p[NT_R][4];
+    // S = Q K^T and dP = dO V^T (four k-steps of 16 along d each) as two
+    // groups, so that P is formed while dP is still in the tensor cores
+    float sacc[32], dpacc[32];
+    mbar_wait(full(s), (j / DQ_STAGES) & 1);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT_R; ++nt) {
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(sacc, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+    wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[nt][e] = 0.f;
-      mma_abt<KSTEPS>(p[nt], qf, Ks + (nt * 8 + g) * LD + tig * 2);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(dpacc, dodesc + 2 * kk, vdesc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs<32>(sacc);
+
+    // P = exp2(S scale log2e - LSE log2e), 0 past S; element i is at row
+    // g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 tig + (i & 1)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + nt * 8 + tig * 2 + (e & 1);
-        p[nt][e] = (col < a.S && row_ok[e >> 1])
-                       ? exp2f(p[nt][e] * scale_log2 - lse2[e >> 1])
-                       : 0.f;
+    for (int i = 0; i < 32; ++i)
+      sacc[i] = fast_exp2(fmaf(sacc[i], scale_log2, -lse2[(i >> 1) & 1]));
+    const int n0 = j * TILE;
+    if (n0 + TILE > S) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (n0 + 8 * (i >> 2) + 2 * tig + (i & 1) >= S) sacc[i] = 0.f;
       }
     }
+    wgmma_wait<0>();
+    fence_regs<32>(dpacc);
 
-    cp_async_wait<0>();
-    __syncthreads();  // V tile visible to every warp
-
-    // dS = P (dO V^T - delta) scale, in place of P
+    // dS / scale = P (dP - delta) in bf16 as the A fragments of dQ += dS K
+    // (K as an MN-major B; scale = 1/8 is applied to dQ at the end, exactly)
+    uint32_t da[TILE / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < NT_R; ++nt) {
-      float dp[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_abt<KSTEPS>(dp, dof, Vs + (nt * 8 + g) * LD + tig * 2);
+    for (int kk = 0; kk < TILE / 16; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        p[nt][e] = p[nt][e] * (dp[e] - dlt[e >> 1]) * a.scale;
+        const int i = 8 * kk + 2 * e;
+        const float dl = dlt[e & 1];
+        da[kk][e] = pack_bf16(sacc[i] * (dpacc[i] - dl), sacc[i + 1] * (dpacc[i + 1] - dl));
       }
     }
-
-    // dQ += dS K
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t af[4];
-      c_to_a(af, p, kk);
-      mma_ab<NT_D, LD>(dq, af, Ks + (kk * 16 + tig * 2) * LD + g);
-    }
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      wgmma_m64n64k16_rs(dqacc, da[kk], kdesc + kk * (16 * ROW >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<4 * TILE / 16>(&da[0][0]);
+    fence_regs<32>(dqacc);
+    __syncthreads();  // every warp's products reading stage s are done: refill it
+    if (threadIdx.x == 0 && j + DQ_STAGES < ntiles) load_kv(j + DQ_STAGES, s);
   }
 
-  store_rows(HEAD(a.dq, 4), ROW_STRIDE(4), dq, m0 + warp * 16, a.T,
-             g, tig);
+  store_rows(dq, dqst, b, h, m0 + warp * 16, T, dqacc, scale, g, tig);
 }
 
-// K4: dK and dV for one 64-row kv-tile.
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const Args a) {
-  __shared__ __align__(16) bf16 Ks[BN * LD];
-  __shared__ __align__(16) bf16 Vs[BN * LD];
-  __shared__ __align__(16) bf16 Qs[BM * LD];
-  __shared__ __align__(16) bf16 dOs[BM * LD];
-  __shared__ float lse_s[BM];    // log2 domain, 0 past T
-  __shared__ float delta_s[BM];  // 0 past T
+// K4: dK and dV for 64 kv rows of one (batch, head), in the transposed
+// frame: S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come out of the
+// tensor cores as accumulators that repack in registers as the A operands
+// of dV += P^T dO and dK += dS^T Q.
+__global__ void __launch_bounds__(DKV_THREADS, 2)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int T, int S,
+                     Rows dkst, Rows dvst, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  // shared-memory map: K, V, Q[STAGES], dO[STAGES], rows[STAGES] (LSE
+  // log2e, then delta, 64 floats each), then the mbarriers
+  const uint32_t sk = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sv = sk + OWN_BYTES;
+  const uint32_t sq = sv + OWN_BYTES;
+  const uint32_t sdo = sq + DKV_STAGES * TILE_BYTES;
+  const uint32_t srows = sdo + DKV_STAGES * TILE_BYTES;
+  float* rows = reinterpret_cast<float*>(smem_raw + (srows - smem_addr(smem_raw)));
+  const uint32_t bar = srows + DKV_STAGES * DKV_ROWS;
+  const uint32_t kv_full = bar;
+  auto full = [&](int s) { return bar + 8 * (1 + s); };
+  auto empty = [&](int s) { return bar + 8 * (1 + DKV_STAGES + s); };
 
   const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int n0 = blockIdx.x * BN;
+  const int b = bh / H, h = bh % H;
+  const int n0 = blockIdx.x * OWN;
+  const int ntiles = (T + TILE - 1) / TILE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(full(s), 1 + 32);  // the TMA bytes' arrival and the producer's lanes
+      mbar_init(empty(s), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer: K and V once, then the ring of Q/dO stages; lane 0 issues
+    // the TMA loads, every lane writes two rows' LSE and delta (LSE +inf and
+    // delta 0 past T, so P^T and dS^T are 0 in those columns)
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * OWN_BYTES);
+      tma_load_4d(sk, &tk, kv_full, 0, h, n0, b);
+      tma_load_4d(sv, &tv, kv_full, 0, h, n0, b);
+    }
+    const ll base = static_cast<ll>(bh) * T;
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % DKV_STAGES;
+      if (i >= DKV_STAGES) mbar_wait(empty(s), ((i / DKV_STAGES) - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(full(s), 2 * TILE_BYTES);
+        tma_load_4d(sq + s * TILE_BYTES, &tq, full(s), 0, h, i * TILE, b);
+        tma_load_4d(sdo + s * TILE_BYTES, &tdo, full(s), 0, h, i * TILE, b);
+      }
+      float* r = rows + s * (DKV_ROWS / 4);
+      for (int c = lane; c < TILE; c += 32) {
+        const int row = i * TILE + c;
+        r[c] = row < T ? lse[base + row] * LOG2E : INFINITY;
+        r[TILE + c] = row < T ? delta[base + row] : 0.f;
+      }
+      mbar_arrive(full(s));
+    }
+    return;
+  }
+
+  // the consumer warpgroup; this thread's kv rows are n0 + 16 warp + g (+ 8)
+  // and its q columns 8 (i >> 2) + 2 tig + (i & 1) of accumulator element i
   const int g = lane >> 2, tig = lane & 3;
-  const float scale_log2 = a.scale * LOG2E;
-
-  load_tile<D, LD, NTHREADS>(Ks, HEAD(a.k, 1), ROW_STRIDE(1), n0, BN,
-                             a.S);
-  load_tile<D, LD, NTHREADS>(Vs, HEAD(a.v, 2), ROW_STRIDE(2), n0, BN,
-                             a.S);
-  cp_async_commit();
-
-  bool kv_ok[2];
+  const float scale_log2 = scale * LOG2E;
+  const uint64_t kdesc = sw128_desc(sk, 16, 1024);
+  const uint64_t vdesc = sw128_desc(sv, 16, 1024);
+  float dkacc[32], dvacc[32];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) kv_ok[r] = n0 + warp * 16 + g + 8 * r < a.S;
+  for (int i = 0; i < 32; ++i) dkacc[i] = dvacc[i] = 0.f;
 
-  uint32_t kf[KSTEPS][4], vf[KSTEPS][4];
-  float dk[NT_D][4], dv[NT_D][4];
-#pragma unroll
-  for (int nt = 0; nt < NT_D; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
-
-  const bf16* qb = HEAD(a.q, 0);
-  const bf16* dob = HEAD(a.dout, 3);
-  const ll row_base = static_cast<ll>(bh) * a.T;
-  const int ntiles = (a.T + BM - 1) / BM;
+  mbar_wait(kv_full, 0);
   for (int i = 0; i < ntiles; ++i) {
-    const int m0 = i * BM;
-    __syncthreads();  // every warp is done with the previous Q/dO tiles
-    load_tile<D, LD, NTHREADS>(Qs, qb, ROW_STRIDE(0), m0, BM, a.T);
-    cp_async_commit();
-    load_tile<D, LD, NTHREADS>(dOs, dob, ROW_STRIDE(3), m0, BM, a.T);
-    cp_async_commit();
-    if (threadIdx.x < BM) {
-      const int row = m0 + threadIdx.x;
-      const bool ok = row < a.T;
-      lse_s[threadIdx.x] = ok ? a.lse[row_base + row] * LOG2E : 0.f;
-      delta_s[threadIdx.x] = ok ? a.delta[row_base + row] : 0.f;
-    }
-    cp_async_wait<1>();  // K, V and Q have landed; dO may be in flight
-    __syncthreads();
-    if (i == 0) {
-      load_a_frags<KSTEPS, LD>(kf, Ks + (warp * 16 + g) * LD + tig * 2);
-      load_a_frags<KSTEPS, LD>(vf, Vs + (warp * 16 + g) * LD + tig * 2);
-    }
+    const int s = i % DKV_STAGES;
+    const uint32_t parity = (i / DKV_STAGES) & 1;
+    const uint64_t qdesc = sw128_desc(sq + s * TILE_BYTES, 16, 1024);
+    const uint64_t dodesc = sw128_desc(sdo + s * TILE_BYTES, 16, 1024);
+    const float* lse2 = rows + s * (DKV_ROWS / 4);
+    const float* dlt = lse2 + TILE;
 
-    // P^T = exp(scale K Q^T - LSE[col]), masked past T (columns) and S (rows)
-    float p[NT_R][4];
+    // S^T = K Q^T and dP^T = V dO^T (Q and dO K-major), as two groups, so
+    // that P^T is formed while dP^T is still in the tensor cores
+    float sacc[32], dpacc[32];
+    mbar_wait(full(s), parity);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT_R; ++nt) {
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(sacc, kdesc + 2 * kk, qdesc + 2 * kk, kk);
+    wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[nt][e] = 0.f;
-      mma_abt<KSTEPS>(p[nt], kf, Qs + (nt * 8 + g) * LD + tig * 2);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(dpacc, vdesc + 2 * kk, dodesc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs<32>(sacc);
+
+    // P^T = exp2(S^T scale log2e - LSE[col] log2e)
+#pragma unroll
+    for (int i2 = 0; i2 < 32; ++i2) {
+      const int col = 8 * (i2 >> 2) + 2 * tig + (i2 & 1);
+      sacc[i2] = fast_exp2(fmaf(sacc[i2], scale_log2, -lse2[col]));
+    }
+    wgmma_wait<0>();
+    fence_regs<32>(dpacc);
+
+    // P^T and dS^T / scale = P^T (dP^T - delta[col]) in bf16, as the A
+    // fragments of dV += P^T dO and dK += dS^T Q (dO and Q as MN-major Bs;
+    // scale = 1/8 is applied to dK at the end, exactly)
+    uint32_t pa[TILE / 16][4], dsa[TILE / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + tig * 2 + (e & 1);
-        p[nt][e] = (m0 + qc < a.T && kv_ok[e >> 1])
-                       ? exp2f(p[nt][e] * scale_log2 - lse_s[qc])
-                       : 0.f;
+        const int i2 = 8 * kk + 2 * e;
+        const int col = 16 * kk + 8 * (e >> 1) + 2 * tig;
+        pa[kk][e] = pack_bf16(sacc[i2], sacc[i2 + 1]);
+        dsa[kk][e] = pack_bf16(sacc[i2] * (dpacc[i2] - dlt[col]),
+                               sacc[i2 + 1] * (dpacc[i2 + 1] - dlt[col + 1]));
       }
     }
-
-    cp_async_wait<0>();
-    __syncthreads();  // dO tile visible to every warp
-
-    // dV += P^T dO
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t af[4];
-      c_to_a(af, p, kk);
-      mma_ab<NT_D, LD>(dv, af, dOs + (kk * 16 + tig * 2) * LD + g);
-    }
-
-    // dS^T = P^T (V dO^T - delta[col]) scale, in place of P^T
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      wgmma_m64n64k16_rs(dvacc, pa[kk], dodesc + kk * (16 * ROW >> 4));
 #pragma unroll
-    for (int nt = 0; nt < NT_R; ++nt) {
-      float dp[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_abt<KSTEPS>(dp, vf, dOs + (nt * 8 + g) * LD + tig * 2);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + tig * 2 + (e & 1);
-        p[nt][e] = p[nt][e] * (dp[e] - delta_s[qc]) * a.scale;
-      }
-    }
-
-    // dK += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t af[4];
-      c_to_a(af, p, kk);
-      mma_ab<NT_D, LD>(dk, af, Qs + (kk * 16 + tig * 2) * LD + g);
-    }
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      wgmma_m64n64k16_rs(dkacc, dsa[kk], qdesc + kk * (16 * ROW >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<16>(&pa[0][0]);
+    fence_regs<16>(&dsa[0][0]);
+    fence_regs<32>(dvacc);
+    fence_regs<32>(dkacc);
+    mbar_arrive(empty(s));
   }
 
-  store_rows(HEAD(a.dk, 5), ROW_STRIDE(5), dk, n0 + warp * 16, a.S, g,
-             tig);
-  store_rows(HEAD(a.dv, 6), ROW_STRIDE(6), dv, n0 + warp * 16, a.S, g,
-             tig);
+  store_rows(dk, dkst, b, h, n0 + warp * 16, S, dkacc, scale, g, tig);
+  store_rows(dv, dvst, b, h, n0 + warp * 16, S, dvacc, 1.f, g, tig);
 }
 
-Args make_args(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq, void* dk, void* dv,
-               int H, int T, int S, const ll* strides) {
-  Args a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.dq = static_cast<bf16*>(dq);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  a.H = H;
-  a.T = T;
-  a.S = S;
-  a.scale = 1.f / sqrtf(static_cast<float>(D));
-  for (int i = 0; i < 21; ++i) a.st.s[i] = strides[i];
-  return a;
+Rows rows_of(const ll* st) { return Rows{st[0], st[1], st[2]}; }
+
+// K5.  st: strides of q, k, v, o, dO, dQ.
+int launch_dq(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, void* delta, void* dq, int B, int H,
+              int T, int S, const ll* st, cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv;
+  if (!make_map(&tq, q, D, B, T, H, st, OWN) || !make_map(&tdo, dout, D, B, T, H, st + 12, OWN) ||
+      !make_map(&tk, k, D, B, S, H, st + 3, TILE) || !make_map(&tv, v, D, B, S, H, st + 6, TILE))
+    return -2;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((T + OWN - 1) / OWN, B * H);
+  flash_bwd_dq_kernel<<<grid, DQ_THREADS, DQ_SMEM, stream>>>(
+      tq, tdo, tk, tv, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), H,
+      T, S, rows_of(st + 9), rows_of(st + 12), rows_of(st + 15),
+      1.f / sqrtf(static_cast<float>(D)));
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K5 (dkv false): one block per 64-row q-tile; K4 (dkv true): one block per
-// 64-row kv-tile.
-int launch(bool dkv, const Args& a, int B, cudaStream_t stream) {
-  if (dkv) {
-    dim3 grid((a.S + BN - 1) / BN, B * a.H);
-    flash_bwd_dkv_kernel<<<grid, NTHREADS, 0, stream>>>(a);
-  } else {
-    dim3 grid((a.T + BM - 1) / BM, B * a.H);
-    flash_bwd_dq_kernel<<<grid, NTHREADS, 0, stream>>>(a);
-  }
+// K4.  st: strides of q, k, v, dO, dK, dV.
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+               int T, int S, const ll* st, cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv;
+  if (!make_map(&tq, q, D, B, T, H, st, TILE) ||
+      !make_map(&tdo, dout, D, B, T, H, st + 9, TILE) ||
+      !make_map(&tk, k, D, B, S, H, st + 3, OWN) || !make_map(&tv, v, D, B, S, H, st + 6, OWN))
+    return -2;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((S + OWN - 1) / OWN, B * H);
+  flash_bwd_dkv_kernel<<<grid, DKV_THREADS, DKV_SMEM, stream>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, T, S, rows_of(st + 12),
+      rows_of(st + 15), 1.f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1256,33 +1306,31 @@ extern "C" int k2_flash_fwd_bf16(const void* q, const void* k, const void* v,
   return -1;
 }
 
-// q, dO: [B, T, H, D]; k, v: [B, S, H, D]; lse, delta: [B*H, T] fp32; the
-// outputs like their inputs.  `strides` holds the element strides (batch,
-// head, row) of q, k, v, dO, dQ, dK, dV, with the last dim contiguous and
-// 16-byte aligned rows.  Each entry point returns a cudaError_t (0 on
-// success), or -1 for an unsupported head dim.
+// q, o, dO, dQ: [B, T, H, D]; k, v, dK, dV: [B, S, H, D]; lse, delta:
+// [B*H, T] fp32.  `strides` holds the element strides (batch, head, row) of
+// the six bf16 tensors each entry point takes, in the order of its
+// arguments, with the last dim contiguous, 16-byte aligned rows and strides
+// that are multiples of 8 elements (read by TMA).  Each entry point returns
+// a cudaError_t (0 on success), -1 for an unsupported head dim, or -2 if a
+// TMA tensor map could not be made.
 
-// K5: dQ.  dk and dv are not touched.
+// K5: dQ, and delta = rowsum(dO * O) for K4.
 extern "C" int k2_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                    const void* dout, const void* lse,
-                                    const void* delta, void* dq, void* dk,
-                                    void* dv, int B, int H, int T, int S,
+                                    const void* o, const void* dout, const void* lse,
+                                    void* delta, void* dq, int B, int H, int T, int S,
                                     int Dh, const ll* strides, void* stream) {
   if (Dh != bwd::D) return -1;
-  return bwd::launch(false, bwd::make_args(q, k, v, dout, lse, delta, dq, dk,
-                                           dv, H, T, S, strides),
-                     B, static_cast<cudaStream_t>(stream));
+  return bwd::launch_dq(q, k, v, o, dout, lse, delta, dq, B, H, T, S, strides,
+                        static_cast<cudaStream_t>(stream));
 }
 
-// K4: dK and dV.  dq is not touched.
-extern "C" int k2_flash_bwd_dkv_bf16(const void* q, const void* k,
-                                     const void* v, const void* dout,
-                                     const void* lse, const void* delta,
-                                     void* dq, void* dk, void* dv, int B, int H,
-                                     int T, int S, int Dh, const ll* strides,
+// K4: dK and dV from K5's delta, launched after K5 on the same stream.
+extern "C" int k2_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse,
+                                     const void* delta, void* dk, void* dv, int B,
+                                     int H, int T, int S, int Dh, const ll* strides,
                                      void* stream) {
   if (Dh != bwd::D) return -1;
-  return bwd::launch(true, bwd::make_args(q, k, v, dout, lse, delta, dq, dk,
-                                          dv, H, T, S, strides),
-                     B, static_cast<cudaStream_t>(stream));
+  return bwd::launch_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, T, S, strides,
+                         static_cast<cudaStream_t>(stream));
 }

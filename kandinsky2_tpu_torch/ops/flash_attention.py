@@ -5,19 +5,20 @@ Replaces ``kandinsky2_tpu/ops/flash_attention.py``:
 
 * K3 ``flash_attention_fwd`` replaces ``_flash_bhd`` (``_flash_kernel``):
   O and the per-row log-sum-exp.  Source ``csrc/flash_attention.cu``.
-* K4 ``flash_attention_bwd_dkv`` and K5 ``flash_attention_bwd_dq`` replace
-  ``_flash_bwd_bhd`` (``_flash_bwd_dkv_kernel`` and
-  ``_flash_bwd_dq_kernel``): dK, dV and dQ from the saved LSE and
-  delta = rowsum(dO·O).  Same source.
+* K5 ``flash_attention_bwd_dq`` and K4 ``flash_attention_bwd_dkv`` replace
+  ``_flash_bwd_bhd`` (``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel``): dQ from the saved LSE, with delta =
+  rowsum(dO·O) computed in K5's prologue, then dK and dV from LSE and
+  that delta.  Same source, ``wgmma`` + TMA as the forward.
 * ``FlashAttentionFunction`` is the counterpart of the ``custom_vjp`` of
   the JAX ``flash_attention``: the forward saves q, k, v, O and LSE, the
   backward runs K5 and K4.
 
 The CUDA source's header note says how each kernel is laid out, what
 bounds it on the H100 and how it handles ragged T and S.  At d = 64 the
-forward reads q, k and v through TMA tensor maps built from their strides,
-so the UNet's q (a strided view of the fused qkv projection) is read in
-place; a tensor TMA cannot address is made contiguous first.
+kernels read q, k, v and dO through TMA tensor maps built from their
+strides, so the UNet's q (a strided view of the fused qkv projection) is
+read in place; a tensor TMA cannot address is made contiguous first.
 
 ``flash_attention(q, k, v)`` takes q [B, T, H, d] and k, v [B, S, H, d]
 (the JAX package's layout) and returns (o [B, T, H, d], lse [B*H, T] fp32),
@@ -126,52 +127,55 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 flash_attention_fwd.launches = 0
 
 
-def _launch_bwd(wrapper, entry: str, q, k, v, do, lse, delta, dq, dk, dv):
-    """Launch K5 (``dq`` given) or K4 (``dk``, ``dv`` given) on the card and
-    count the launch on ``wrapper``."""
-    B, T, S, H, d = _check_qkv(entry, q, k, v, BACKWARD_HEAD_DIMS)
-    if do.shape != q.shape or do.dtype != torch.bfloat16:
-        raise ValueError(f"{entry}: dO must be bfloat16 of q's shape")
+def _launch_bwd(wrapper, entry: str, ins, lse, delta, outs, dims):
+    """Launch K5 or K4 on the card and count the launch on ``wrapper``:
+    ``ins`` and ``outs`` are the entry point's bf16 [B, L, H, d] tensors in
+    its order, ``lse`` and ``delta`` its [B*H, T] fp32 ones (delta K5's
+    output, K4's input)."""
+    B, T, S, H, d = dims
     for name, x in (("lse", lse), ("delta", delta)):
-        if x.shape != (B * H, T) or x.dtype != torch.float32:
-            raise ValueError(f"{entry}: {name} must be fp32 [B*H, T]")
-    null = (0, 0, 0)
-    strides = (ctypes.c_longlong * 21)(
-        *_bhl(q), *_bhl(k), *_bhl(v), *_bhl(do),
-        *(null if dq is None else _bhl(dq)), *(null if dk is None else _bhl(dk)),
-        *(null if dv is None else _bhl(dv)),
-    )
-    ptr = lambda x: 0 if x is None else x.data_ptr()
+        if x.shape != (B * H, T) or x.dtype != torch.float32 or x.device != ins[0].device:
+            raise ValueError(f"{entry}: {name} must be fp32 [B*H, T] on q's device")
+    strides = (ctypes.c_longlong * 18)(*(s for x in ins + outs for s in _bhl(x)))
     wrapper.launches += 1
-    err = getattr(_lib(entry, 9), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
-        B, H, T, S, d, strides, torch.cuda.current_stream(q.device).cuda_stream,
+    err = getattr(_lib(entry, 8), entry)(
+        *(x.data_ptr() for x in ins + [lse, delta] + outs), B, H, T, S, d, strides,
+        torch.cuda.current_stream(ins[0].device).cuda_stream,
     )
     check(err, f"{entry} kernel launch")
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta):
-    """K5: dq [B, T, H, d] on the card.  lse, delta: [B*H, T] fp32."""
-    q, k, v, do = (x if _kernel_ok(x) else x.contiguous() for x in (q, k, v, do))
-    lse, delta = lse.contiguous(), delta.contiguous()
+def _bwd_inputs(entry: str, q, k, v, *rest):
+    """Check the backward's bf16 inputs (the rest shaped like q) and make
+    any that TMA cannot read in place contiguous."""
+    dims = _check_qkv(entry, q, k, v, BACKWARD_HEAD_DIMS)
+    if any(x.shape != q.shape or x.dtype != torch.bfloat16 for x in rest):
+        raise ValueError(f"{entry}: dO and O must be bfloat16 of q's shape")
+    return dims, [x if _kernel_ok(x) else x.contiguous() for x in (q, k, v, *rest)]
+
+
+def flash_attention_bwd_dq(q, k, v, o, do, lse):
+    """K5 on the card: (dq [B, T, H, d], delta [B*H, T] fp32), delta =
+    rowsum(dO·O) computed in the kernel for K4."""
+    dims, (q, k, v, o, do) = _bwd_inputs("k2_flash_bwd_dq_bf16", q, k, v, o, do)
+    B, T, S, H, d = dims
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _launch_bwd(flash_attention_bwd_dq, "k2_flash_bwd_dq_bf16", q, k, v, do,
-                lse, delta, dq, None, None)
-    return dq
+    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    _launch_bwd(flash_attention_bwd_dq, "k2_flash_bwd_dq_bf16", [q, k, v, o, do],
+                lse.contiguous(), delta, [dq], dims)
+    return dq, delta
 
 
 flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
-    """K4: (dk, dv), each [B, S, H, d], on the card."""
-    q, k, v, do = (x if _kernel_ok(x) else x.contiguous() for x in (q, k, v, do))
-    lse, delta = lse.contiguous(), delta.contiguous()
+    """K4 on the card: (dk, dv), each [B, S, H, d], from K5's delta."""
+    dims, (q, k, v, do) = _bwd_inputs("k2_flash_bwd_dkv_bf16", q, k, v, do)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _launch_bwd(flash_attention_bwd_dkv, "k2_flash_bwd_dkv_bf16", q, k, v, do,
-                lse, delta, None, dk, dv)
+    _launch_bwd(flash_attention_bwd_dkv, "k2_flash_bwd_dkv_bf16", [q, k, v, do],
+                lse.contiguous(), delta.contiguous(), [dk, dv], dims)
     return dk, dv
 
 
@@ -180,13 +184,11 @@ flash_attention_bwd_dkv.launches = 0
 
 def flash_attention_bwd(q, k, v, o, lse, do):
     """(dq, dk, dv) of ``flash_attention_fwd``.  For CPU tensors the plain
-    version; for CUDA tensors delta = rowsum(dO·O) in fp32, then K5 and K4
-    (``_flash_bwd`` of the JAX package)."""
+    version; for CUDA tensors K5 (dq and delta = rowsum(dO·O)), then K4 on
+    the same stream (``_flash_bwd`` of the JAX package)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do)
-    B, T, H, _ = q.shape
-    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, T)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
     return dq, dk, dv
 

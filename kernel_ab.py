@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time this tree's GroupNorm statistics (K1) and flash forward (K3) against
-another commit's, in one process on one NVIDIA GPU.
+"""Time this tree's flash backward (K5 + K4), flash forward (K3) and
+GroupNorm statistics (K1) against another commit's, in one process on one
+NVIDIA GPU.
 
     python3 kernel_ab.py OTHER_DIR
 
@@ -10,6 +11,11 @@ OTHER_DIR is an unpacked ``git archive`` of the commit to compare against
 versions live in one process, and its kernels are built from its own
 sources.  Every pair is timed in turns (other, this, this, other):
 
+* the whole flash backward, ``flash_attention_bwd`` (delta, K5 and K4), at
+  the decoder training step's three UNet attention shapes: device ms, each
+  version checked against ``flash_attention_bwd_plain`` first; then K5 and
+  K4 alone (a tree whose K5 takes delta gets it from the plain rowsum), and
+  host us per backward call at the smallest shape;
 * the flash forward at the 768² text2img path's shapes: device ms, each
   version checked against the plain version first;
 * GroupNorm at the path's shapes: device ms of the statistics (K1; in a
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import importlib
 import importlib.util
+import inspect
 import sys
 from pathlib import Path
 
@@ -68,6 +75,47 @@ def main(argv) -> int:
 
     g = torch.Generator(device="cuda").manual_seed(21)
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    def kernels_of(mod, q, k, v, o, lse, do):
+        """(K5, K4) of a tree as functions of no arguments: K5 of this tree
+        computes delta itself; an older K5 takes it, from the plain rowsum."""
+        if "o" in inspect.signature(mod.flash_attention_bwd_dq).parameters:
+            delta = mod.flash_attention_bwd_dq(q, k, v, o, do, lse)[1]
+            return (lambda: mod.flash_attention_bwd_dq(q, k, v, o, do, lse),
+                    lambda: mod.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+        B, T, H, _ = q.shape
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, T)
+        return (lambda: mod.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+                lambda: mod.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+
+    trees = {"other": ofa, "this": fa}
+    for label, (B, T, S, H) in [("unet ds2", (1, 2304, 2391, 12)),
+                                ("unet ds4", (1, 576, 663, 18)),
+                                ("unet ds8/middle", (1, 144, 231, 24))]:
+        q, k, v, do = randn(B, T, H, 64), randn(B, S, H, 64), randn(B, S, H, 64), \
+            randn(B, T, H, 64)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        for name, mod in trees.items():
+            for grad, want in zip(mod.flash_attention_bwd(q, k, v, o, lse, do), ref):
+                err = (grad.float() - want.float()).abs().max().item()
+                check(err <= 2e-2 * want.float().abs().max().item(),
+                      f"{name} backward wrong at {label}")
+        tb = turns({n: (lambda m=m: m.flash_attention_bwd(q, k, v, o, lse, do))
+                    for n, m in trees.items()}, lambda fn: cuda_ms(fn, 10))
+        k5 = {n: kernels_of(m, q, k, v, o, lse, do) for n, m in trees.items()}
+        t5 = turns({n: f[0] for n, f in k5.items()}, lambda fn: cuda_ms(fn, 10))
+        t4 = turns({n: f[1] for n, f in k5.items()}, lambda fn: cuda_ms(fn, 10))
+        print(f"backward {label} B={B} T={T} S={S} H={H} d=64: whole other "
+              f"{tb['other']:.4f} ms, this {tb['this']:.4f} ms; K5 other "
+              f"{t5['other']:.4f} ms, this {t5['this']:.4f} ms; K4 other "
+              f"{t4['other']:.4f} ms, this {t4['this']:.4f} ms")
+        if label == "unet ds8/middle":  # the device keeps up with the host here
+            th = turns({n: (lambda m=m: m.flash_attention_bwd(q, k, v, o, lse, do))
+                        for n, m in trees.items()}, host_us)
+            print(f"backward host per call {label}: other {th['other']:.1f} us, "
+                  f"this {th['this']:.1f} us")
+        del q, k, v, do, o, lse, ref
 
     for label, (B, T, S, H, d) in [
         ("unet ds2", (2, 2304, 2391, 12, 64)), ("unet ds4", (2, 576, 663, 18, 64)),

@@ -132,6 +132,21 @@ def _rel_err(got, want):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
+def _backward_inputs(gen, B, T, S, H, d=64):
+    q, k, v = (torch.randn((B, L, H, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for L in (T, S, S))
+    do = torch.randn((B, T, H, d), generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = flash_attention_fwd(q, k, v)
+    return q, k, v, o, lse, do
+
+
+def _kernels_backward(q, k, v, o, lse, do):
+    """K5 (dq and delta), then K4 (dk, dv) from that delta."""
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    return dq, dk, dv, delta
+
+
 @pytest.mark.parametrize("B,T,S,H", [
     (1, 2304, 2391, 12), (1, 576, 663, 18), (1, 144, 231, 24), (2, 37, 50, 1),
 ])
@@ -140,19 +155,71 @@ def test_flash_backward_kernels_match_plain(gen, B, T, S, H):
     S = T + 87 encoder tokens) and a ragged toy shape, against the fp32 plain
     backward from the same saved O and LSE.  P and dS are rounded to bf16
     before their MMAs: 2e-2 of the largest reference gradient."""
-    d = 64
-    q, k, v = (torch.randn((B, L, H, d), generator=gen, device="cuda")
-               .to(torch.bfloat16) for L in (T, S, S))
-    do = torch.randn((B, T, H, d), generator=gen, device="cuda").to(torch.bfloat16)
-    o, lse = flash_attention_fwd(q, k, v)
-    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, T)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    q, k, v, o, lse, do = _backward_inputs(gen, B, T, S, H)
+    dq, dk, dv, _ = _kernels_backward(q, k, v, o, lse, do)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.shape == ref.shape and got.dtype == torch.bfloat16, name
         assert _rel_err(got, ref) <= 2e-2, name
+
+
+@pytest.mark.parametrize("B,T,S,H", [
+    (1, 100, 187, 3), (2, 200, 130, 2), (1, 37, 50, 2), (2, 63, 20, 1),
+    (1, 129, 64, 2), (1, 64, 129, 1), (3, 5, 300, 2),
+])
+def test_flash_backward_kernels_ragged(gen, B, T, S, H):
+    """T and S that are not multiples of the kernels' 64- and 128-row tiles,
+    T < 64 and S < 64 among them, several batches and heads: 2e-2 as above,
+    and every gradient finite."""
+    q, k, v, o, lse, do = _backward_inputs(gen, B, T, S, H)
+    got = _kernels_backward(q, k, v, o, lse, do)[:3]
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert _rel_err(g, w) <= 2e-2, name
+
+
+def test_flash_backward_kernels_are_bitwise_repeatable(gen):
+    """Every output element has one writer and a fixed order of sums (no
+    atomics): dq, dk, dv and delta are bitwise equal over two calls at ds2."""
+    q, k, v, o, lse, do = _backward_inputs(gen, 1, 2304, 2391, 12)
+    first = _kernels_backward(q, k, v, o, lse, do)
+    second = _kernels_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "delta"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_flash_backward_reads_strided_views_in_place(gen):
+    """The UNet's q (row stride 3·C, head stride 3·64, a view of the fused
+    qkv projection) and a non-contiguous dO, read through their tensor maps
+    as they are, give the result of their contiguous copies."""
+    B, T, H, d = 1, 576, 18, 64
+    qkv = torch.randn((B, T, H, 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.split(d, dim=-1)
+    do = torch.randn((B, H, T, d), generator=gen, device="cuda").to(torch.bfloat16)
+    do = do.permute(0, 2, 1, 3)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    o, lse = flash_attention_fwd(q, k, v)
+    got = _kernels_backward(q, k, v, o, lse, do)
+    want = _kernels_backward(*(x.contiguous() for x in (q, k, v, o)), lse, do.contiguous())
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "delta"), got, want):
+        assert torch.equal(a, b), name
+
+
+def test_flash_backward_delta_is_the_row_sum(gen):
+    """K5's delta output against rowsum(dO·O) in fp32: the same products,
+    summed in another order."""
+    B, T, S, H = 1, 576, 663, 18
+    q, k, v, o, lse, do = _backward_inputs(gen, B, T, S, H)
+    _, delta = flash_attention_bwd_dq(q, k, v, o, do, lse)
+    want = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, T)
+    torch.cuda.synchronize()
+    assert delta.shape == (B * H, T) and delta.dtype == torch.float32
+    assert (delta - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 def test_functions_carry_gradients_on_the_card(gen):

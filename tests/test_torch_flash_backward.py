@@ -4,7 +4,8 @@ plain versions of the kernels), at 1e-4:
 
 * ``FlashAttentionFunction`` (K3 forward, K5 + K4 backward on the card)
   against ``jax.grad`` of the Pallas ``flash_attention`` in interpret mode
-  (its ``_flash_bwd_bhd`` kernels), with ragged T and S;
+  (its ``_flash_bwd_bhd`` kernels), with ragged T and S; and the plain
+  backward alone against ``_flash_bwd_bhd`` from the same O and LSE;
 * ``GroupNormFunction`` (K1 + K2 forward, recompute backward) against
   ``jax.vjp`` of ``pallas_group_norm`` in interpret mode, with and without
   FiLM and SiLU.
@@ -19,12 +20,14 @@ import numpy as np
 import pytest
 import torch
 
+from kandinsky2_tpu.ops.flash_attention import _blocks, _flash_bhd, _flash_bwd_bhd
 from kandinsky2_tpu.ops.flash_attention import flash_attention as jflash
 from kandinsky2_tpu.ops.group_norm import pallas_group_norm
 from kandinsky2_tpu_torch.ops import group_norm as tgn
 from kandinsky2_tpu_torch.ops.attention import qkv_attention
 from kandinsky2_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_bwd_plain,
@@ -82,9 +85,32 @@ def test_backward_kernel_wrappers_refuse_devices_without_a_kernel():
     x = torch.empty((1, 8, 1, 64), device="meta")
     lse = torch.empty((1, 8), device="meta")
     with pytest.raises(RuntimeError):
-        flash_attention_bwd_dq(x, x, x, x, lse, lse)
+        flash_attention_bwd_dq(x, x, x, x, x, lse)  # q, k, v, o, dO, lse
     with pytest.raises(RuntimeError):
-        flash_attention_bwd_dkv(x, x, x, x, lse, lse)
+        flash_attention_bwd_dkv(x, x, x, x, lse, lse)  # q, k, v, dO, lse, delta
+
+
+@pytest.mark.parametrize("B,T_,S,H", [(2, 36, 43, 2), (1, 20, 29, 3), (1, 64, 64, 1)])
+def test_plain_backward_matches_pallas_kernels(B, T_, S, H):
+    """``flash_attention_bwd`` on CPU tensors (the plain backward, which
+    the card's K5 and K4 are held against) from the Pallas forward's O and
+    LSE, against the Pallas ``_flash_bwd_bhd`` (interpret mode) from the
+    same O and LSE, fp32, at 1e-4."""
+    d = 64
+    rng = np.random.RandomState(6)
+    q, k, v = (rng.randn(B * H, L, d).astype(np.float32) for L in (T_, S, S))
+    g = rng.randn(B * H, T_, d).astype(np.float32)
+    bq, bk = _blocks(256, 256, T_, S)
+    o, lse_pad = _flash_bhd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bq, bk, True)
+    want = _flash_bwd_bhd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o, lse_pad,
+                          jnp.asarray(g), bq, bk, True)
+    # the port's layout: [B, L, H, d] and LSE [B*H, T]
+    port = lambda x: T(np.array(x)).reshape(B, H, -1, d).permute(0, 2, 1, 3)
+    tq, tk, tv, to, tg = (port(x) for x in (q, k, v, o, g))
+    lse = T(np.asarray(lse_pad)[:, :T_, 0].copy())
+    got = flash_attention_bwd(tq, tk, tv, to, lse, tg)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert_close(a, port(b), MODULE_TOL, name)
 
 
 @pytest.mark.parametrize("film", [False, True])
