@@ -4,21 +4,28 @@ kernels for Hopper, and the plain PyTorch version of each.
 Replaces the Pallas TPU pair of ``kandinsky2_tpu/ops/group_norm.py``:
 
 * K1 ``group_norm_stats`` replaces ``_moments`` (``_moments_kernel``) and
-  the XLA glue ``_coefficients`` after it: one CUDA C++ launch
-  (``csrc/group_norm.cu``) reads x [B, N, C] once, sums Σx and Σx² in fp32,
-  finishes the cross-block reduction itself, and writes per-(b, c) fp32
-  coefficients a, b with the group statistics (var = max(E[x²] − mean², 0),
-  rsqrt(var + eps)), the affine scale/bias and the FiLM pair (1 + fs, fb)
-  folded in.  Its source note gives the design and the bound.
-* K2 ``group_norm_apply`` replaces ``_apply`` (``_apply_kernel``), a Triton
-  kernel: y = silu?(x·a + b), cast back to x's dtype inside the kernel.
+  the XLA glue ``_coefficients`` after it: one CUDA C++ launch reads x
+  [B, N, C] once, sums Σx and Σx² in fp32, finishes the cross-block
+  reduction itself, and writes per-(b, c) fp32 coefficients a, b with the
+  group statistics (var = max(E[x²] − mean², 0), rsqrt(var + eps)), the
+  affine scale/bias and the FiLM pair (1 + fs, fb) folded in.
+* K2 ``group_norm_apply`` replaces ``_apply`` (``_apply_kernel``): one CUDA
+  C++ launch computes y = x·a + b in fp32, then y·sigmoid(swish·y) where
+  swish != 0, and rounds once to x's dtype.
 
-A GroupNorm on the card is those two launches.  Bound on the H100: both
-kernels do a few flops per element, so they are bound by device-memory
-bytes: K1 reads x once, K2 reads x and writes y once (2 reads + 1 write of
-the activation in all, the floor for an exact normalisation that needs its
-statistics before it can write).  K2 keeps every access a coalesced,
-masked [BLOCK_N, BLOCK_C] tile along the contiguous channel axis.
+Both are in ``csrc/group_norm.cu``, whose source note gives their designs
+and bounds: both are bound by device-memory bytes (K1 reads x once, K2
+reads x and writes y once: 2 reads + 1 write of the activation in all, the
+floor for an exact normalisation that needs its statistics before it can
+write).
+
+A GroupNorm on the card is those two launches, made by one foreign call
+(``k2_group_norm``).  The launch plan of each layout (K1's splits and rows,
+K2's grid, the checks of the parameters' layout) is computed once and
+cached, so a call does only the ``data_ptr()``s, the allocation of its
+output and of its scratch (a, b and K1's partials), and that call.
+``group_norm_stats`` and ``group_norm_apply`` launch one kernel each, for
+the tests and the chip script.
 
 K1's sums are taken in an order fixed by the shape, so its a and b are
 bitwise repeatable; against the plain version they differ by fp32
@@ -33,58 +40,39 @@ formulation.  The JAX package has no GroupNorm backward kernel, so neither
 has the port.
 
 Any C with C % groups == 0 is accepted (the TPU's C % 128 rule was a tiling
-rule of the TPU), up to 1024 loads of a row for K1.  Triton is imported
-only inside the launching function; the CUDA source is built at first use.
+rule of the TPU), up to 1024 loads of a row.  The CUDA source is built at
+first use.  The kernels assume that the GroupNorms of a device run on one
+stream: K1's counters are shared by its launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from ._build import check, load_library
 
-_APPLY_BLOCK_ELEMS = 8192
 # K1's launch geometry (about two blocks per SM on the H100's 132);
 # _STATS_UNROLL is UNROLL in csrc/group_norm.cu
 _STATS_BLOCKS = 2 * 132
 _STATS_UNROLL = 8
-_STATS_MAX_CHUNKS = 1024
+# both kernels' blocks are TY rows of a strip of chunks (C / vec of them in
+# a row), about _BLOCK_THREADS, or one row of at most _MAX_CHUNKS
+# (MAX_THREADS in the source); K1's strip is the whole row, K2's at most
+# _APPLY_STRIP chunks; _APPLY_UNROLL is APPLY_UNROLL there
+_BLOCK_THREADS = 256
+_APPLY_STRIP = 64
+_APPLY_UNROLL = 4
+# K2 blocks an SM gets where a shape's rows allow: fewer, taller blocks
+# read a and b fewer times than a full wave of occupancy
+_APPLY_BLOCKS_PER_SM = 2
+_MAX_CHUNKS = 1024
 _MAX_BATCH = 4096
-_counters: dict = {}
-
-
-@functools.lru_cache(maxsize=None)
-def _triton_kernels():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def apply_kernel(x_ptr, a_ptr, b_ptr, y_ptr, N, C, SWISH: tl.constexpr,
-                     BLOCK_N: tl.constexpr, BLOCK_C: tl.constexpr):
-        nb = tl.program_id(0)
-        cb = tl.program_id(1)
-        b = tl.program_id(2)
-        rows = nb * BLOCK_N + tl.arange(0, BLOCK_N)
-        cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        mask = (rows[:, None] < N) & cmask[None, :]
-        offs = b.to(tl.int64) * N * C + rows[:, None].to(tl.int64) * C + cols[None, :]
-        xv = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        av = tl.load(a_ptr + b * C + cols, mask=cmask, other=0.0)
-        bv = tl.load(b_ptr + b * C + cols, mask=cmask, other=0.0)
-        y = xv * av[None, :] + bv[None, :]
-        if SWISH:
-            y = y * tl.sigmoid(y)
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    return triton, apply_kernel
-
-
-def _block_c(C: int) -> int:
-    return min(128, 1 << max(4, (C - 1).bit_length()))
+_MAX_ROWS = 2**31 - 1
 
 
 def _check_cuda(x: torch.Tensor, name: str) -> None:
@@ -128,26 +116,196 @@ def group_norm_stats_plain(x3, scale, bias, film, num_groups: int, eps: float):
     return _coefficients(s1, s2, cnt, scale, bias, film, num_groups, eps)
 
 
-def _vec(x3: torch.Tensor) -> int:
+def group_norm_apply_plain(x3, a, b, swish: float):
+    """y·sigmoid(swish·y) (y where swish is 0) of y = x·a + b in fp32, cast
+    to x's dtype; a, b [B, C] fp32."""
+    y = x3.float() * a[:, None, :] + b[:, None, :]
+    if swish:
+        y = y * torch.sigmoid(y * swish)
+    return y.to(x3.dtype)
+
+
+def vec_width(C: int, ptr: int, elem_size: int) -> int:
     """Elements per load: the widest of 16, 8, 4 or 2 bytes that C and the
     data pointer allow."""
-    size = x3.element_size()
-    vec = 16 // size
-    while vec > 1 and (x3.shape[2] % vec or x3.data_ptr() % (vec * size)):
+    vec = 16 // elem_size
+    while vec > 1 and (C % vec or ptr % (vec * elem_size)):
         vec //= 2
     return vec
 
 
-def _param(t: torch.Tensor, name: str, B: int, C: int) -> int:
+def stats_threads(chunks: int) -> int:
+    """Threads of a K1 block for rows of ``chunks`` loads: TY rows of them,
+    about _BLOCK_THREADS, or one row of a wide C."""
+    return chunks * max(1, _BLOCK_THREADS // chunks)
+
+
+def apply_strip(chunks: int) -> int:
+    """Chunks of a K2 block's channel strip: the widest divisor of
+    ``chunks`` up to _APPLY_STRIP, so that a block reads a and b for its
+    strip only; the whole row where that divisor is under 8."""
+    cw = max(d for d in range(1, min(chunks, _APPLY_STRIP) + 1) if chunks % d == 0)
+    return cw if cw >= 8 else chunks
+
+
+def apply_threads(chunks: int) -> int:
+    """Threads of a K2 block: TY rows of its strip, about _BLOCK_THREADS."""
+    cw = apply_strip(chunks)
+    return cw * max(1, _BLOCK_THREADS // cw)
+
+
+class LaunchPlan(NamedTuple):
+    """Both kernels' grids for one [B, N, C] shape at ``vec`` elements a
+    load; each block is TY rows of a strip of chunks."""
+    stats_threads: int
+    stats_splits: int  # K1's grid is (stats_splits, B) ...
+    stats_rows: int    # ... each block summing this many rows of C / vec chunks
+    apply_threads: int
+    apply_cw: int      # K2's strip, in chunks
+    apply_splits: int  # K2's grid is (apply_splits * C / vec / apply_cw, B)
+
+
+def launch_plan(B: int, N: int, C: int, vec: int, sms: int = 132) -> LaunchPlan:
+    """The launch geometry of both kernels, from the shape and the card's
+    number of SMs."""
+    chunks = C // vec
+    threads = stats_threads(chunks)
+    ty = threads // chunks
+    # K1: rows of a split, a multiple of the block's rows times the unroll
+    gran = ty * _STATS_UNROLL
+    splits = max(1, min(-(-N // gran), -(-_STATS_BLOCKS // B)))
+    rows = -(-(-(-N // splits)) // gran) * gran
+    # K2: at most _APPLY_UNROLL row groups a block, so that a thread has all
+    # its loads in flight before its first store, and at least
+    # _APPLY_BLOCKS_PER_SM blocks an SM where there are that many row groups
+    athreads, cw = apply_threads(chunks), apply_strip(chunks)
+    groups = -(-N // (athreads // cw))
+    columns = B * (chunks // cw)
+    apply_splits = max(-(-groups // _APPLY_UNROLL),
+                       min(groups, -(-sms * _APPLY_BLOCKS_PER_SM // columns)))
+    return LaunchPlan(threads, -(-N // rows), rows, athreads, cw, apply_splits)
+
+
+class _Plan(ctypes.Structure):
+    """``Plan`` of csrc/group_norm.cu: the same fields in the same order,
+    checked against the library by ``_lib``."""
+    _fields_ = (
+        [(n, ctypes.c_longlong) for n in (
+            "B", "N", "C", "G", "vec", "x_bf16",
+            "stats_splits", "stats_rows", "stats_threads",
+            "apply_splits", "apply_cw", "apply_threads", "swish_mode",
+            "param_bf16", "film_bf16", "film_sb")]
+        + [(n, ctypes.c_double) for n in ("eps", "cnt", "swish")]
+        + [("counter", ctypes.c_void_p)])
+
+
+class _Launch(NamedTuple):
+    ref: int      # the _Plan's address, passed to the C entries
+    plan: _Plan
+    part: int     # floats of K1's partials, B * splits * G * 2
+    scratch: int  # floats of k2_group_norm's scratch: a, b, then the partials
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = load_library("group_norm.cu")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name, n in (("k2_group_norm_stats", 10), ("k2_group_norm_apply", 6),
+                    ("k2_group_norm", 9)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [P] * n, I
+    lib.k2_group_norm_layout.argtypes, lib.k2_group_norm_layout.restype = [P, I], I
+    want = [ctypes.sizeof(_Plan), _STATS_UNROLL, _APPLY_UNROLL, _MAX_CHUNKS] + [
+        getattr(_Plan, name).offset for name, _ in _Plan._fields_]
+    got = (ctypes.c_longlong * len(want))()
+    if lib.k2_group_norm_layout(got, len(want)) != len(want) or list(got) != want:
+        raise RuntimeError("group_norm: _Plan or the kernels' constants differ "
+                           "from csrc/group_norm.cu")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _card(device: torch.device):
+    """(SMs, K1's per-b counters: zero, and left at zero by every launch)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms, torch.zeros(_MAX_BATCH, dtype=torch.int32, device=device)
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
+
+
+def _layout(t: torch.Tensor):
+    return t.dtype, t.device, t.shape, t.stride()
+
+
+def _param_bf16(layout, name: str, device, B: int, C: int) -> int:
     """1 for a bf16 tensor, 0 for fp32, of C values ([C]) or B rows of C
-    with a unit last stride (FiLM's [B, C] or [B, 1, 1, C]); raises for
-    anything else."""
-    if not t.is_cuda or t.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"group_norm_stats: {name} must be bf16 or fp32 on the card")
-    if t.numel() != B * C or t.shape[-1] != C or t.stride(-1) != 1 or (
-            B > 1 and t.shape[0] != B):
+    with a unit last stride (FiLM's [B, C] or [B, 1, 1, C]), on the card of
+    x; raises for anything else."""
+    dtype, dev, shape, stride = layout
+    if dev != device or dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"group_norm_stats: {name} must be bf16 or fp32 on {device}")
+    if math.prod(shape) != B * C or shape[-1] != C or stride[-1] != 1 or (
+            B > 1 and shape[0] != B):
         raise ValueError(f"group_norm_stats: {name} must hold {B} rows of {C}")
-    return int(t.dtype == torch.bfloat16)
+    return int(dtype == torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(dtype, device, shape, align, num_groups, eps, swish, params, film):
+    """The launch of one layout, built once: checks what the kernels take,
+    then fills a _Plan with ``launch_plan``'s geometry.  x is contiguous,
+    [B, ..., C], its data pointer ``align`` bytes past 16; ``params`` and
+    ``film`` are the layouts of (scale, bias) and of (fs, fb) or None.
+    ``num_groups`` None: a plan for K2 alone."""
+    name = "group_norm_apply" if num_groups is None else "group_norm"
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: the kernels take bf16 or fp32 x")
+    B, C = shape[0], shape[-1]
+    N = math.prod(shape[1:-1])
+    es = 2 if dtype == torch.bfloat16 else 4
+    vec = vec_width(C, align, es)
+    if num_groups is not None and C % num_groups:
+        raise ValueError(f"{name}: C={C} not divisible by {num_groups}")
+    if not (0 < B <= _MAX_BATCH and 0 < N <= _MAX_ROWS and 0 < C // vec <= _MAX_CHUNKS):
+        raise ValueError(f"{name}: shape {tuple(shape)} out of the kernels' range")
+    mode = 0 if swish == 0 else 1 if swish == 1 else 2
+    sms, counter = _card(device)
+    geo = launch_plan(B, N, C, vec, sms)
+    plan = _Plan(B=B, N=N, C=C, G=num_groups or 0, vec=vec, x_bf16=int(es == 2),
+                 apply_splits=geo.apply_splits, apply_cw=geo.apply_cw,
+                 apply_threads=geo.apply_threads,
+                 swish_mode=mode, swish=swish)
+    part = 0
+    if num_groups is not None:
+        plan.param_bf16 = _param_bf16(params[0], "scale", device, 1, C)
+        if _param_bf16(params[1], "bias", device, 1, C) != plan.param_bf16:
+            raise TypeError("group_norm_stats: scale and bias must share a dtype")
+        if film is not None:
+            plan.film_bf16 = _param_bf16(film[0], "fs", device, B, C)
+            plan.film_sb = film[0][3][0] if B > 1 else 0
+            if _param_bf16(film[1], "fb", device, B, C) != plan.film_bf16 or (
+                    B > 1 and film[1][3][0] != plan.film_sb):
+                raise TypeError("group_norm_stats: fs and fb must share a dtype and strides")
+        plan.stats_splits, plan.stats_rows = geo.stats_splits, geo.stats_rows
+        plan.stats_threads, plan.eps = geo.stats_threads, eps
+        plan.cnt = float(N * (C // num_groups))
+        plan.counter = counter.data_ptr()
+        part = B * geo.stats_splits * num_groups * 2
+    # k2_group_norm's scratch: a, b (b 16-byte aligned, since C % 4 == 0
+    # where vec >= 4), then the per-block partials [B, splits, G, 2]
+    return _Launch(ctypes.addressof(plan), plan, part, 2 * B * C + part)
+
+
+def _norm_launch(x, scale, bias, film, num_groups, eps, swish=0.0) -> _Launch:
+    return _plan(x.dtype, x.device, x.shape, x.data_ptr() % 16, num_groups,
+                 float(eps), float(swish), (_layout(scale), _layout(bias)),
+                 None if film is None else (_layout(film[0]), _layout(film[1])))
+
+
+def _film_ptrs(film):
+    return (None, None) if film is None else (film[0].data_ptr(), film[1].data_ptr())
 
 
 def group_norm_stats(x3, scale, bias, film, num_groups: int, eps: float):
@@ -156,51 +314,14 @@ def group_norm_stats(x3, scale, bias, film, num_groups: int, eps: float):
     if x3.device.type == "cpu":
         return group_norm_stats_plain(x3, scale, bias, film, num_groups, eps)
     _check_cuda(x3, "group_norm_stats")
-    if x3.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError("group_norm_stats: the kernel takes bf16 or fp32 x")
-    B, N, C = x3.shape
-    if C % num_groups:
-        raise ValueError(f"group_norm_stats: C={C} not divisible by {num_groups}")
-    vec = _vec(x3)
-    chunks = C // vec
-    if chunks > _STATS_MAX_CHUNKS or B > _MAX_BATCH:
-        raise ValueError(f"group_norm_stats: shape {tuple(x3.shape)} too wide")
-    param_bf16 = _param(scale, "scale", 1, C)
-    if _param(bias, "bias", 1, C) != param_bf16:
-        raise TypeError("group_norm_stats: scale and bias must share a dtype")
-    fs = fb = None
-    film_sb, film_bf16 = 0, 0
-    if film is not None:
-        fs, fb = film
-        film_bf16 = _param(fs, "fs", B, C)
-        film_sb = fs.stride(0) if B > 1 else 0
-        if _param(fb, "fb", B, C) != film_bf16 or (B > 1 and fb.stride(0) != film_sb):
-            raise TypeError("group_norm_stats: fs and fb must share a dtype and strides")
-    # rows of a split: a multiple of the block's rows times the unroll
-    ty = 1 if chunks >= 256 else 256 // chunks
-    gran = ty * _STATS_UNROLL
-    splits = max(1, min(-(-N // gran), -(-_STATS_BLOCKS // B)))
-    rows = -(-(-(-N // splits)) // gran) * gran
-    splits = -(-N // rows)
-    # one allocation: a, b, then the per-block partials (B * splits * G * 2)
-    buf = torch.empty(2 * B * C + B * splits * num_groups * 2, dtype=torch.float32,
-                      device=x3.device)
-    a = buf[:B * C].view(B, C)
-    b = buf[B * C:2 * B * C].view(B, C)
-    counter = _counters.get(x3.device)
-    if counter is None:
-        counter = _counters[x3.device] = torch.zeros(
-            _MAX_BATCH, dtype=torch.int32, device=x3.device)
-    ptr = buf.data_ptr()
+    launch = _norm_launch(x3, scale, bias, film, num_groups, eps)
+    a, b = (torch.empty((x3.shape[0], x3.shape[2]), dtype=torch.float32,
+                        device=x3.device) for _ in range(2))
+    part = torch.empty(launch.part, dtype=torch.float32, device=x3.device)
     group_norm_stats.launches += 1
-    err = _stats_lib().k2_group_norm_stats(
-        x3.data_ptr(), int(x3.dtype == torch.bfloat16), vec, B, N, C,
-        num_groups, splits, rows, ptr + 8 * B * C, counter.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), param_bf16,
-        None if fs is None else fs.data_ptr(), None if fb is None else fb.data_ptr(),
-        film_sb, film_bf16, eps, float(N * (C // num_groups)),
-        ptr, ptr + 4 * B * C, torch.cuda.current_stream(x3.device).cuda_stream,
-    )
+    err = _lib().k2_group_norm_stats(launch.ref, x3.data_ptr(), scale.data_ptr(),
+                                     bias.data_ptr(), *_film_ptrs(film), a.data_ptr(),
+                                     b.data_ptr(), part.data_ptr(), _stream(x3))
     check(err, "group_norm_stats kernel launch")
     return a, b
 
@@ -208,69 +329,69 @@ def group_norm_stats(x3, scale, bias, film, num_groups: int, eps: float):
 group_norm_stats.launches = 0
 
 
-def _stats_lib():
-    lib = load_library("group_norm.cu")
-    fn = lib.k2_group_norm_stats
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, I, I, I, I, I, I, I, P, P, P, P, I, P, P,
-                       ctypes.c_longlong, I, ctypes.c_float, ctypes.c_float,
-                       P, P, P]
-        fn.restype = I
-    return lib
-
-
-def group_norm_apply_plain(x3, a, b, swish: float):
-    """silu?(x·a + b) in fp32, cast to x's dtype; a, b [B, C] fp32."""
-    y = x3.float() * a[:, None, :] + b[:, None, :]
-    if swish:
-        y = y * torch.sigmoid(y * swish)
-    return y.to(x3.dtype)
+def _check_coef(t: torch.Tensor, x3: torch.Tensor, name: str) -> None:
+    """a or b as K1 writes it and K2 reads it: [B, C] fp32, contiguous,
+    16-byte aligned, on x's card."""
+    if (t.device != x3.device or t.shape != (x3.shape[0], x3.shape[2])
+            or t.dtype != torch.float32 or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"group_norm_apply: {name} must be a 16-byte aligned, "
+                         f"contiguous [B, C] fp32 tensor on {x3.device}")
 
 
 def group_norm_apply(x3, a, b, swish: float):
-    """K2.  For a CPU tensor the plain version; for a CUDA tensor the Triton
-    kernel."""
+    """K2: y·sigmoid(swish·y) (y where swish is 0) of y = x·a + b, for any
+    float swish.  For a CPU tensor the plain version; for a CUDA tensor one
+    launch of the CUDA kernel."""
     if x3.device.type == "cpu":
         return group_norm_apply_plain(x3, a, b, swish)
     _check_cuda(x3, "group_norm_apply")
-    if swish not in (0.0, 1.0):
-        raise ValueError("group_norm_apply: the kernel takes swish 0 or 1")
-    triton, apply_kernel = _triton_kernels()
-    B, N, C = x3.shape
-    block_c = _block_c(C)
-    block_n = _APPLY_BLOCK_ELEMS // block_c
-    a = a.float().contiguous()
-    b = b.float().contiguous()
+    launch = _plan(x3.dtype, x3.device, x3.shape, x3.data_ptr() % 16, None, None,
+                   float(swish), None, None)
+    _check_coef(a, x3, "a")
+    _check_coef(b, x3, "b")
     y = torch.empty_like(x3)
     group_norm_apply.launches += 1
-    apply_kernel[(triton.cdiv(N, block_n), triton.cdiv(C, block_c), B)](
-        x3, a, b, y, N, C, SWISH=bool(swish),
-        BLOCK_N=block_n, BLOCK_C=block_c, num_warps=4,
-    )
+    err = _lib().k2_group_norm_apply(launch.ref, x3.data_ptr(), a.data_ptr(),
+                                     b.data_ptr(), y.data_ptr(), _stream(x3))
+    check(err, "group_norm_apply kernel launch")
     return y
 
 
 group_norm_apply.launches = 0
 
 
-def _norm(x, scale, bias, num_groups, eps, swish, film, stats, apply):
-    B, C = x.shape[0], x.shape[-1]
-    if C % num_groups:
-        raise ValueError(f"group_norm: C={C} not divisible by {num_groups}")
-    x3 = x.reshape(B, -1, C)
-    if not x3.is_contiguous():
-        x3 = x3.contiguous()
-    a, b = stats(x3, scale, bias, film, num_groups, eps)
-    return apply(x3, a, b, swish).reshape(x.shape)
+def _norm_kernels(x, scale, bias, num_groups, eps, swish, film):
+    """K1 then K2 in one foreign call, their coefficients in the call's
+    own scratch; the plain versions for a CPU tensor.  Counts a launch of
+    each."""
+    if x.device.type == "cpu":
+        return group_norm_plain(x, scale, bias, num_groups, eps, swish, film)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"group_norm: no kernel for device {x.device}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    launch = _norm_launch(x, scale, bias, film, num_groups, eps, swish)
+    y = torch.empty_like(x)
+    scratch = torch.empty(launch.scratch, dtype=torch.float32, device=x.device)
+    group_norm_stats.launches += 1
+    group_norm_apply.launches += 1
+    err = _lib().k2_group_norm(launch.ref, x.data_ptr(), scale.data_ptr(),
+                               bias.data_ptr(), *_film_ptrs(film), scratch.data_ptr(),
+                               y.data_ptr(), _stream(x))
+    check(err, "group_norm kernel launch")
+    return y
 
 
 def group_norm_plain(x, scale, bias, num_groups: int, eps: float,
                      swish: float = 0.0, film=None):
     """The same function through the plain versions of K1 and K2, and
     differentiable by autograd: the backward target of ``GroupNormFunction``."""
-    return _norm(x, scale, bias, num_groups, eps, swish, film,
-                 group_norm_stats_plain, group_norm_apply_plain)
+    B, C = x.shape[0], x.shape[-1]
+    if C % num_groups:
+        raise ValueError(f"group_norm: C={C} not divisible by {num_groups}")
+    x3 = x.reshape(B, -1, C)
+    a, b = group_norm_stats_plain(x3, scale, bias, film, num_groups, eps)
+    return group_norm_apply_plain(x3, a, b, swish).reshape(x.shape)
 
 
 class GroupNormFunction(torch.autograd.Function):
@@ -284,8 +405,7 @@ class GroupNormFunction(torch.autograd.Function):
         ctx.save_for_backward(x, scale, bias, fs, fb)
         ctx.config = (num_groups, eps, swish)
         film = None if fs is None else (fs, fb)
-        return _norm(x, scale, bias, num_groups, eps, swish, film,
-                     group_norm_stats, group_norm_apply)
+        return _norm_kernels(x, scale, bias, num_groups, eps, swish, film)
 
     @staticmethod
     def backward(ctx, gy):
@@ -312,8 +432,7 @@ def group_norm(x, scale, bias, num_groups: int, eps: float, swish: float = 0.0,
     directly, since no graph is recorded there and ``Function.apply`` would
     only add host time to every call."""
     if not torch.is_grad_enabled():
-        return _norm(x, scale, bias, num_groups, eps, swish, film,
-                     group_norm_stats, group_norm_apply)
+        return _norm_kernels(x, scale, bias, num_groups, eps, swish, film)
     fs, fb = (None, None) if film is None else film
     return GroupNormFunction.apply(x, scale, bias, fs, fb, num_groups,
                                    float(eps), float(swish))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time this tree's flash backward (K5 + K4), flash forward (K3) and
-GroupNorm statistics (K1) against another commit's, in one process on one
+GroupNorm kernels (K1, K2) against another commit's, in one process on one
 NVIDIA GPU.
 
     python3 kernel_ab.py OTHER_DIR
@@ -14,16 +14,20 @@ sources.  Every pair is timed in turns (other, this, this, other):
 * the whole flash backward, ``flash_attention_bwd`` (delta, K5 and K4), at
   the decoder training step's three UNet attention shapes: device ms, each
   version checked against ``flash_attention_bwd_plain`` first; then K5 and
-  K4 alone (a tree whose K5 takes delta gets it from the plain rowsum), and
-  host us per backward call at the smallest shape;
+  K4 alone, and host us per backward call at the smallest shape;
 * the flash forward at the 768² text2img path's shapes: device ms, each
   version checked against the plain version first;
-* GroupNorm at the path's shapes: device ms of the statistics (K1; in a
-  tree from before K1 took the coefficients in, its moments kernel and the
-  coefficient glue) and of the whole op with FiLM and SiLU, and host us per
-  call of the whole op, of the statistics and of K2 under
-  ``inference_mode`` at a small shape, where the device keeps up with the
-  host;
+* GroupNorm at the path's shapes, under ``inference_mode``: device ms of
+  the statistics (K1), of the apply kernel (K2, with SiLU; each version
+  checked against ``group_norm_apply_plain`` first) and of the whole op
+  with FiLM and SiLU, each call on the next of copies of x that together
+  exceed four L2s (``chip_smoke.cold_copies``), so that x comes from
+  device memory; K2 also on one x, which stays in L2 as after K1 on the
+  path; beside K2, the floor of a kernel of its kind, timed in turns:
+  PyTorch's ``copy_`` of the same bytes from the copies and an empty
+  launch (``torch.cuda._sleep(0)``); and at the UNet's ds8 shape, where
+  the device keeps up with the host, host us per call of the whole op, of
+  K1 and of K2;
 * host us per flash forward call.
 
 Prints one line per measurement, after the card's name and power limit.
@@ -33,11 +37,10 @@ from __future__ import annotations
 
 import importlib
 import importlib.util
-import inspect
 import sys
 from pathlib import Path
 
-from chip_smoke import check, cuda_ms, host_us, smi_line
+from chip_smoke import check, cold_copies, cuda_ms, host_us, smi_line
 
 
 def turns(fns: dict, measure) -> dict:
@@ -66,26 +69,13 @@ def main(argv) -> int:
     ogn = importlib.import_module("other_k2.ops.group_norm")
     other_fwd = ofa.flash_attention_fwd
 
-    def other_stats(x3, scale, bias, film):
-        if hasattr(ogn, "group_norm_stats"):
-            return ogn.group_norm_stats(x3, scale, bias, film, 32, 1e-5)
-        cnt = float(x3.shape[1] * (x3.shape[2] // 32))
-        return ogn._coefficients(*ogn.group_norm_moments(x3), cnt, scale, bias,
-                                 film, 32, 1e-5)
-
     g = torch.Generator(device="cuda").manual_seed(21)
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
 
     def kernels_of(mod, q, k, v, o, lse, do):
-        """(K5, K4) of a tree as functions of no arguments: K5 of this tree
-        computes delta itself; an older K5 takes it, from the plain rowsum."""
-        if "o" in inspect.signature(mod.flash_attention_bwd_dq).parameters:
-            delta = mod.flash_attention_bwd_dq(q, k, v, o, do, lse)[1]
-            return (lambda: mod.flash_attention_bwd_dq(q, k, v, o, do, lse),
-                    lambda: mod.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
-        B, T, H, _ = q.shape
-        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, T)
-        return (lambda: mod.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+        """(K5, K4) of a tree as functions of no arguments."""
+        delta = mod.flash_attention_bwd_dq(q, k, v, o, do, lse)[1]
+        return (lambda: mod.flash_attention_bwd_dq(q, k, v, o, do, lse),
                 lambda: mod.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
 
     trees = {"other": ofa, "this": fa}
@@ -133,33 +123,63 @@ def main(argv) -> int:
               f"this {t['this']:.4f} ms")
         del q, k, v, o_ref
 
+    bf16, fp32 = torch.bfloat16, torch.float32
+    norm_shapes = [
+        ("unet ds1", (2, 96, 96, 384), bf16), ("unet ds2", (2, 48, 48, 768), bf16),
+        ("unet ds4", (2, 24, 24, 1152), bf16), ("unet ds8", (2, 12, 12, 1536), bf16),
+        ("unet ds8 skip-concat", (2, 12, 12, 3072), bf16),
+        ("unet out.0 fp32", (2, 96, 96, 384), fp32), ("movq latent", (1, 96, 96, 512), bf16),
+        ("movq 768^2", (1, 768, 768, 128), bf16),
+    ]
+    norms = {"other": ogn, "this": gn}
     with torch.inference_mode():
-        for label, shape in [("unet ds1", (2, 96, 96, 384)), ("unet ds8", (2, 12, 12, 3072)),
-                             ("movq 768^2", (1, 768, 768, 128))]:
+        for label, shape, dtype in norm_shapes:
             B, C = shape[0], shape[-1]
-            x = randn(*shape)
+            x = randn(*shape).to(dtype)
             x3 = x.reshape(B, -1, C)
             scale, bias = torch.ones(C, device="cuda"), torch.zeros(C, device="cuda")
             film = randn(B, 1, 1, 2 * C).chunk(2, dim=-1)
-            stats = {
-                "other": lambda: other_stats(x3, scale, bias, film),
-                "this": lambda: gn.group_norm_stats(x3, scale, bias, film, 32, 1e-5)}
-            op = {"other": lambda: ogn.group_norm(x, scale, bias, 32, 1e-5, 1.0, film),
-                  "this": lambda: gn.group_norm(x, scale, bias, 32, 1e-5, 1.0, film)}
+            a, b = gn.group_norm_stats(x3, scale, bias, film, 32, 1e-5)
+            want = gn.group_norm_apply_plain(x3, a, b, 1.0).float()
+            tol = (1e-5 if dtype == fp32 else 2 ** -7) * max(1.0, want.abs().max().item())
+            for name, mod in norms.items():
+                err = (mod.group_norm_apply(x3, a, b, 1.0).float() - want).abs().max().item()
+                check(err <= tol, f"{name} K2 wrong at {label}")
+            xs = cold_copies(x)
+            x3s = lambda: xs().view(x3.shape)
+            stats = {n: (lambda m=m: m.group_norm_stats(x3s(), scale, bias, film, 32, 1e-5))
+                     for n, m in norms.items()}
+            apply = {n: (lambda m=m: m.group_norm_apply(x3s(), a, b, 1.0))
+                     for n, m in norms.items()}
+            warm = {n: (lambda m=m: m.group_norm_apply(x3, a, b, 1.0))
+                    for n, m in norms.items()}
+            op = {n: (lambda m=m: m.group_norm(xs(), scale, bias, 32, 1e-5, 1.0, film))
+                  for n, m in norms.items()}
             ts = turns(stats, lambda fn: cuda_ms(fn, 10))
-            to = turns(op, lambda fn: cuda_ms(fn, 4))
-            print(f"GroupNorm {label} {list(shape)} FiLM SiLU: statistics other "
-                  f"{ts['other']:.4f} ms, this {ts['this']:.4f} ms; whole op other "
-                  f"{to['other']:.4f} ms, this {to['this']:.4f} ms")
-            if label == "unet ds8":  # the device keeps up with the host here
-                th = turns(op, host_us)
-                ths = turns(stats, host_us)
-                a, b = gn.group_norm_stats(x3, scale, bias, film, 32, 1e-5)
-                k2 = host_us(lambda: gn.group_norm_apply(x3, a, b, 1.0))
+            t2 = turns(apply, lambda fn: cuda_ms(fn, 20))
+            t2w = turns(warm, lambda fn: cuda_ms(fn, 20))
+            to = turns(op, lambda fn: cuda_ms(fn, 10))
+            y = torch.empty_like(x3)
+            tf = turns({"copy": lambda: y.copy_(x3s()),
+                        "empty": lambda: torch.cuda._sleep(0)}, lambda fn: cuda_ms(fn, 20))
+            print(f"GroupNorm {label} {list(shape)} {str(dtype)[6:]} FiLM SiLU: K1 other "
+                  f"{ts['other']:.4f} ms, this {ts['this']:.4f} ms; K2 other "
+                  f"{t2['other']:.4f} ms, this {t2['this']:.4f} ms (floor: copy_ "
+                  f"{tf['copy']:.4f} ms, empty launch {tf['empty']:.4f} ms); K2 on x "
+                  f"in L2 other {t2w['other']:.4f} ms, this {t2w['this']:.4f} ms; whole "
+                  f"op other {to['other']:.4f} ms, this {to['this']:.4f} ms")
+            if label == "unet ds8 skip-concat":  # the device keeps up with the host here
+                # on one x: the copies' hand-out would add to the host's time
+                th = turns({n: (lambda m=m: m.group_norm(x, scale, bias, 32, 1e-5, 1.0, film))
+                            for n, m in norms.items()}, host_us)
+                ths = turns({n: (lambda m=m: m.group_norm_stats(x3, scale, bias, film, 32,
+                                                                1e-5))
+                             for n, m in norms.items()}, host_us)
+                th2 = turns(warm, host_us)
                 print(f"GroupNorm {label} host per call: whole op other "
-                      f"{th['other']:.1f} us, this {th['this']:.1f} us; statistics "
-                      f"other {ths['other']:.1f} us, this {ths['this']:.1f} us; "
-                      f"this tree's K2 (Triton launcher) {k2:.1f} us")
+                      f"{th['other']:.1f} us, this {th['this']:.1f} us; K1 other "
+                      f"{ths['other']:.1f} us, this {ths['this']:.1f} us; K2 other "
+                      f"{th2['other']:.1f} us, this {th2['this']:.1f} us")
 
         q, k, v = randn(2, 144, 24, 64), randn(2, 231, 24, 64), randn(2, 231, 24, 64)
         th = turns({"other": lambda: other_fwd(q, k, v),

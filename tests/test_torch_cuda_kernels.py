@@ -73,6 +73,39 @@ def test_group_norm_stats_kernel_matches_plain(gen, C, dtype):
             assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
 
 
+@pytest.mark.parametrize("swish", [0.0, 1.0, 0.5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [96, 128, 384, 1152, 2688, 3072])
+def test_group_norm_apply_kernel_matches_plain(gen, C, dtype, swish):
+    """K2 against its plain version, for any swish, at the ds8 N = 144 and a
+    ragged N = 1999, on a fresh tensor and on a view two elements past 16
+    bytes (narrower loads; a row of more than 1024 loads at that width is
+    refused, as K1 refuses it), and bitwise equal over two calls.  The same
+    fp32 math up to one fma and the fast activation (tanh.approx in bf16,
+    ex2 and rcp in fp32): one rounding to x's dtype, 2^-7 of the largest
+    |y| in bf16 and 1e-5 in fp32."""
+    B = 2
+    a = 1 + 0.5 * torch.randn((B, C), generator=gen, device="cuda")
+    b = torch.randn((B, C), generator=gen, device="cuda")
+    for N in (144, 1999):
+        for offset in (0, 2):
+            buf = torch.randn(B * N * C + offset, generator=gen, device="cuda").to(dtype)
+            x = buf[offset:].view(B, N, C)
+            if C // tgn.vec_width(C, x.data_ptr(), x.element_size()) > 1024:
+                with pytest.raises(ValueError):
+                    tgn.group_norm_apply(x, a, b, swish)
+                continue
+            got = tgn.group_norm_apply(x, a, b, swish)
+            again = tgn.group_norm_apply(x, a, b, swish)
+            want = tgn.group_norm_apply_plain(x, a, b, swish)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == (B, N, C)
+            assert torch.equal(got, again), (N, offset)
+            ref = max(1.0, want.float().abs().max().item())
+            tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * ref
+            assert (got.float() - want.float()).abs().max().item() <= tol, (N, offset)
+
+
 def test_group_norm_launches_two_kernels(gen):
     """A GroupNorm on the card is K1 + K2: at most two kernels, counted by
     the profiler, with FiLM and SiLU, with grad mode off and on."""

@@ -1,7 +1,7 @@
 """The port's GroupNorm pair (K1 statistics + K2 apply, ``kandinsky2_tpu_torch/
 ops/group_norm.py``) against the JAX package's Pallas kernels in interpret
 mode and its plain XLA reference: the whole norm in fp32 at 1e-4, K1's
-coefficients at 1e-5."""
+coefficients at 1e-5, K2 at 1e-6; and the two kernels' launch plan."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -102,12 +102,132 @@ def test_any_channel_count_divisible_by_groups():
         assert_close(got, want, MODULE_TOL, f"C={C}")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("swish", [0.0, 1.0, 0.5])
+def test_group_norm_apply_matches_pallas_apply(dtype, swish):
+    """K2's function (``group_norm_apply`` on a CPU tensor, its plain
+    version) against the JAX package's ``_apply`` Pallas kernel in
+    interpret mode, for any swish: 1e-6 of the largest value in fp32, one
+    bf16 step of the largest value in bf16."""
+    rng = np.random.RandomState(11)
+    B, N, C = 2, 24, 128
+    x = (rng.randn(B, N, C) * 2 + 0.3).astype(np.float32)
+    a = (1 + 0.5 * rng.randn(B, C)).astype(np.float32)
+    b = rng.randn(B, C).astype(np.float32)
+    # bf16 inputs are rounded once, then given exactly to both frameworks
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(xt.float().numpy()).astype(getattr(jnp, dtype))
+    want = jgn._apply(xj, jnp.asarray(a), jnp.asarray(b), swish,
+                      jgn._pick_tn(N, C, xj.dtype.itemsize), True)
+    got = tgn.group_norm_apply(xt, torch.from_numpy(a), torch.from_numpy(b), swish)
+    assert got.dtype == xt.dtype and got.shape == (B, N, C)
+    want = np.asarray(want).astype(np.float32)
+    err = np.abs(got.float().numpy() - want).max()
+    tol = (1e-6 if dtype == "float32" else 2.0 ** -7) * np.abs(want).max()
+    assert err <= tol, f"{err:.3e} > {tol:.3e}"
+
+
+def _rows_once(ranges, N):
+    """Whether the row ranges [r0, r1, step) cover 0..N-1 exactly once."""
+    count = np.zeros(N, np.int64)
+    for r0, r1, step in ranges:
+        count[r0:r1:step] += 1
+    return bool((count == 1).all())
+
+
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((2, 96 * 96, 384), torch.bfloat16, 0), ((2, 48 * 48, 768), torch.bfloat16, 0),
+    ((2, 24 * 24, 1152), torch.bfloat16, 0), ((2, 12 * 12, 3072), torch.bfloat16, 0),
+    ((2, 96 * 96, 384), torch.float32, 0), ((1, 96 * 96, 512), torch.bfloat16, 0),
+    ((1, 768 * 768, 128), torch.bfloat16, 0), ((2, 1999, 384), torch.bfloat16, 0),
+    ((3, 1999, 96), torch.bfloat16, 0), ((2, 37, 160), torch.float32, 0),
+    ((2, 1999, 384), torch.bfloat16, 2), ((2, 144, 1152), torch.float32, 2),
+    ((1, 5, 160), torch.bfloat16, 2),
+])
+def test_launch_plan_covers_every_element_once(shape, dtype, offset):
+    """Both kernels' grids, from ``launch_plan`` (pure Python) with the index
+    math of csrc/group_norm.cu: every row of every batch once, every channel
+    once by the C / vec chunks of a row (K2: by its strips of them), within
+    the launch limits (1024 threads a block, 227 KB of shared memory, 65535
+    blocks in y, 2^31 - 1 in x) and, for K2, the blocks' row counts at most
+    one apart, each thread's rows in one pass of its loads, and the blocks
+    an SM should get where the rows allow, on 132, 114 and 16 SMs.  At the path's shapes, a ragged
+    N, C = 96 and 160, and a pointer two elements past 16 bytes, which
+    narrows the loads."""
+    B, N, C = shape
+    x = torch.empty(B * N * C + offset, dtype=dtype)[offset:]
+    vec = tgn.vec_width(C, x.data_ptr(), x.element_size())
+    assert vec * x.element_size() <= 16 and C % vec == 0
+    assert offset == 0 or vec == 2
+    chunks = C // vec
+    assert 0 < chunks <= 1024
+    for sms in (132, 114, 16):
+        p = tgn.launch_plan(B, N, C, vec, sms)
+        # K1: block s sums rows [s rows, (s + 1) rows) of whole rows, thread
+        # row t every ty, with (2 ty C + 2 G) floats of shared memory
+        assert p.stats_threads <= 1024 and p.stats_threads % chunks == 0
+        ty = p.stats_threads // chunks
+        assert B <= 65535 and (2 * ty * C + 2 * 32) * 4 <= 227 * 1024
+        assert p.stats_rows % (ty * tgn._STATS_UNROLL) == 0
+        assert (p.stats_splits - 1) * p.stats_rows < N <= p.stats_splits * p.stats_rows
+        assert _rows_once([(s * p.stats_rows + t, min(N, (s + 1) * p.stats_rows), ty)
+                           for s in range(p.stats_splits) for t in range(ty)], N)
+        # K2: block (k, strip) takes rows [k N / s, (k + 1) N / s) of the
+        # strip's cw chunks, thread row t every ty: at most _APPLY_UNROLL rows
+        # a thread, and _APPLY_BLOCKS_PER_SM blocks an SM where there are
+        # that many row groups
+        cw = p.apply_cw
+        assert chunks % cw == 0 and p.apply_threads % cw == 0 and p.apply_threads <= 1024
+        ty, s, strips = p.apply_threads // cw, p.apply_splits, chunks // cw
+        assert cw == chunks or cw >= 8
+        assert s * strips < 2**31
+        counts = {(k + 1) * N // s - k * N // s for k in range(s)}
+        assert max(counts) - min(counts) <= 1 and min(counts) >= 1
+        assert max(counts) <= tgn._APPLY_UNROLL * ty
+        assert s >= min(-(-N // ty), -(-sms * tgn._APPLY_BLOCKS_PER_SM // (B * strips)))
+        assert _rows_once([(k * N // s + t, (k + 1) * N // s, ty)
+                           for k in range(s) for t in range(ty)], N)
+        cols = np.zeros(C, np.int64)
+        for strip in range(strips):
+            for tx in range(cw):
+                c = (strip * cw + tx) * vec
+                cols[c:c + vec] += 1
+        assert (cols == 1).all()
+
+
+def test_plan_struct_mirrors_the_cuda_source():
+    """``_Plan`` has ``Plan``'s fields of csrc/group_norm.cu in its order and
+    C types, and the Python copies of the kernels' constants have the
+    source's values (on the card ``_lib`` checks the same against the built
+    library's offsets)."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(tgn.__file__).parents[1] / "csrc" / "group_norm.cu").read_text()
+    body = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    ctype = {"long long": ctypes.c_longlong, "double": ctypes.c_double,
+             "void*": ctypes.c_void_p}
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        if decl.strip():
+            kind, names = re.match(r"\s*(long long|double|void\*)\s+(.*)", decl, re.S).groups()
+            fields += [(n.strip(), ctype[kind]) for n in names.split(",")]
+    assert [(n, t) for n, t in tgn._Plan._fields_] == fields
+    const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (const["UNROLL"], const["APPLY_UNROLL"], const["MAX_THREADS"]) == (
+        tgn._STATS_UNROLL, tgn._APPLY_UNROLL, tgn._MAX_CHUNKS)
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     x = torch.empty((1, 8, 64), device="meta")
     with pytest.raises(RuntimeError):
         tgn.group_norm_stats(x, x[0, 0], x[0, 0], None, 32, 1e-5)
     with pytest.raises(RuntimeError):
         tgn.group_norm_apply(x, x[:, 0], x[:, 0], 0.0)
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad), pytest.raises(RuntimeError):
+            tgn.group_norm(x, x[0, 0], x[0, 0], 32, 1e-5)
 
 
 @pytest.fixture

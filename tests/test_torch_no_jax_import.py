@@ -1,7 +1,8 @@
 """The PyTorch port must not load JAX, flax, optax or the JAX package:
 importing every submodule of ``kandinsky2_tpu_torch`` in a fresh
 interpreter leaves none of them in ``sys.modules``, and the scripts that
-run on the card import none of them."""
+run on the card import none of them.  Its kernels are CUDA C++, so no
+module of it imports Triton either, at any depth of its code."""
 
 import ast
 import os
@@ -17,7 +18,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "kandinsky2_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "kandinsky2_tpu",
+                                    "triton"))
 print(len(names), bad)
 sys.exit(1 if bad else 0)
 """
@@ -35,16 +37,37 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_ab.py"])
 def test_scripts_import_no_jax(script):
-    """The card's scripts import neither JAX nor the JAX package, at any
-    depth of their code."""
+    """The card's scripts import neither JAX, the JAX package nor Triton, at
+    any depth of their code."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(root, script)) as f:
+    names = _imported(os.path.join(root, script))
+    assert "kandinsky2_tpu_torch" in names
+    assert not names & {"jax", "jaxlib", "flax", "optax", "kandinsky2_tpu", "triton"}, names
+
+
+def _imported(path):
+    """The top-level names of every import statement in a source file,
+    function bodies included."""
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module:
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
             names.add(node.module.split(".")[0])
-    assert "kandinsky2_tpu_torch" in names
-    assert not names & {"jax", "jaxlib", "flax", "optax", "kandinsky2_tpu"}, names
+    return names
+
+
+def test_port_modules_import_no_triton():
+    """No module of the port imports Triton or JAX, not even inside a
+    function, where importing the module would not show it."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(root, "kandinsky2_tpu_torch")
+    paths = [os.path.join(d, f) for d, _, files in os.walk(pkg) for f in files
+             if f.endswith(".py")]
+    assert len(paths) >= 23
+    for path in paths:
+        names = _imported(path)
+        assert not names & {"triton", "jax", "jaxlib", "flax", "optax",
+                            "kandinsky2_tpu"}, (path, names)
