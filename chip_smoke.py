@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    spills per kernel.
 3. kernels: each forward kernel against its plain PyTorch version on the
    card at the shapes of the 768² text2img path, bf16 (one fp32 GroupNorm,
-   the UNet output head), with the stated tolerance, and the path's own
+   the UNet output head), with the stated tolerance; K3's bf16 output and
+   the reference's rounding (bf16 logits of d^-1/4 pre-scaled q and k)
+   each against an fp32 truth, K3 no worse; and the path's own
    GroupNorm call (K1 then K2 in one foreign call, FiLM and SiLU) against
    the plain version at K2's tolerance; CUDA-event times of the kernel,
    the plain version and, in turns with them, the one PyTorch call that
@@ -28,6 +30,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the same weights and injected noise on the CPU (plain
    versions, fp32), beside the plain versions in bf16 on the CPU as the
    control of how far bf16 alone drifts.
+4b. tasks, small: every other 2.1 entry point the same way, with phase
+   4's limit: text2img through the p_sampler (injected per-step noise),
+   PLMS, DPM++ 2M and its Karras grid, the "ddim5" and "dpmpp5" prior
+   ladders, a negative decoder prompt, img2img, inpainting (its own
+   9-channel UNet), mix_images of a text and an image, the two-stage hires
+   path and turbo (the deep cache every 3 steps); the noise the entry
+   points draw themselves is injected from a numpy seed on both sides.
 5. slice: Kandinsky 2.1 text2img at full CONFIG_2_1 width with random bf16
    weights from a seeded generator: 768², prior "25", DDIM 50, CFG 4,
    batch 1; one warm-up call and one timed call, during which every
@@ -36,6 +45,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    input shapes of one full-width UNet denoise call (forward pre-hooks on
    its ``GroupNorm32`` modules), that call and one slice call under
    ``torch.profiler`` (device ops, device time, wall time, idle share).
+5b. tasks, full width: on the slice's pipeline, img2img of a seeded 768²
+   image at strength 0.7 over the DDIM 50 ladder (the steps at or below
+   t = 300 run); then, the slice's pipeline freed, a task_type="inpainting"
+   pipeline (9 input channels) inpaints the right half of the image in 50
+   DDIM steps.  Each: one warm-up and one timed call (host clock, ending
+   in a synchronize), K1, K2 and K3 launched during it, peak memory, a
+   finite, non-constant image; then one call under the profiler (device
+   ops and time, idle share, the ``k21.*`` stages' device time).  The MoVQ
+   encoder puts K1, K2 and K3 at d = 512 on these paths.
 6. kernels, backward: the flash backward kernels (K5 dQ and delta, K4
    dK/dV) against the plain backward at the decoder training step's UNet
    attention shapes and a ragged toy shape, bitwise repeatable, K5's delta
@@ -77,6 +95,13 @@ PROMPT = "red sand dunes under a violet sky"
 # the kernels that text2img (phases 4 and 5) launches; the backward ones run
 # in training only
 FORWARD_KERNELS = ("group_norm_stats", "group_norm_apply", "flash_attention_fwd")
+# the full-width 2.1 paths' forward launches: a UNet call runs 95 GroupNorms
+# (K1 and K2 each) and 22 attentions (K3), the MoVQ decoder 33 and 4, its
+# encoder 24 and 3
+UNET_LAUNCHES, DECODER_LAUNCHES, ENCODER_LAUNCHES = (95, 22), (33, 4), (24, 3)
+# phase 5b's full-width tasks: 768², DDIM 50, prior "25", CFG 4 and 4
+FULL_TASK = dict(num_steps=50, guidance_scale=4, h=768, w=768, sampler="ddim_sampler",
+                 prior_cf_scale=4, prior_steps="25", output="float")
 CUDA_SOURCES = ("flash_attention.cu", "group_norm.cu")
 PEAK_BF16 = 989e12   # dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12    # fp32 FLOP/s outside the tensor cores
@@ -181,6 +206,33 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def reset_path_counts() -> None:
+    """Zero the kernels' launch counters and the count of attention calls
+    on the card that took the plain route."""
+    from kandinsky2_tpu_torch.ops import qkv_attention, reset_launch_counts
+
+    reset_launch_counts()
+    qkv_attention.plain_on_card = 0
+
+
+def check_full_launches(name: str, counts: dict, unet_calls: int, encoded: bool):
+    """A full-width path's forward launches are exactly what its UNet calls
+    and MoVQ passes need, and no attention call on the card took the plain
+    route (every one went through K3)."""
+    from kandinsky2_tpu_torch.ops import qkv_attention
+
+    parts = [UNET_LAUNCHES] * unet_calls + [DECODER_LAUNCHES] \
+        + [ENCODER_LAUNCHES] * encoded
+    norms, attns = (sum(p[i] for p in parts) for i in (0, 1))
+    want = {"group_norm_stats": norms, "group_norm_apply": norms,
+            "flash_attention_fwd": attns}
+    plain = qkv_attention.plain_on_card
+    print(f"{name}: expected forward launches {json.dumps(want)}; attention "
+          f"calls on the card by the plain route {plain}")
+    check(all(counts[n] == want[n] for n in want), f"{name}: launches {counts} != {want}")
+    check(plain == 0, f"{name}: {plain} attention calls on the card missed K3")
+
+
 def _row(label, shape, err, times, bound_ms, bound_by):
     return {"label": label, "shape": list(shape), "err": err, "ms": times["kernel"],
             "plain_ms": times["plain"], "library_ms": times.get("library"),
@@ -199,6 +251,7 @@ def phase_kernels(torch, results):
     import torch.nn.functional as F
 
     from kandinsky2_tpu_torch.ops import group_norm as gn
+    from kandinsky2_tpu_torch.ops.attention import reference_attention
     from kandinsky2_tpu_torch.ops.flash_attention import (
         flash_attention_fwd,
         flash_attention_plain,
@@ -307,6 +360,29 @@ def phase_kernels(torch, results):
         results["group_norm_stats"].append(_row(label, shape, err1, t1, *b1))
         results["group_norm_apply"].append(_row(label, shape, err2, t2, *b2))
 
+    # K1's variance is one-pass, Σx²/n − mean² in fp32 as the reference's
+    # _moments: it loses digits where a group's mean lies many standard
+    # deviations from zero.  The GroupNorm (K1 + K2) and its plain version
+    # against an fp64 truth at the fp32 norm's shape, by that ratio
+    B, N, C = 2, 96 * 96, 384
+    z = torch.randn((B, N, C), generator=g, device="cuda", dtype=torch.float64)
+    one, zero = torch.ones(C, device="cuda"), torch.zeros(C, device="cuda")
+    for offset in (0, 10, 30, 100, 300, 1000):
+        x = (z + offset).float()
+        xd = x.double().reshape(B, N, 32, C // 32)
+        mean = xd.mean(dim=(1, 3), keepdim=True)
+        var = xd.var(dim=(1, 3), unbiased=False, keepdim=True)
+        truth = ((xd - mean) / torch.sqrt(var + 1e-5)).reshape(B, N, C)
+        with torch.inference_mode():
+            y = gn.group_norm(x, one, zero, 32, 1e-5)
+        yp = gn.group_norm_plain(x, one, zero, 32, 1e-5)
+        rel = [((t.double() - truth).norm() / truth.norm()).item() for t in (y, yp)]
+        print(f"K1 one-pass variance: group |mean|/std {offset}, [{B}, {N}, {C}] "
+              f"fp32: K1 + K2 rel_l2 {rel[0]:.3e}, plain version {rel[1]:.3e} "
+              f"against fp64")
+        check(bool(torch.isfinite(y).all()), f"GroupNorm not finite at offset {offset}")
+    del z, x, xd, truth, y, yp
+
     # K3 at the path's attention shapes (B, T, S, H, d)
     attn_shapes = [
         ("unet ds2", (2, 2304, 2391, 12, 64)),
@@ -341,8 +417,22 @@ def phase_kernels(torch, results):
         _print_times("K3 flash  ", label, times, *bnd)
         check(err <= tol, f"K3 output disagrees at {label}")
         check(lse_err <= lse_tol, f"K3 LSE disagrees at {label}")
-        results["flash_attention_fwd"].append(_row(label, (B, T, S, H, d), err, times, *bnd))
-        del q, k, v, o, o_ref, lse, lse_ref, qt, kt, vt
+        # K3's bf16 rounding (fp32 logits with one 1/sqrt(d) scale, P rounded
+        # to bf16 before P·V) against the reference's (_xla_attention: q and
+        # k pre-scaled by d^-1/4 in bf16, bf16 logits, fp32 softmax), both
+        # against an fp32 truth on the same bf16 inputs
+        truth = flash_attention_plain(q.float(), k.float(), v.float())[0]
+        ref_round = reference_attention(q, k, v)
+        k3_rel = ((o.float() - truth).norm() / truth.norm()).item()
+        ref_rel = ((ref_round.float() - truth).norm() / truth.norm()).item()
+        print(f"K3 flash   {label}: rel_l2 against fp32 truth: K3 bf16 {k3_rel:.3e}, "
+              f"reference rounding (bf16 logits of d^-1/4 pre-scaled q, k) "
+              f"{ref_rel:.3e}")
+        check(k3_rel <= ref_rel, f"K3 rounds worse than the reference at {label}")
+        results["flash_attention_fwd"].append(
+            dict(_row(label, (B, T, S, H, d), err, times, *bnd),
+                 rel_l2_vs_fp32=k3_rel, reference_rounding_rel_l2=ref_rel))
+        del q, k, v, o, o_ref, lse, lse_ref, qt, kt, vt, truth, ref_round
     torch.cuda.synchronize()
 
 
@@ -426,8 +516,235 @@ def phase_reference(torch, np):
     check(all(counts[n] > 0 for n in FORWARD_KERNELS), "small path skipped a kernel")
 
 
-def phase_slice(torch, np, smi: str):
+def inject_noise(pipe, seed: int, clip_dim: int, np):
+    """Draw, from a numpy seed, the noise that a pipeline's entry points
+    would draw from their generator: the prior's x_T and per-step noise in
+    every ``generate_clip_emb`` call and the decoder's x_T in every
+    ``generate_img`` call that is given none.  Two pipelines injected with
+    one seed then draw the same on the card and on the CPU; ``del
+    pipe.generate_clip_emb, pipe.generate_img`` undoes it."""
+    rng = np.random.RandomState(seed)
+    clip_emb, gen_img = pipe.generate_clip_emb, pipe.generate_img
+
+    def generate_clip_emb(prompt, batch_size=1, prior_steps="25", noise=None,
+                          noise_seq=None, **kw):
+        ps = str(prior_steps)
+        x_T = rng.randn(batch_size, clip_dim).astype(np.float32)
+        seq = (rng.randn(int(ps), batch_size, clip_dim).astype(np.float32)
+               if ps.isdigit() else None)
+        return clip_emb(prompt, batch_size=batch_size, prior_steps=prior_steps,
+                        noise=x_T if noise is None else noise,
+                        noise_seq=seq if noise_seq is None else noise_seq, **kw)
+
+    def generate_img(*args, noise=None, h=512, w=512, batch_size=1, **kw):
+        if noise is None:
+            noise = rng.randn(batch_size, (h + 63) // 64 * 8, (w + 63) // 64 * 8,
+                              4).astype(np.float32)
+        return gen_img(*args, noise=noise, h=h, w=w, batch_size=batch_size, **kw)
+
+    pipe.generate_clip_emb, pipe.generate_img = generate_clip_emb, generate_img
+
+
+def seeded_image(np, seed: int, size: int):
+    """A smooth seeded RGB PIL image: a low-resolution noise field upsampled."""
+    from PIL import Image
+
+    low = np.random.RandomState(seed).randint(0, 256, (8, 8, 3), np.uint8)
+    return Image.fromarray(low).resize((size, size), Image.BICUBIC)
+
+
+def _small_pair(torch, task_type, seed, unet_out_scale=1.0):
+    """The small-width pipeline on the card (bf16) and on the CPU (fp32)
+    with the same seeded weights.  The MoVQ's output conv is scaled by
+    0.01, so that the random weights' image (|x| ~ 1e2) lies in [-1, 1]
+    where the 8-bit images that hires upsamples keep their detail; the
+    UNet's by ``unet_out_scale``, which only the hires pair sets (0.1: at
+    full scale its latents reach |z| ~ 1e2, where a GroupNorm's one-pass
+    variance loses digits, a fault of K1 and of its reference; PERF.md)."""
+    from kandinsky2_tpu_torch.configs import small_config
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
+    from kandinsky2_tpu_torch.utils import stub_tokenizers
+
+    tok1, tok2 = stub_tokenizers()
+    kw = dict(config=small_config(head_channels=64), tokenizer1=tok1,
+              tokenizer2=tok2, task_type=task_type)
+    gpu = Kandinsky2_1(dtype=torch.bfloat16, device="cuda", **kw)
+    gpu.init_random_params(torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():
+        gpu.movq.decoder.conv_out.weight.mul_(0.01)
+        gpu.movq.decoder.conv_out.bias.mul_(0.01)
+        gpu.unet.out[2].weight.mul_(unet_out_scale)
+    cpu = Kandinsky2_1(dtype=torch.float32, device="cpu", **kw)
+    for name, model in cpu.models().items():
+        model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.models()[name].state_dict().items()})
+    return gpu, cpu
+
+
+def phase_tasks_small(torch, np):
+    """Every 2.1 entry point and sampler at a small width on the card
+    (kernels, bf16) against the CPU (plain versions, fp32), with the same
+    weights and injected noise; the limit is phase 4's."""
     from kandinsky2_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    pairs = {"text2img": _small_pair(torch, "text2img", 3),
+             "inpainting": _small_pair(torch, "inpainting", 4),
+             "hires": _small_pair(torch, "text2img", 3, unet_out_scale=0.1)}
+    rng = np.random.RandomState(13)
+    lat = lambda *shape: rng.randn(*shape).astype(np.float32)
+    t2i = dict(num_steps=10, guidance_scale=4, prior_cf_scale=4, prior_steps="5",
+               h=64, w=64, noise=lat(1, 8, 8, 4), prior_noise=lat(1, 64),
+               prior_noise_seq=lat(5, 1, 64), output="float")
+    nseq, hires_noise = lat(10, 1, 8, 8, 4), lat(1, 16, 16, 4)
+    img, img2 = seeded_image(np, 14, 64), seeded_image(np, 15, 64)
+    mask = np.ones((64, 64), np.float32)
+    mask[:, 32:] = 0.0  # keep the left half
+    no_seq = {k: v for k, v in t2i.items() if k != "prior_noise_seq"}
+    small = dict(num_steps=10, guidance_scale=4, h=64, w=64, prior_steps="5",
+                 output="float")
+    cases = {
+        "text2img p_sampler": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, sampler="p_sampler", noise_seq=nseq, **t2i)),
+        "text2img plms_sampler": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, sampler="plms_sampler", **t2i)),
+        "text2img dpmpp_sampler": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, sampler="dpmpp_sampler", **t2i)),
+        "text2img dpmpp_karras_sampler": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, sampler="dpmpp_karras_sampler", **t2i)),
+        "prior ddim5": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, **dict(no_seq, prior_steps="ddim5"))),
+        "prior dpmpp5": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, **dict(no_seq, prior_steps="dpmpp5"))),
+        "negative_decoder_prompt": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, negative_decoder_prompt="blurry, low quality", **t2i)),
+        "img2img": ("text2img", lambda p: p.generate_img2img(
+            PROMPT, img, strength=0.7, noise=t2i["noise"],
+            **dict(small, num_steps=20))),
+        "inpainting": ("inpainting", lambda p: p.generate_inpainting(
+            PROMPT, img, mask, noise=t2i["noise"], **small)),
+        "mix_images": ("text2img", lambda p: p.mix_images(
+            [PROMPT, img2], [0.4, 0.6], noise=t2i["noise"], **small)),
+        "hires": ("hires", lambda p: p.generate_text2img_hires(
+            PROMPT, strength=0.65, noise=hires_noise,
+            **dict(small, h=128, w=128))),
+        "turbo_interval 3": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, turbo_interval=3, **t2i)),
+    }
+    tol = 0.15  # phase 4's limit for the small CFG path
+    for name, (task, run) in cases.items():
+        gpu, cpu = pairs[task]
+        for pipe in (gpu, cpu):
+            inject_noise(pipe, 16, 64, np)
+        reset_launch_counts()
+        got = run(gpu)
+        counts = launch_counts()
+        want = run(cpu)
+        for pipe in (gpu, cpu):
+            del pipe.generate_clip_emb, pipe.generate_img
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        print(f"tasks small: {name} cuda/bf16 vs cpu/fp32 rel_l2 {rel:.3e} (tol {tol}); "
+              f"shape {got.shape}; launches {json.dumps(counts)}")
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"tasks small: {name} shape or values")
+        check(float(got.std()) > 0, f"tasks small: {name} image is constant")
+        check(rel <= tol, f"tasks small: {name} on the card disagrees with the CPU")
+        check(all(counts[n] > 0 for n in FORWARD_KERNELS),
+              f"tasks small: {name} skipped a kernel")
+    del pairs
+
+
+def _timed_task(torch, np, name, call, smi, unet_calls):
+    """One warm-up call, then one timed call with the launch counters and
+    the peak memory reset just before it; checks the image and that K1,
+    K2 and K3 ran exactly as often as ``unet_calls`` UNet calls and a MoVQ
+    encode and decode need.  Returns (launch counts, seconds)."""
+    from kandinsky2_tpu_torch.ops import launch_counts
+
+    t0 = time.perf_counter()
+    call(1)
+    torch.cuda.synchronize()
+    print(f"tasks full: {name} warm-up call {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_path_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = call(2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"tasks full: {name} launches during the timed call {json.dumps(counts)}")
+    check(img.shape == (1, 768, 768, 3), f"{name}: image shape {img.shape}")
+    check(bool(np.isfinite(img).all()), f"{name}: image has non-finite values")
+    check(float(img.std()) > 0, f"{name}: image is constant")
+    check(all(counts[n] > 0 for n in FORWARD_KERNELS), f"{name}: a kernel was not launched")
+    check_full_launches(f"tasks full: {name}", counts, unet_calls, encoded=True)
+    print(f"tasks full: {name} image min {img.min():.4f} max {img.max():.4f} std "
+          f"{img.std():.4f}; peak device memory {peak:.2f} GiB")
+    print(f"tasks full: {name} {seconds:.4f} s/image at 768^2, batch 1, bf16 on {smi}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call(3)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels = [e for e in events if not e.is_user_annotation]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    stages = {e.key: e.device_time_total / 1e3 for e in events
+              if e.is_user_annotation and e.key.startswith("k21.")}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"tasks full: {name} profiled call {sum(e.count for e in kernels)} device "
+          f"ops, {dev_ms:.1f} ms of device time, device idle share "
+          f"{1 - dev_ms / 1e3 / seconds:.3f} of the unprofiled {seconds:.4f} s; "
+          f"stages (device ms) " + "; ".join(f"{k} {v:.1f}" for k, v in stages.items())
+          + "; largest (ms, calls): " + "; ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ({e.count})"
+              for e in top))
+    return counts, seconds
+
+
+def phase_img2img_full(torch, np, smi: str, pipe):
+    """img2img of a seeded 768² image on the slice's full-width pipeline,
+    strength 0.7 over the DDIM 50 ladder, bf16, batch 1."""
+    from kandinsky2_tpu_torch.diffusion import make_ddim_tables, make_schedule
+
+    strength = 0.7
+    # the reference re-noises to t = 1000 (1 - strength) and runs the ladder
+    # entries at or below it
+    base = make_schedule(steps=1000, linear_start=0.00085, linear_end=0.012)
+    steps = len(make_ddim_tables(base.base_alphas_cumprod, 50,
+                                 init_step=int(1000 * (1 - strength))).timesteps)
+    print(f"tasks full: img2img strength {strength}: {steps} of the 50 DDIM steps run")
+    img = seeded_image(np, 17, 768)
+    return _timed_task(torch, np, "img2img", lambda seed: pipe.generate_img2img(
+        PROMPT, img, strength=strength,
+        generator=torch.Generator(device="cuda").manual_seed(seed), **FULL_TASK), smi,
+        unet_calls=steps)
+
+
+def phase_inpainting_full(torch, np, smi: str):
+    """Inpainting of the right half of a seeded 768² image on a fresh
+    task_type="inpainting" pipeline at full width, DDIM 50, bf16, batch 1."""
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
+    from kandinsky2_tpu_torch.utils import stub_tokenizers
+
+    tok1, tok2 = stub_tokenizers()
+    t0 = time.perf_counter()
+    pipe = Kandinsky2_1(tokenizer1=tok1, tokenizer2=tok2, task_type="inpainting",
+                        dtype=torch.bfloat16, device="cuda")
+    pipe.init_random_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"tasks full: built the inpainting pipeline in {time.perf_counter() - t0:.2f} "
+          f"s; UNet input conv {tuple(pipe.unet.input_blocks[0][0].weight.shape)}")
+    img = seeded_image(np, 17, 768)
+    mask = np.ones((768, 768), np.float32)
+    mask[:, 384:] = 0.0  # keep the left half, inpaint the right
+    return _timed_task(torch, np, "inpainting", lambda seed: pipe.generate_inpainting(
+        PROMPT, img, mask, generator=torch.Generator(device="cuda").manual_seed(seed),
+        **FULL_TASK), smi, unet_calls=FULL_TASK["num_steps"])
+
+def phase_slice(torch, np, smi: str):
+    from kandinsky2_tpu_torch.ops import launch_counts
     from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
     from kandinsky2_tpu_torch.utils import process_images, stub_tokenizers
 
@@ -453,7 +770,7 @@ def phase_slice(torch, np, smi: str):
 
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(2)
-    reset_launch_counts()
+    reset_path_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img = pipe.generate_text2img(PROMPT, generator=gen, **kw)
@@ -466,6 +783,7 @@ def phase_slice(torch, np, smi: str):
     check(bool(np.isfinite(img).all()), "image has non-finite values")
     check(float(img.std()) > 0, "image is constant")
     check(all(counts[n] > 0 for n in FORWARD_KERNELS), "a kernel was not launched")
+    check_full_launches("slice", counts, kw["num_steps"], encoded=False)
     pil = process_images(img)
     check(len(pil) == 1 and pil[0].size == (768, 768), "process_images")
     print(f"slice: image min {img.min():.4f} max {img.max():.4f} "
@@ -473,7 +791,7 @@ def phase_slice(torch, np, smi: str):
     print(f"slice: {seconds:.4f} s/image at 768^2, 50 DDIM steps, prior 25, "
           f"CFG 4, batch 1, bf16 on {smi}")
     phase_slice_profile(torch, pipe, kw, seconds, smi)
-    return counts, seconds
+    return counts, seconds, pipe
 
 
 def phase_slice_profile(torch, pipe, kw, seconds, smi):
@@ -944,8 +1262,21 @@ def main() -> int:
     phase_reference(torch, np)
     torch.cuda.empty_cache()
 
+    # 4b. every 2.1 entry point at a small width against the CPU
+    phase_tasks_small(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 5. the full-size slice
-    counts, seconds = phase_slice(torch, np, smi)
+    counts, seconds, pipe = phase_slice(torch, np, smi)
+
+    # 5b. full-width img2img on the slice's pipeline, then, that pipeline
+    # freed, inpainting on its own
+    tasks = {"img2img": phase_img2img_full(torch, np, smi, pipe)}
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    tasks["inpainting"] = phase_inpainting_full(torch, np, smi)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -983,13 +1314,16 @@ def main() -> int:
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "train_launches": train_counts[name],
+            **{f"{task}_launches": tasks[task][0][name] for task in tasks},
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "timed_shape": f"{main_row['label']} {main_row['shape']}",
         })
-    print(f"slice: {seconds:.4f} s/image; train: {step_s:.4f} s/step")
+    print(f"slice: {seconds:.4f} s/image; " + "; ".join(
+        f"{task}: {sec:.4f} s/image" for task, (_, sec) in tasks.items())
+        + f"; train: {step_s:.4f} s/step")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

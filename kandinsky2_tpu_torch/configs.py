@@ -4,7 +4,8 @@
 ``schedule_kwargs`` are copies of their counterparts in
 ``kandinsky2_tpu/configs.py`` (the JAX package's module imports jax and its
 flax UNets at import time, so it is copied rather than imported).
-``create_model`` builds the PyTorch ``Text2ImUNet21``.
+``create_model`` builds the PyTorch ``Text2ImUNet21``, or with
+``inpainting`` its ``InpaintText2ImUNet21``.
 """
 
 from __future__ import annotations
@@ -157,21 +158,21 @@ def create_model(
     device=None,
     **_unused,
 ):
-    """Config dict -> ``Text2ImUNet21`` (model_creation.py:9-83), version 2.1
-    without inpainting.  ``dtype`` is the activation dtype; parameters stay
-    float32 as in the JAX package."""
-    from .models.unet import Text2ImUNet21
+    """Config dict -> ``Text2ImUNet21`` (model_creation.py:9-83), or with
+    ``inpainting`` an ``InpaintText2ImUNet21`` of 2C + 1 input channels.
+    ``dtype`` is the activation dtype; parameters stay float32 as in the
+    JAX package."""
+    from .models.unet import InpaintText2ImUNet21, Text2ImUNet21
 
-    if version != "2.1" or inpainting:
-        raise NotImplementedError(
-            "the PyTorch port builds the 2.1 text2img UNet only"
-        )
+    if version != "2.1":
+        raise NotImplementedError("the PyTorch port builds the 2.1 UNets only")
     if dtype is None:
         dtype = torch.bfloat16 if use_fp16 else torch.float32
     if pooling_type != "from_model":
         raise NotImplementedError("pooling_type must be 'from_model'")
-    return Text2ImUNet21(
-        in_channels=in_channels,
+    cls = InpaintText2ImUNet21 if inpainting else Text2ImUNet21
+    return cls(
+        in_channels=in_channels * 2 + 1 if inpainting else in_channels,
         model_channels=num_channels,
         out_channels=out_channels,
         num_res_blocks=num_res_blocks,

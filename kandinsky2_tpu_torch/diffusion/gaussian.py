@@ -1,7 +1,7 @@
 """Gaussian diffusion math on tensors: the subset of
-``kandinsky2_tpu/diffusion/gaussian.py`` that the 2.1 text2img path and
-the 2.1 decoder fine-tuning run (sampling, and the hybrid MSE + VLB
-training loss).
+``kandinsky2_tpu/diffusion/gaussian.py`` that 2.1 inference and the 2.1
+decoder fine-tuning run (sampling with the dynamic threshold, and the
+hybrid MSE + VLB training loss).
 
 Tables are built in float64 numpy (``schedules.py``) and stored as float32
 tensors on the caller's device, as the JAX package stores them.
@@ -152,6 +152,42 @@ def predict_xstart_from_eps(sched: Schedule, x_t, t, eps):
     )
 
 
+def predict_xstart_from_xprev(sched: Schedule, x_t, t, xprev):
+    nd = x_t.ndim
+    return (
+        extract(1.0 / sched.posterior_mean_coef1, t, nd) * xprev
+        - extract(sched.posterior_mean_coef2 / sched.posterior_mean_coef1, t, nd) * x_t
+    )
+
+
+def predict_eps_from_xstart(sched: Schedule, x_t, t, pred_xstart):
+    nd = x_t.ndim
+    return (
+        extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x_t - pred_xstart
+    ) / extract(sched.sqrt_recipm1_alphas_cumprod, t, nd)
+
+
+def dynamic_threshold(x: torch.Tensor, percentile: float = 99.5) -> torch.Tensor:
+    """The dynamic threshold of gaussian_diffusion.py:284-294: the
+    ``percentile`` of |x[0]| (linear interpolation, as ``jnp.percentile``),
+    at least 1, clips and rescales the whole batch; one scalar from batch
+    element 0, as the reference takes it."""
+    v = x[0].abs().float().flatten()
+    s = torch.clamp(torch.quantile(v, percentile / 100.0), min=1.0)
+    return torch.maximum(torch.minimum(x, s), -s) / s
+
+
+def process_xstart(x: torch.Tensor, clip_denoised: bool,
+                   denoised_fn: Optional[Callable] = None) -> torch.Tensor:
+    """``denoised_fn``, then the dynamic threshold where ``clip_denoised``,
+    in the reference's order (gaussian_diffusion.py:284-294)."""
+    if denoised_fn is not None:
+        x = denoised_fn(x)
+    if clip_denoised:
+        x = dynamic_threshold(x)
+    return x
+
+
 def q_sample(sched: Schedule, x_start, t, noise):
     """Sample q(x_t | x_0) (gaussian_diffusion.py:183-199)."""
     nd = x_start.ndim
@@ -197,14 +233,15 @@ def p_mean_variance(
     *,
     mean_type: MeanType,
     var_type: VarType,
+    clip_denoised: bool = True,
     denoised_fn: Optional[Callable] = None,
     channel_axis: int = 1,
 ):
-    """p(x_{t-1} | x_t) from a model output (gaussian_diffusion.py:223-322)
-    for an x0- or eps-predicting model.  ``channel_axis`` says where the
-    learned-variance channels live: 1 for NCHW, -1 for NHWC latents.
-    Dynamic thresholding (``clip_denoised``) is on neither the sampling nor
-    the training path of the port.
+    """p(x_{t-1} | x_t) from a model output (gaussian_diffusion.py:223-322).
+    ``channel_axis`` says where the learned-variance channels live: 1 for
+    NCHW, -1 for NHWC latents.  The x0 prediction goes through
+    ``process_xstart`` (``denoised_fn``, then the dynamic threshold where
+    ``clip_denoised``).
 
     Returns dict(mean, variance, log_variance, pred_xstart)."""
     nd = x.ndim
@@ -228,15 +265,18 @@ def p_mean_variance(
         )
     else:
         raise NotImplementedError(var_type)
-    if mean_type == MeanType.START_X:
-        pred_xstart = model_output
-    elif mean_type == MeanType.EPSILON:
-        pred_xstart = predict_xstart_from_eps(sched, x, t, model_output)
+    if mean_type == MeanType.PREVIOUS_X:
+        pred_xstart = process_xstart(
+            predict_xstart_from_xprev(sched, x, t, model_output), clip_denoised,
+            denoised_fn)
+        mean = model_output
+    elif mean_type in (MeanType.START_X, MeanType.EPSILON):
+        if mean_type == MeanType.EPSILON:
+            model_output = predict_xstart_from_eps(sched, x, t, model_output)
+        pred_xstart = process_xstart(model_output, clip_denoised, denoised_fn)
+        mean = q_posterior_mean(sched, pred_xstart, x, t)
     else:
         raise NotImplementedError(mean_type)
-    if denoised_fn is not None:
-        pred_xstart = denoised_fn(pred_xstart)
-    mean = q_posterior_mean(sched, pred_xstart, x, t)
     return {"mean": mean, "variance": variance, "log_variance": log_variance,
             "pred_xstart": pred_xstart}
 
@@ -281,7 +321,8 @@ def vb_terms_bpd(sched: Schedule, model_output, x_start, x_t, t, *,
     t = 0.  Returns (vb [B], pred_xstart)."""
     true_mean, _, true_logvar = q_posterior_mean_variance(sched, x_start, x_t, t)
     out = p_mean_variance(sched, model_output, x_t, t, mean_type=mean_type,
-                          var_type=var_type, channel_axis=channel_axis)
+                          var_type=var_type, clip_denoised=False,
+                          channel_axis=channel_axis)
     kl = mean_flat(normal_kl(true_mean, true_logvar, out["mean"],
                              out["log_variance"])) / math.log(2.0)
     decoder_nll = mean_flat(-discretized_gaussian_log_likelihood(

@@ -4,8 +4,9 @@ pad), ``Upsample``, the conv ``Encoder``, the spatially-normalised
 ``Decoder``, the ``VectorQuantizer`` and the ``MOVQ`` facade (``encode``
 through ``quant_conv``, ``decode`` through ``post_quant_conv``).
 
-Every norm runs the GroupNorm kernel pair, and the single-head d = 512
-``AttnBlock`` runs the flash-attention kernel, on a CUDA tensor.  The
+Every norm runs the GroupNorm kernel pair on a CUDA tensor, and the
+single-head d = 512 ``AttnBlock`` the flash-attention kernel where
+``ops.attention.use_flash_kernel`` sends it (bf16).  The
 encoder's blocks norm with a plain GroupNorm(32, eps 1e-6), the decoder's
 with a ``SpatialNorm`` modulated by the latent.
 """
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attention import flash_attention
+from ..ops.attention import qkv_attention
 from .layers import (
     Container,
     Conv2d,
@@ -85,8 +86,9 @@ class ResnetBlock(nn.Module):
 
 class AttnBlock(nn.Module):
     """Single-head full spatial self-attention (vqgan_blocks.py:196-239 /
-    movq_modules.py:182-225), through the flash-attention kernel with
-    d = C."""
+    movq_modules.py:182-225): one head of d = C, routed by
+    ``ops.attention.use_flash_kernel`` (the flash kernel in bf16 at
+    d = 512)."""
 
     def __init__(self, channels, zq_channels=None, dtype=torch.float32,
                  device=None):
@@ -101,7 +103,7 @@ class AttnBlock(nn.Module):
         B, H, W, C = x.shape
         h = _apply_norm(self.norm, x, zq)
         q, k, v = (lin(h).reshape(B, H * W, 1, C) for lin in (self.q, self.k, self.v))
-        out = flash_attention(q, k, v)[0].reshape(B, H, W, C)
+        out = qkv_attention(q, k, v).reshape(B, H, W, C)
         return x + self.proj_out(out)
 
 

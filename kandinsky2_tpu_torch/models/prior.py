@@ -15,7 +15,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..diffusion import MeanType, Schedule, VarType, p_sample_loop
+from ..diffusion import (
+    MeanType,
+    Schedule,
+    VarType,
+    ddim_respaced_loop,
+    dpmpp_2m_loop,
+    make_dpmpp_tables_from_respaced,
+    p_sample_loop,
+)
 from .layers import Container, LayerNormF32, Linear, timestep_embedding
 
 
@@ -124,13 +132,18 @@ def prior_sample_fn(
     clip_std: torch.Tensor,
     x_T: torch.Tensor,
     *,
+    use_ddim: bool = False,
+    use_dpmpp: bool = False,
     generator: Optional[torch.Generator] = None,
     noise_seq: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Sample a CLIP image embedding from the prior (prior.py:336-384).
-    ``txt_feat``/``txt_feat_seq``/``mask`` are the CFG-doubled [cond; uncond]
-    batch 2B; the sampler carries B and the model closure doubles x.
-    Returns the de-normalised cond-half embedding [B, clip_dim]."""
+    """Sample a CLIP image embedding from the prior (prior.py:336-384),
+    ancestrally, or deterministically with DDIM over the respaced schedule
+    (``use_ddim``) or DPM-Solver++(2M) on the x0 predictions
+    (``use_dpmpp``).  ``txt_feat``/``txt_feat_seq``/``mask`` are the
+    CFG-doubled [cond; uncond] batch 2B; the sampler carries B and the
+    model closure doubles x.  Returns the de-normalised cond-half
+    embedding [B, clip_dim]."""
     bsz = txt_feat.shape[0] // 2
     clip_dim = clip_mean.shape[-1]
 
@@ -141,10 +154,16 @@ def prior_sample_fn(
         cond_eps, uncond_eps = eps[:bsz], eps[bsz:]
         return uncond_eps + cf_guidance_scale * (cond_eps - uncond_eps)
 
-    sample = p_sample_loop(
-        model_fn, sched, x_T, generator,
-        mean_type=MeanType.START_X, var_type=VarType.FIXED_SMALL,
-        denoised_fn=lambda v: torch.clamp(v, -10.0, 10.0),
-        noise_seq=noise_seq,
-    )
+    denoised = lambda v: torch.clamp(v, -10.0, 10.0)
+    if use_dpmpp:
+        sample = dpmpp_2m_loop(
+            model_fn, make_dpmpp_tables_from_respaced(sched, x_T.device), x_T,
+            prediction="xstart", denoised_fn=denoised)
+    else:
+        loop = ddim_respaced_loop if use_ddim else p_sample_loop
+        sample = loop(
+            model_fn, sched, x_T, generator,
+            mean_type=MeanType.START_X, var_type=VarType.FIXED_SMALL,
+            clip_denoised=False, denoised_fn=denoised, noise_seq=noise_seq,
+        )
     return sample * clip_std + clip_mean

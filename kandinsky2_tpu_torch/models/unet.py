@@ -1,12 +1,14 @@
 """ADM-style latent UNet, NHWC, the counterpart of
 ``kandinsky2_tpu/models/unet.py``: ``ResBlock``, ``AttentionBlock``,
-``Downsample``, ``Upsample``, the ``UNetModel`` torso and the 2.1 text+image
+``Downsample``, ``Upsample``, the ``UNetModel`` torso, the 2.1 text+image
 conditioned ``Text2ImUNet21`` with its ``encode_conditioning`` / ``denoise``
-split.
+split, its inpainting variant ``InpaintText2ImUNet21``, and the turbo
+deep cache (``deep_cache_spec``, ``run_torso_cached``, ``denoise_cached``).
 
-Every GroupNorm runs the GroupNorm kernel pair, and the spatial attention
-(encoder K/V prepended to the spatial K/V, so S = T + tokens) runs the
-flash-attention kernel, on a CUDA tensor.
+Every GroupNorm runs the GroupNorm kernel pair on a CUDA tensor, and the
+spatial attention (encoder K/V prepended to the spatial K/V, so S = T +
+tokens) the flash-attention kernel where ``ops.attention.use_flash_kernel``
+sends it (bf16, d = 64).
 """
 
 from __future__ import annotations
@@ -170,6 +172,27 @@ def _build_plan(model_channels: int, num_res_blocks: int,
     return input_plan, middle_ch, output_plan
 
 
+def deep_cache_spec(unet):
+    """(spatial divisor, channels) of the deep-branch cache that
+    ``run_torso_cached`` keeps for ``unet``: all of level 0, num_res_blocks
+    + 1 input blocks, stays hot (unet.py:261-283 at its default split)."""
+    split = unet.num_res_blocks + 1
+    input_plan, middle_ch, output_plan = _build_plan(
+        unet.model_channels, unet.num_res_blocks, unet.channel_mult,
+        unet.attention_resolutions, unet.resblock_updown,
+    )
+    L = len(input_plan)
+    ds = 1
+    for layers in input_plan[:split]:
+        for kind, _, _ in layers:
+            if kind in ("down", "res_down"):
+                ds *= 2
+    # the feature entering output block L - split: the out channels of the
+    # last deep output layer (or the middle block's)
+    ch = output_plan[L - split - 1][-1][2] if L - split - 1 >= 0 else middle_ch
+    return ds, ch
+
+
 class UNetModel(nn.Module):
     """UNet torso + timestep embedding (unet.py:343-611)."""
 
@@ -185,6 +208,10 @@ class UNetModel(nn.Module):
         self.num_head_channels = num_head_channels
         self.num_heads = num_heads
         self.num_heads_upsample = num_heads_upsample
+        self.num_res_blocks = num_res_blocks
+        self.channel_mult = tuple(channel_mult)
+        self.attention_resolutions = tuple(attention_resolutions)
+        self.resblock_updown = resblock_updown
         emb_ch = model_channels * 4
         input_plan, middle_ch, output_plan = _build_plan(
             model_channels, num_res_blocks, tuple(channel_mult),
@@ -251,19 +278,44 @@ class UNetModel(nn.Module):
         return layer(h)
 
     def run_torso(self, x, emb, encoder_out=None):
+        return self.run_torso_cached(x, emb, None, True, encoder_out)[0]
+
+    def run_torso_cached(self, x, emb, cache, refresh: bool, encoder_out=None):
+        """The torso, with DeepCache (unet.py:440): the deep branch (input
+        blocks after level 0, the middle block and the matching deep output
+        blocks) runs only where ``refresh``; otherwise the cached deep
+        feature is used.  Returns ``(out, new_cache)``; ``cache`` has the
+        shape of ``deep_cache_spec``, and the first step must refresh.
+        ``run_torso`` is the call that always refreshes."""
+        split = self.num_res_blocks + 1
+        L = len(self.input_blocks)
         h = x.to(self.dtype)
         hs = []
-        for layers in self.input_blocks:
+        for layers in self.input_blocks[:split]:
             for layer in layers:
                 h = self._run_layer(layer, h, emb, encoder_out)
             hs.append(h)
-        for layer in self.middle_block:
-            h = self._run_layer(layer, h, emb, encoder_out)
-        for layers in self.output_blocks:
+        if refresh:
+            deep_hs = []
+            for layers in self.input_blocks[split:]:
+                for layer in layers:
+                    h = self._run_layer(layer, h, emb, encoder_out)
+                deep_hs.append(h)
+            for layer in self.middle_block:
+                h = self._run_layer(layer, h, emb, encoder_out)
+            for layers in self.output_blocks[:L - split]:
+                h = torch.cat([h, deep_hs.pop()], dim=-1)
+                for layer in layers:
+                    h = self._run_layer(layer, h, emb, encoder_out)
+            h = h.to(self.dtype)
+        else:
+            h = cache.to(self.dtype)
+        new_cache = h
+        for layers in self.output_blocks[L - split:]:
             h = torch.cat([h, hs.pop()], dim=-1)
             for layer in layers:
                 h = self._run_layer(layer, h, emb, encoder_out)
-        return self.out[2](self.out[0](h.float()))
+        return self.out[2](self.out[0](h.float())), new_cache
 
     def time_embedding(self, timesteps):
         temb = timestep_embedding(timesteps, self.model_channels)
@@ -309,6 +361,43 @@ class Text2ImUNet21(UNetModel):
         emb = self.time_embedding(timesteps) + xf_proj.float()
         return self.run_torso(x, emb, xf_out)
 
+    def denoise_cached(self, x, timesteps, xf_proj, xf_out, cache, refresh: bool):
+        """``denoise`` with the deep branch cached across steps
+        (``run_torso_cached``).  Returns (out, new_cache)."""
+        emb = self.time_embedding(timesteps) + xf_proj.float()
+        return self.run_torso_cached(x, emb, cache, refresh, xf_out)
+
     def forward(self, x, timesteps, full_emb, pooled_emb, image_emb):
         xf_proj, xf_out = self.encode_conditioning(full_emb, pooled_emb, image_emb)
         return self.denoise(x, timesteps, xf_proj, xf_out)
+
+
+class InpaintText2ImUNet21(Text2ImUNet21):
+    """2.1 inpainting UNet (text2im_model2_1.py:131-155): the input is
+    x ⊕ image·mask ⊕ mask, so ``in_channels`` is 2C + 1 (the factory sets
+    it)."""
+
+    @staticmethod
+    def _inpaint_input(x, inpaint_image, inpaint_mask):
+        if inpaint_image is None:
+            inpaint_image = torch.zeros_like(x)
+        if inpaint_mask is None:
+            inpaint_mask = torch.zeros_like(x[..., :1])
+        return torch.cat([x, inpaint_image * inpaint_mask, inpaint_mask], dim=-1)
+
+    def denoise(self, x, timesteps, xf_proj, xf_out, inpaint_image=None,
+                inpaint_mask=None):
+        return super().denoise(self._inpaint_input(x, inpaint_image, inpaint_mask),
+                               timesteps, xf_proj, xf_out)
+
+    def denoise_cached(self, x, timesteps, xf_proj, xf_out, inpaint_image,
+                       inpaint_mask, cache, refresh: bool):
+        return super().denoise_cached(
+            self._inpaint_input(x, inpaint_image, inpaint_mask), timesteps, xf_proj,
+            xf_out, cache, refresh)
+
+    def forward(self, x, timesteps, full_emb, pooled_emb, image_emb,
+                inpaint_image=None, inpaint_mask=None):
+        xf_proj, xf_out = self.encode_conditioning(full_emb, pooled_emb, image_emb)
+        return self.denoise(x, timesteps, xf_proj, xf_out, inpaint_image,
+                            inpaint_mask)

@@ -41,8 +41,11 @@ has the port.
 
 Any C with C % groups == 0 is accepted (the TPU's C % 128 rule was a tiling
 rule of the TPU), up to 1024 loads of a row.  The CUDA source is built at
-first use.  The kernels assume that the GroupNorms of a device run on one
-stream: K1's counters are shared by its launches.
+first use.  K1 finishes its cross-block reduction with a per-b counter
+that each launch leaves at zero; every stream has its own set of
+counters (looked up by device and current stream, beside the stream
+handle), so GroupNorms on different streams run at once without sharing
+one, and a launch plan is cached per stream.
 """
 
 from __future__ import annotations
@@ -225,10 +228,16 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=None)
-def _card(device: torch.device):
-    """(SMs, K1's per-b counters: zero, and left at zero by every launch)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms, torch.zeros(_MAX_BATCH, dtype=torch.int32, device=device)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _counters(device: torch.device, stream: int) -> torch.Tensor:
+    """K1's per-b counters for the launches on ``stream``: zero, and left
+    at zero by every launch, so one set serves a stream's launches in
+    turn; another stream gets its own."""
+    return torch.zeros(_MAX_BATCH, dtype=torch.int32, device=device)
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -253,12 +262,14 @@ def _param_bf16(layout, name: str, device, B: int, C: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(dtype, device, shape, align, num_groups, eps, swish, params, film):
-    """The launch of one layout, built once: checks what the kernels take,
-    then fills a _Plan with ``launch_plan``'s geometry.  x is contiguous,
-    [B, ..., C], its data pointer ``align`` bytes past 16; ``params`` and
-    ``film`` are the layouts of (scale, bias) and of (fs, fb) or None.
-    ``num_groups`` None: a plan for K2 alone."""
+def _plan(dtype, device, shape, align, num_groups, eps, swish, params, film,
+          stream=0):
+    """The launch of one layout on one stream, built once: checks what the
+    kernels take, then fills a _Plan with ``launch_plan``'s geometry and
+    the stream's K1 counters.  x is contiguous, [B, ..., C], its data
+    pointer ``align`` bytes past 16; ``params`` and ``film`` are the
+    layouts of (scale, bias) and of (fs, fb) or None.  ``num_groups``
+    None: a plan for K2 alone, which needs no counters."""
     name = "group_norm_apply" if num_groups is None else "group_norm"
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: the kernels take bf16 or fp32 x")
@@ -271,8 +282,7 @@ def _plan(dtype, device, shape, align, num_groups, eps, swish, params, film):
     if not (0 < B <= _MAX_BATCH and 0 < N <= _MAX_ROWS and 0 < C // vec <= _MAX_CHUNKS):
         raise ValueError(f"{name}: shape {tuple(shape)} out of the kernels' range")
     mode = 0 if swish == 0 else 1 if swish == 1 else 2
-    sms, counter = _card(device)
-    geo = launch_plan(B, N, C, vec, sms)
+    geo = launch_plan(B, N, C, vec, _sms(device))
     plan = _Plan(B=B, N=N, C=C, G=num_groups or 0, vec=vec, x_bf16=int(es == 2),
                  apply_splits=geo.apply_splits, apply_cw=geo.apply_cw,
                  apply_threads=geo.apply_threads,
@@ -291,17 +301,18 @@ def _plan(dtype, device, shape, align, num_groups, eps, swish, params, film):
         plan.stats_splits, plan.stats_rows = geo.stats_splits, geo.stats_rows
         plan.stats_threads, plan.eps = geo.stats_threads, eps
         plan.cnt = float(N * (C // num_groups))
-        plan.counter = counter.data_ptr()
+        plan.counter = _counters(device, stream).data_ptr()
         part = B * geo.stats_splits * num_groups * 2
     # k2_group_norm's scratch: a, b (b 16-byte aligned, since C % 4 == 0
     # where vec >= 4), then the per-block partials [B, splits, G, 2]
     return _Launch(ctypes.addressof(plan), plan, part, 2 * B * C + part)
 
 
-def _norm_launch(x, scale, bias, film, num_groups, eps, swish=0.0) -> _Launch:
+def _norm_launch(x, scale, bias, film, num_groups, eps, swish, stream) -> _Launch:
     return _plan(x.dtype, x.device, x.shape, x.data_ptr() % 16, num_groups,
                  float(eps), float(swish), (_layout(scale), _layout(bias)),
-                 None if film is None else (_layout(film[0]), _layout(film[1])))
+                 None if film is None else (_layout(film[0]), _layout(film[1])),
+                 stream)
 
 
 def _film_ptrs(film):
@@ -314,14 +325,15 @@ def group_norm_stats(x3, scale, bias, film, num_groups: int, eps: float):
     if x3.device.type == "cpu":
         return group_norm_stats_plain(x3, scale, bias, film, num_groups, eps)
     _check_cuda(x3, "group_norm_stats")
-    launch = _norm_launch(x3, scale, bias, film, num_groups, eps)
+    stream = _stream(x3)
+    launch = _norm_launch(x3, scale, bias, film, num_groups, eps, 0.0, stream)
     a, b = (torch.empty((x3.shape[0], x3.shape[2]), dtype=torch.float32,
                         device=x3.device) for _ in range(2))
     part = torch.empty(launch.part, dtype=torch.float32, device=x3.device)
     group_norm_stats.launches += 1
     err = _lib().k2_group_norm_stats(launch.ref, x3.data_ptr(), scale.data_ptr(),
                                      bias.data_ptr(), *_film_ptrs(film), a.data_ptr(),
-                                     b.data_ptr(), part.data_ptr(), _stream(x3))
+                                     b.data_ptr(), part.data_ptr(), stream)
     check(err, "group_norm_stats kernel launch")
     return a, b
 
@@ -370,14 +382,15 @@ def _norm_kernels(x, scale, bias, num_groups, eps, swish, film):
         raise RuntimeError(f"group_norm: no kernel for device {x.device}")
     if not x.is_contiguous():
         x = x.contiguous()
-    launch = _norm_launch(x, scale, bias, film, num_groups, eps, swish)
+    stream = _stream(x)
+    launch = _norm_launch(x, scale, bias, film, num_groups, eps, swish, stream)
     y = torch.empty_like(x)
     scratch = torch.empty(launch.scratch, dtype=torch.float32, device=x.device)
     group_norm_stats.launches += 1
     group_norm_apply.launches += 1
     err = _lib().k2_group_norm(launch.ref, x.data_ptr(), scale.data_ptr(),
                                bias.data_ptr(), *_film_ptrs(film), scratch.data_ptr(),
-                               y.data_ptr(), _stream(x))
+                               y.data_ptr(), stream)
     check(err, "group_norm kernel launch")
     return y
 

@@ -1,10 +1,47 @@
-"""Host-side helpers of the 2.1 text2img path, copied from
-``kandinsky2_tpu/utils.py`` (which imports the JAX diffusion package)."""
+"""Host-side helpers of 2.1 inference, copied from
+``kandinsky2_tpu/utils.py`` (which imports the JAX diffusion package):
+prompts, injected noise, the init image and mask of img2img and
+inpainting, and the conversion of the images to PIL."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .host_ops import erode_mask, f32_to_u8_images
+
+
+def prepare_image(pil_image, w: int = 512, h: int = 512) -> np.ndarray:
+    """PIL -> [1, H, W, 3] float32 in [-1, 1] (utils.py:33-39), NHWC."""
+    from PIL import Image
+
+    pil_image = pil_image.resize((w, h), resample=Image.BICUBIC, reducing_gap=1)
+    arr = np.array(pil_image.convert("RGB")).astype(np.float32) / 127.5 - 1
+    return arr[None]
+
+
+def prepare_image_batch(images, w: int, h: int, batch_size: int) -> np.ndarray:
+    """One init image, or a list of ``batch_size`` (one a batch row), ->
+    [1 or B, H, W, 3]; a single image keeps batch 1 for the caller to tile
+    after noising."""
+    if isinstance(images, (list, tuple)):
+        if len(images) != batch_size:
+            raise ValueError(f"got {len(images)} init images for batch {batch_size}")
+        return np.concatenate([prepare_image(im, w=w, h=h) for im in images])
+    return prepare_image(images, w=w, h=h)
+
+
+def prepare_mask(mask: np.ndarray) -> np.ndarray:
+    """Erode the keep region of a [1, H, W, 1] or [H, W] mask (1 = keep,
+    0 = inpaint) by one latent pixel (utils.py:11-30), shape kept."""
+    m = np.asarray(mask, dtype=np.float32)
+    if m.ndim == 4:
+        hw = m[0, :, :, 0]
+    elif m.ndim == 2:
+        hw = m
+    else:
+        raise ValueError(f"mask shape {m.shape}")
+    return erode_mask(hw).reshape(m.shape)
 
 
 def get_new_h_w(h: int, w: int) -> tuple[int, int]:
@@ -41,19 +78,15 @@ def check_noise(noise, shape, name: str = "noise", device=None):
     it has the shape the trajectory would have drawn; None passes through."""
     if noise is None:
         return None
-    arr = torch.as_tensor(np.asarray(noise, np.float32), device=device)
+    if isinstance(noise, torch.Tensor):
+        arr = noise.to(device=device, dtype=torch.float32)
+    else:
+        arr = torch.as_tensor(np.asarray(noise, np.float32), device=device)
     if tuple(arr.shape) != tuple(shape):
         raise ValueError(
             f"{name} has shape {tuple(arr.shape)}, expected {tuple(shape)}"
         )
     return arr
-
-
-def images_to_uint8(batch: np.ndarray) -> np.ndarray:
-    """[-1, 1] float NHWC -> uint8 (utils.py:57-66): round half to even,
-    then clamp to [0, 255]."""
-    arr = np.asarray(batch, np.float32)
-    return np.clip(np.rint((arr + 1.0) * 127.5), 0, 255).astype(np.uint8)
 
 
 def stub_tokenizers(vocab_size: int = 250002):
@@ -93,5 +126,5 @@ def process_images(batch: np.ndarray):
     """[-1, 1] float NHWC -> list of PIL images."""
     from PIL import Image
 
-    scaled = images_to_uint8(batch)
+    scaled = f32_to_u8_images(batch)
     return [Image.fromarray(scaled[i]) for i in range(scaled.shape[0])]

@@ -16,7 +16,10 @@ with the layout transforms
     anything else unchanged.
 
 Every JAX leaf must land on a port key of the transposed shape and every
-port key must be filled; anything else raises.
+port key must be filled; anything else raises.  The mapping needs no
+per-model table: it serves every port model, the inpainting UNet
+(``InpaintText2ImUNet21``, whose ``input_blocks.0.0`` conv takes 2C + 1 = 9
+channels) among them.
 """
 
 from __future__ import annotations

@@ -84,3 +84,118 @@ def test_numpy_params_fill_every_leaf():
     out = numpy_params(tree, 0)
     for leaf in jax.tree_util.tree_leaves(out):
         assert np.all(leaf != 0)
+
+
+# --- the 2.1 pipeline in both frameworks --------------------------------------
+
+
+def parity_pipelines(task_type="text2img", seed=12, head_channels=32,
+                     jax_dtype=None, torch_dtype=torch.float32, unet_out_scale=1.0):
+    """(JAX pipeline, port pipeline on the CPU, params) at
+    ``small_config(head_channels)`` with the same numpy-seeded parameters,
+    the JAX one in fp32 unless ``jax_dtype`` says otherwise.  The MoVQ's
+    output conv is scaled by 0.01, since random weights leave the image at
+    |x| ~ 1e2 and the absolute image tolerance is set for [-1, 1]; the
+    UNet's by ``unet_out_scale``, which only the hires case sets (see
+    ``test_torch_tasks21_image.py``)."""
+    import jax.numpy as jnp
+
+    import kandinsky2_tpu.pipelines.kandinsky2_1 as jpipe_mod
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
+    from kandinsky2_tpu_torch.utils import stub_tokenizers
+
+    cfg = small_config(head_channels)
+    tok1, tok2 = stub_tokenizers()
+    clip_dim = cfg["prior"]["params"]["model"]["hparams"]["clip_dim"]
+    rng = np.random.RandomState(11)
+    clip_mean = (0.1 * rng.randn(clip_dim)).astype(np.float32)
+    clip_std = (1 + 0.1 * rng.rand(clip_dim)).astype(np.float32)
+    kw = dict(config=cfg, tokenizer1=tok1, tokenizer2=tok2, clip_mean=clip_mean,
+              clip_std=clip_std, task_type=task_type)
+    jp = jpipe_mod.Kandinsky2_1(dtype=jax_dtype or jnp.float32, **kw)
+    params = numpy_params(
+        jax.eval_shape(jp.init_random_params, jax.random.PRNGKey(0)), seed)
+    conv_out = params["movq"]["decoder"]["conv_out"]
+    conv_out["kernel"] = conv_out["kernel"] * np.float32(0.01)
+    unet_out = params["unet"]["out.2"]
+    unet_out["kernel"] = unet_out["kernel"] * np.float32(unet_out_scale)
+    jp.params = jax.tree_util.tree_map(jnp.asarray, params)
+    tp = Kandinsky2_1(dtype=torch_dtype, device="cpu", **kw)
+    tp.load_jax_params(params)
+    return jp, tp, params
+
+
+def assert_images(got, want, what):
+    """A float image of the port against the JAX pipeline's (an array, or
+    the ``JaxImages`` of ``capture_jax_floats``) at ``E2E_TOL``."""
+    want = np.asarray(want.floats if hasattr(want, "floats") else want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert np.isfinite(got).all() and np.std(got) > 1e-3, what
+    assert np.abs(want).max() < 10, what
+    err = float(np.abs(got - want).max())
+    assert err <= E2E_TOL, f"{what}: max abs err {err:.3e}"
+
+
+def seeded_noise(seed, *shape):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+class JaxImages(list):
+    """The JAX pipeline's PIL images, with the float images they came from
+    in ``floats``."""
+
+    floats: np.ndarray
+
+
+def capture_jax_floats(monkeypatch):
+    """Make the JAX 2.1 pipeline's image conversion keep its float input
+    beside the PIL images it returns."""
+    import kandinsky2_tpu.pipelines.kandinsky2_1 as jpipe_mod
+
+    to_pil = jpipe_mod.process_images
+
+    def process_images(batch):
+        out = JaxImages(to_pil(batch))
+        out.floats = np.asarray(batch, np.float32)
+        return out
+
+    monkeypatch.setattr(jpipe_mod, "process_images", process_images)
+
+
+def inject_prior_noise(monkeypatch, pipe, seed: int, clip_dim: int):
+    """Fill the noise that a pipeline's ``generate_clip_emb`` would draw
+    (x_T, and the per-step noise of an ancestral ladder) from a numpy seed
+    wherever the caller passes none, so both frameworks' staged entry
+    points draw the same.  Every call takes its draws in the same order."""
+    rng = np.random.RandomState(seed)
+    inner = pipe.generate_clip_emb
+
+    def generate_clip_emb(prompt, batch_size=1, prior_cf_scale=4, prior_steps="25",
+                          negative_prior_prompt="", noise=None, noise_seq=None,
+                          **kw):
+        ps = str(prior_steps)
+        x_T = rng.randn(batch_size, clip_dim).astype(np.float32)
+        seq = (rng.randn(int(ps), batch_size, clip_dim).astype(np.float32)
+               if ps.isdigit() else None)
+        return inner(prompt, batch_size=batch_size, prior_cf_scale=prior_cf_scale,
+                     prior_steps=prior_steps,
+                     negative_prior_prompt=negative_prior_prompt,
+                     noise=x_T if noise is None else noise,
+                     noise_seq=seq if noise_seq is None else noise_seq, **kw)
+
+    monkeypatch.setattr(pipe, "generate_clip_emb", generate_clip_emb)
+
+
+def inject_decoder_noise(monkeypatch, pipe, seed: int):
+    """Fill the x_T that a pipeline's ``generate_img`` would draw from a
+    numpy seed wherever the caller passes none."""
+    rng = np.random.RandomState(seed)
+    inner = pipe.generate_img
+
+    def generate_img(*args, noise=None, h=512, w=512, batch_size=1, **kw):
+        if noise is None:
+            noise = rng.randn(batch_size, (h + 63) // 64 * 8, (w + 63) // 64 * 8,
+                              4).astype(np.float32)
+        return inner(*args, noise=noise, h=h, w=w, batch_size=batch_size, **kw)
+
+    monkeypatch.setattr(pipe, "generate_img", generate_img)

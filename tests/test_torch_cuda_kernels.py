@@ -283,3 +283,78 @@ def test_functions_carry_gradients_on_the_card(gen):
     want = torch.autograd.grad(flash_attention_plain(q, k, v)[0], (q, k, v), go)
     for g, w in zip(got, want):
         assert g.shape == w.shape and _rel_err(g, w) <= 2e-2
+
+
+def test_fp32_unet_and_movq_on_the_card_match_the_cpu(gen):
+    """fp32 models run on the card (their attention routed to the reference
+    semantics, every GroupNorm on K1 + K2 in fp32) and match the same
+    models on the CPU at 1e-4 relative L2, with TF32 off: the small-width
+    UNet (32-wide heads) and the MoVQ decoder and encoder."""
+    from kandinsky2_tpu_torch.configs import create_model, small_config
+    from kandinsky2_tpu_torch.models.movq import MOVQ
+    from kandinsky2_tpu_torch.pipelines.kandinsky2_1 import init_random_
+
+    cfg = small_config()
+    dd = cfg["image_enc_params"]["params"]["ddconfig"]
+    movq_kw = dict(n_embed=64, ch=dd["ch"], ch_mult=tuple(dd["ch_mult"]),
+                   num_res_blocks=dd["num_res_blocks"],
+                   attn_resolutions=tuple(dd["attn_resolutions"]),
+                   resolution=dd["resolution"])
+    mc = cfg["model_config"]
+    cpu_gen = torch.Generator().manual_seed(0)
+    models = {}
+    for name, make in (("unet", lambda dev: create_model(**mc, dtype=torch.float32,
+                                                         device=dev)),
+                       ("movq", lambda dev: MOVQ(**movq_kw, device=dev))):
+        cpu = make("cpu")
+        init_random_(cpu, cpu_gen)
+        card = make("cuda")
+        card.load_state_dict(cpu.state_dict())
+        models[name] = (cpu, card)
+    r = lambda *shape: torch.randn(shape, generator=cpu_gen)
+    cases = {
+        "unet": (lambda m: m, (r(2, 8, 8, 4), torch.tensor([981.0, 11.0]),
+                               r(2, 6, mc["text_encoder_in_dim1"]),
+                               r(2, mc["text_encoder_in_dim2"]),
+                               r(2, mc["image_encoder_in_dim"]))),
+        "movq": (lambda m: m.decode, (r(1, 8, 8, 4),)),
+        "movq.encode": (lambda m: m.encode, (torch.tanh(r(1, 64, 64, 3)),)),
+    }
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            for name, (get, args) in cases.items():
+                cpu, card = models[name.split(".")[0]]
+                want = get(cpu)(*args)
+                got = get(card)(*(a.cuda() for a in args)).cpu()
+                assert got.dtype == torch.float32
+                rel = ((got - want).norm() / want.norm()).item()
+                assert rel <= 1e-4, (name, rel)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_group_norm_on_two_streams_at_once(gen):
+    """GroupNorms of two shapes on two streams at once, many times: each
+    stream has its own K1 counters, so every output matches the plain
+    version."""
+    shapes = [(2, 24 * 24, 1152), (1, 96 * 96, 512)]
+    xs = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
+    params = [(1 + 0.1 * torch.randn(s[-1], generator=gen, device="cuda"),
+               0.1 * torch.randn(s[-1], generator=gen, device="cuda")) for s in shapes]
+    wants = [tgn.group_norm_plain(x, sc, b, 32, 1e-5, swish=1.0)
+             for x, (sc, b) in zip(xs, params)]
+    streams = [torch.cuda.Stream() for _ in shapes]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    with torch.inference_mode():
+        for _ in range(50):
+            for i, (x, (sc, b), st) in enumerate(zip(xs, params, streams)):
+                with torch.cuda.stream(st):
+                    outs[i].append(tgn.group_norm(x, sc, b, 32, 1e-5, swish=1.0))
+    torch.cuda.synchronize()
+    for want, got in zip(wants, outs):
+        ref = max(1.0, want.float().abs().max().item())
+        for y in got:
+            assert (y.float() - want.float()).abs().max().item() <= 2 ** -7 * ref

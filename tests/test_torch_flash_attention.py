@@ -60,3 +60,54 @@ def test_wrapper_refuses_devices_without_a_kernel():
     with pytest.raises(RuntimeError):
         flash_attention(x, x, x)
 
+
+
+def _bf(*shape, dtype=torch.bfloat16, grad=False):
+    return torch.randn(shape).to(dtype).requires_grad_(grad)
+
+
+@pytest.mark.parametrize("d,dtype,grad,kernel", [
+    (64, torch.bfloat16, False, True),
+    (512, torch.bfloat16, False, True),
+    (64, torch.bfloat16, True, True),  # the backward is built for d = 64
+    (512, torch.bfloat16, True, False),  # ... and for no other head dim
+    (64, torch.float32, False, False),
+    (512, torch.float32, False, False),
+    (32, torch.bfloat16, False, False),
+    (128, torch.bfloat16, False, False),
+])
+def test_attention_routing_rule(d, dtype, grad, kernel):
+    """``use_flash_kernel`` decides from dtype, head dim and whether a
+    gradient is needed; ``qkv_attention`` follows it on the CPU too, to the
+    kernel's plain version or to the reference semantics."""
+    from kandinsky2_tpu_torch.ops import attention as att
+    from kandinsky2_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    q, k, v = (_bf(1, 5, 2, d, dtype=dtype, grad=grad) for _ in range(3))
+    assert att.use_flash_kernel(q, k, v) is kernel
+    with torch.no_grad():  # no gradient needed: the forward's head dims
+        assert att.use_flash_kernel(q, k, v) is (
+            dtype == torch.bfloat16 and d in (64, 512))
+    want = (flash_attention_plain(q, k, v)[0] if kernel
+            else att.reference_attention(q, k, v))
+    torch.testing.assert_close(att.qkv_attention(q, k, v), want, rtol=0, atol=0)
+
+
+def test_movq_and_unet_attention_take_the_rule(monkeypatch):
+    """The MoVQ ``AttnBlock`` and the UNet's ``AttentionBlock`` both reach
+    the flash kernel through ``qkv_attention`` only where the rule says:
+    never in fp32."""
+    from kandinsky2_tpu_torch.models.movq import AttnBlock
+    from kandinsky2_tpu_torch.models.unet import AttentionBlock
+    from kandinsky2_tpu_torch.ops import attention as att
+
+    calls = []
+    monkeypatch.setattr(att, "flash_attention",
+                        lambda q, k, v: calls.append(q.dtype) or (q, None))
+    x = torch.randn(1, 4, 4, 64)
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            AttnBlock(64, dtype=dtype).to(dtype)(x.to(dtype))
+            AttentionBlock(64, 1, 32, dtype=dtype).to(dtype)(
+                x.to(dtype), torch.randn(1, 3, 32).to(dtype))
+    assert calls == [torch.bfloat16, torch.bfloat16]

@@ -60,10 +60,17 @@ def test_flash_attention_gradients_match_pallas_vjp(B, T_, S, H, d):
 
 
 def test_qkv_attention_goes_through_the_function():
+    """Where the routing rule sends a call to the kernels (bf16, d = 64,
+    a gradient needed) it goes through the autograd Function; an fp32 call
+    runs the reference semantics, differentiated by autograd."""
     rng = np.random.RandomState(1)
+    q, k, v = (T(rng.randn(1, L, 2, 64).astype(np.float32)).bfloat16()
+               .requires_grad_() for L in (5, 9, 9))
+    assert type(qkv_attention(q, k, v).grad_fn).__name__ == \
+        "FlashAttentionFunctionBackward"
     q, k, v = (T(rng.randn(1, L, 2, 16).astype(np.float32)).requires_grad_()
                for L in (5, 9, 9))
-    assert type(qkv_attention(q, k, v).grad_fn).__name__ == \
+    assert type(qkv_attention(q, k, v).grad_fn).__name__ != \
         "FlashAttentionFunctionBackward"
 
 

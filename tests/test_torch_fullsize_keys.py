@@ -2,7 +2,8 @@
 the full ``CONFIG_2_1`` width on the meta device (nothing allocated) against
 the JAX trees from ``jax.eval_shape`` of ``init``.  The bridge must map every
 JAX leaf onto a port key of the transposed shape, and fill every port key:
-for the MoVQ that includes the encoder, ``quant_conv`` and ``quantize``."""
+for the MoVQ that includes the encoder, ``quant_conv`` and ``quantize``;
+the inpainting UNet (``InpaintText2ImUNet21``) is checked beside them."""
 
 import jax
 import jax.numpy as jnp
@@ -35,12 +36,21 @@ def pipes():
             pooled_emb=z((B, mc["text_encoder_in_dim2"])),
             image_emb=z((B, mc["image_encoder_in_dim"]))),
         "movq": lambda k: jp.movq.init(k, z((B, 64, 64, 3))),
+        "unet_inpaint": lambda k: jpipe_mod.Kandinsky2_1(
+            dtype=jnp.float32, task_type="inpainting").unet.init(
+            k, z((B, 8, 8, 4)), z((B,)),
+            full_emb=z((B, 77, mc["text_encoder_in_dim1"])),
+            pooled_emb=z((B, mc["text_encoder_in_dim2"])),
+            image_emb=z((B, mc["image_encoder_in_dim"])),
+            inpaint_image=z((B, 8, 8, 4)), inpaint_mask=z((B, 8, 8, 1))),
     }
-    return inits, TorchK21(device="meta").models()
+    models = TorchK21(device="meta").models()
+    models["unet_inpaint"] = TorchK21(device="meta", task_type="inpainting").unet
+    return inits, models
 
 
 @pytest.mark.parametrize("name", ["unet", "movq", "prior", "clip_text",
-                                  "clip_vision", "text_encoder"])
+                                  "clip_vision", "text_encoder", "unet_inpaint"])
 def test_fullsize_bridge_covers_model(pipes, name):
     inits, models = pipes
     shapes = jax.eval_shape(inits[name], jax.random.PRNGKey(0))["params"]
@@ -48,8 +58,10 @@ def test_fullsize_bridge_covers_model(pipes, name):
     mapping = plan(shapes, target)
     assert set(mapping) == set(target)
     n_params = sum(int(jnp.prod(jnp.array(s))) for s in target.values())
-    if name == "unet":
+    if name.startswith("unet"):
         assert 1.2e9 < n_params < 1.25e9  # the 1.22B decoder UNet
+    if name == "unet_inpaint":  # x ⊕ image·mask ⊕ mask: 2 * 4 + 1 channels
+        assert target["input_blocks.0.0.weight"] == (384, 9, 3, 3)
     if name == "movq":
         for prefix in ("encoder.", "quant_conv.", "quantize.", "decoder."):
             assert any(k.startswith(prefix) for k in mapping), prefix

@@ -20,7 +20,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "kandinsky2_tpu",
                                     "triton"))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -32,7 +32,11 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 23
+    assert n_modules >= 27
+    # the host side of 2.1 inference is covered too
+    for name in ("tokenizers.clip_bpe", "tokenizers.textfix", "host_ops", "utils",
+                 "diffusion.samplers", "pipelines.kandinsky2_1"):
+        assert f"kandinsky2_tpu_torch.{name}" in proc.stdout.split(), name
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_ab.py"])

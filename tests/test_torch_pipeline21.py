@@ -14,7 +14,8 @@ import kandinsky2_tpu.pipelines.kandinsky2_1 as jpipe_mod
 from kandinsky2_tpu import diffusion as jd
 from kandinsky2_tpu_torch import diffusion as td
 from kandinsky2_tpu_torch.pipelines import Kandinsky2_1 as TorchK21
-from kandinsky2_tpu_torch.utils import images_to_uint8, stub_tokenizers
+from kandinsky2_tpu_torch.host_ops import f32_to_u8_images
+from kandinsky2_tpu_torch.utils import stub_tokenizers
 from test_torch_common import (
     E2E_TOL,
     MODULE_TOL,
@@ -66,7 +67,9 @@ def test_p_sample_loop_start_x_with_noise_seq():
     )
     got = td.p_sample_loop(
         lambda x, t: _toy_model(x, t, T(w)), td.make_schedule(**kw), T(x_T),
-        denoised_fn=lambda v: torch.clamp(v, -10, 10), noise_seq=T(nseq),
+        mean_type=td.MeanType.START_X, var_type=td.VarType.FIXED_SMALL,
+        clip_denoised=False, denoised_fn=lambda v: torch.clamp(v, -10, 10),
+        noise_seq=T(nseq),
     )
     assert_close(got, want, MODULE_TOL, "p_sample_loop")
 
@@ -124,17 +127,22 @@ def test_text2img_seeded_end_to_end(monkeypatch):
     err = float(np.abs(got - np.asarray(want)).max())
     assert err <= E2E_TOL, f"text2img float image: max abs err {err:.3e}"
     pil = tp.generate_text2img("red sand dunes", **kw)
-    np.testing.assert_array_equal(np.asarray(pil[0]), images_to_uint8(got)[0])
+    np.testing.assert_array_equal(np.asarray(pil[0]), f32_to_u8_images(got)[0])
 
 
 def test_text2img_rejects_paths_not_ported():
+    """What still raises, as in the JAX package: an unknown sampler and an
+    unknown ``task_type`` (``ValueError``), before any model runs."""
     tok1, tok2 = stub_tokenizers()
     tp = TorchK21(config=small_config(), tokenizer1=tok1, tokenizer2=tok2,
                   device="meta")
-    with pytest.raises(NotImplementedError):
-        tp.generate_text2img("x", sampler="p_sampler")
-    with pytest.raises(NotImplementedError):
-        tp.generate_text2img("x", prior_steps="ddim25")
+    with pytest.raises(ValueError, match="p_sampler, ddim_sampler"):
+        tp.generate_text2img("x", sampler="k_euler_sampler")
+    with pytest.raises(ValueError, match="p_sampler, ddim_sampler"):
+        tp.generate_img("x", None, sampler="k_euler_sampler")
+    with pytest.raises(ValueError, match="Only text2img and inpainting"):
+        TorchK21(config=small_config(), tokenizer1=tok1, tokenizer2=tok2,
+                 task_type="img2img", device="meta")
 
 
 def test_random_init_drives_small_path():

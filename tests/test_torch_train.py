@@ -130,7 +130,8 @@ def test_p_mean_variance_var_types(var):
         var_type=jg.VarType[var], clip_denoised=False, channel_axis=-1)
     got = tg.p_mean_variance(
         tg.make_schedule(**SCHED_KW), T(out), T(x), T(t),
-        mean_type=tg.MeanType.EPSILON, var_type=tg.VarType[var], channel_axis=-1)
+        mean_type=tg.MeanType.EPSILON, var_type=tg.VarType[var],
+        clip_denoised=False, channel_axis=-1)
     for k in ("mean", "variance", "log_variance", "pred_xstart"):
         assert_close(np.broadcast_to(got[k].numpy(), x.shape),
                      np.broadcast_to(np.asarray(want[k]), x.shape), MODULE_TOL, k)
