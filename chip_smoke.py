@@ -12,8 +12,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    prints the build seconds and ptxas's registers, shared memory and
    spills per kernel.
 3. kernels: each forward kernel against its plain PyTorch version on the
-   card at the shapes of the 768² text2img path, bf16 (one fp32 GroupNorm,
-   the UNet output head), with the stated tolerance; K3's bf16 output and
+   card at the shapes of the 768² text2img paths of 2.1 and 2.2 (the 2.2
+   UNet's GroupNorms, 2048 to 2816 channels wide where its up path
+   concatenates skips, and its added-KV attention, S = T + 10), bf16 (one
+   fp32 GroupNorm, the UNet output head), with the stated tolerance; K3's bf16 output and
    the reference's rounding (bf16 logits of d^-1/4 pre-scaled q and k)
    each against an fp32 truth, K3 no worse; and the path's own
    GroupNorm call (K1 then K2 in one foreign call, FiLM and SiLU) against
@@ -26,6 +28,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    GroupNorm timings take x from copies that together exceed four L2s, in
    turn, so that x comes from device memory as the bound assumes; K2 is
    also timed on one x, which stays in L2 as it does after K1 on the path.
+   Then the GroupNorm (K1 + K2) and its plain version against fp64 where
+   each group's mean lies up to 1000 standard deviations from zero: both
+   within 1e-4 relative L2 (K1's shifted sums).
 4. reference: the whole path at a small width on the card (kernels, bf16)
    against the same weights and injected noise on the CPU (plain
    versions, fp32), beside the plain versions in bf16 on the CPU as the
@@ -75,6 +80,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    which every kernel must be launched (K4 and K5 22 times a step) and
    every trainable parameter must get a finite, non-zero gradient.
 
+9. 2.2 tasks, small: every Kandinsky 2.2 entry point at a small width
+   with 64-wide UNet heads (so that K3 runs) on the card (kernels, bf16)
+   against the same weights and injected noise on the CPU (plain
+   versions, fp32), with phase 4's limit: text2img through the ddpm, dpmpp
+   and dpmpp_karras decoders and the dpmpp prior, img2img, mix_images,
+   inpainting (a 9-channel UNet), ControlNet with hint=, hires, turbo (the
+   deep cache every 3 steps) and run_prior_emb2emb.
+10. 2.2 text2img, full width: the 2.1 pipelines freed, Kandinsky2_2 at the
+   vendored published configuration (weights/configs22.pipeline_overrides:
+   UNet22 1.31B, the 2.2 prior, the ViT-bigG towers, the MoVQ) with random
+   bf16 weights from a seeded generator and the 2.2 stand-in tokenizer:
+   768², prior 25 DDPM steps, decoder 50 DDPM steps, CFG 4 and 4, batch 1;
+   one warm-up and one timed call (host clock, ending in a synchronize),
+   during which K1 and K2 must launch 50 × 95 + 33 and K3 50 × 22 + 4
+   times with no attention call on the card by the plain route; peak
+   memory; a finite, non-constant image; the GroupNorm input shapes of one
+   UNet22 call and that call's device ops; then one call under the
+   profiler (device ops and time, idle share, the ``k22.*`` spans).
+
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' results as JSON, and the line before that the card's name and
 power limit.  Bounds are the larger of the bytes a call must move over
@@ -102,6 +126,24 @@ UNET_LAUNCHES, DECODER_LAUNCHES, ENCODER_LAUNCHES = (95, 22), (33, 4), (24, 3)
 # phase 5b's full-width tasks: 768², DDIM 50, prior "25", CFG 4 and 4
 FULL_TASK = dict(num_steps=50, guidance_scale=4, h=768, w=768, sampler="ddim_sampler",
                  prior_cf_scale=4, prior_steps="25", output="float")
+# phase 10's full-width 2.2 text2img: 768², prior 25 and decoder 50 DDPM
+# steps, CFG 4 and 4, batch 1
+T2I22 = dict(decoder_steps=50, prior_steps=25, decoder_guidance_scale=4,
+             prior_guidance_scale=4, h=768, w=768, output="float")
+# phase 9's small 2.2 pipelines: tests/test_pipeline22.py's TINY towers, the
+# UNet with 64-wide heads (the width K3 takes); the MoVQ attends at d = 64
+SMALL22 = dict(
+    image_encoder=dict(image_size=28, patch_size=14, hidden=32, layers=2, heads=4,
+                       intermediate=64, projection_dim=32),
+    text_encoder=dict(vocab_size=64, context_length=8, hidden=32, layers=2, heads=4,
+                      intermediate=64, projection_dim=32, eot_token_id=63),
+    prior=dict(num_attention_heads=4, attention_head_dim=16, num_layers=2,
+               embedding_dim=32, num_embeddings=8),
+    unet=dict(block_out_channels=(64, 128), layers_per_block=1, attention_head_dim=64,
+              cross_attention_dim=32, encoder_hid_dim=32, num_image_tokens=2),
+    movq=dict(z_channels=4, embed_dim=4, n_embed=32, ch=32, ch_mult=(1, 1, 1, 2),
+              num_res_blocks=1, attn_resolutions=(8,), resolution=64),
+)
 CUDA_SOURCES = ("flash_attention.cu", "group_norm.cu")
 PEAK_BF16 = 989e12   # dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12    # fp32 FLOP/s outside the tensor cores
@@ -272,6 +314,12 @@ def phase_kernels(torch, results):
         ("unet out.0 fp32", (2, 96 * 96, 384), torch.float32),
         ("movq latent", (1, 96 * 96, 512), torch.bfloat16),
         ("movq 768^2", (1, 768 * 768, 128), torch.bfloat16),
+        # the 2.2 UNet's shapes that 2.1's lacks (its output head is 2.1's
+        # fp32 [2, 9216, 384])
+        *((f"unet22 [{n}, {c}]", (2, n, c), torch.bfloat16) for n, c in (
+            (9216, 768), (9216, 1152), (2304, 384), (2304, 1152), (2304, 1280),
+            (2304, 1536), (2304, 2048), (576, 768), (576, 1280), (576, 1536), (576, 2048),
+            (576, 2560), (576, 2816), (144, 1280), (144, 2816))),
     ]
     for label, shape, dtype in norm_shapes:
         B, N, C = shape
@@ -360,10 +408,11 @@ def phase_kernels(torch, results):
         results["group_norm_stats"].append(_row(label, shape, err1, t1, *b1))
         results["group_norm_apply"].append(_row(label, shape, err2, t2, *b2))
 
-    # K1's variance is one-pass, Σx²/n − mean² in fp32 as the reference's
-    # _moments: it loses digits where a group's mean lies many standard
-    # deviations from zero.  The GroupNorm (K1 + K2) and its plain version
-    # against an fp64 truth at the fp32 norm's shape, by that ratio
+    # K1's sums are shifted by each group's first element, where the
+    # reference's _moments take the one-pass Σx²/n − mean², which loses
+    # digits as a group's mean moves away from zero.  The GroupNorm (K1 +
+    # K2) and its plain version against an fp64 truth at the fp32 norm's
+    # shape, by that ratio: both within 1e-4 up to 1000
     B, N, C = 2, 96 * 96, 384
     z = torch.randn((B, N, C), generator=g, device="cuda", dtype=torch.float64)
     one, zero = torch.ones(C, device="cuda"), torch.zeros(C, device="cuda")
@@ -377,10 +426,11 @@ def phase_kernels(torch, results):
             y = gn.group_norm(x, one, zero, 32, 1e-5)
         yp = gn.group_norm_plain(x, one, zero, 32, 1e-5)
         rel = [((t.double() - truth).norm() / truth.norm()).item() for t in (y, yp)]
-        print(f"K1 one-pass variance: group |mean|/std {offset}, [{B}, {N}, {C}] "
+        print(f"K1 shifted variance: group |mean|/std {offset}, [{B}, {N}, {C}] "
               f"fp32: K1 + K2 rel_l2 {rel[0]:.3e}, plain version {rel[1]:.3e} "
-              f"against fp64")
+              f"against fp64 (tol 1e-4)")
         check(bool(torch.isfinite(y).all()), f"GroupNorm not finite at offset {offset}")
+        check(max(rel) <= 1e-4, f"GroupNorm loses digits at mean/std {offset}")
     del z, x, xd, truth, y, yp
 
     # K3 at the path's attention shapes (B, T, S, H, d)
@@ -389,6 +439,11 @@ def phase_kernels(torch, results):
         ("unet ds4", (2, 576, 663, 18, 64)),
         ("unet ds8/middle", (2, 144, 231, 24, 64)),
         ("movq attn", (1, 9216, 9216, 1, 512)),
+        # the 2.2 UNet's added-KV attention: 10 image tokens before the T
+        # spatial rows
+        ("unet22 ds2 added-KV", (2, 2304, 2314, 12, 64)),
+        ("unet22 ds4 added-KV", (2, 576, 586, 20, 64)),
+        ("unet22 ds8/middle added-KV", (2, 144, 154, 24, 64)),
     ]
     for label, (B, T, S, H, d) in attn_shapes:
         q, k, v = randn((B, T, H, d)), randn((B, S, H, d)), randn((B, S, H, d))
@@ -558,9 +613,9 @@ def _small_pair(torch, task_type, seed, unet_out_scale=1.0):
     with the same seeded weights.  The MoVQ's output conv is scaled by
     0.01, so that the random weights' image (|x| ~ 1e2) lies in [-1, 1]
     where the 8-bit images that hires upsamples keep their detail; the
-    UNet's by ``unet_out_scale``, which only the hires pair sets (0.1: at
-    full scale its latents reach |z| ~ 1e2, where a GroupNorm's one-pass
-    variance loses digits, a fault of K1 and of its reference; PERF.md)."""
+    UNet's by ``unet_out_scale``, which only the hires pair sets (0.1, as
+    the 2.1 hires parity test against JAX: at full scale its latents reach
+    |z| ~ 1e2, where JAX's one-pass GroupNorm variance loses digits)."""
     from kandinsky2_tpu_torch.configs import small_config
     from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
     from kandinsky2_tpu_torch.utils import stub_tokenizers
@@ -866,6 +921,282 @@ def phase_slice_profile(torch, pipe, kw, seconds, smi):
     print(f"slice: profiled call {ops} device ops, {dev_ms:.1f} ms of device time; "
           f"device idle share {1 - dev_ms / 1e3 / seconds:.3f} of the unprofiled "
           f"{seconds:.4f} s/image on {smi}")
+
+
+def inject_noise22(pipe, seed: int, np):
+    """Draw, from a numpy seed, the noise that a 2.2 pipeline would draw
+    from its generator: x_T and the per-step noise (ddpm) of every
+    ``run_prior`` call, x_T and the per-step noise (ddpm) of every
+    decoder loop that is given none.  ``del pipe.run_prior,
+    pipe._decode_loop`` undoes it."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    run_prior, decode = pipe.run_prior, pipe._decode_loop
+    D = pipe.prior.embedding_dim
+
+    def run_prior22(prompt, batch_size=1, prior_steps=25, guidance_scale=4,
+                    negative_prompt="", sampler="ddpm", noise=None, noise_seq=None,
+                    **kw):
+        x_T = rng.randn(batch_size, D).astype(np.float32)
+        seq = (rng.randn(prior_steps, batch_size, D).astype(np.float32)
+               if sampler == "ddpm" else None)
+        return run_prior(prompt, batch_size, prior_steps, guidance_scale,
+                         negative_prompt, sampler=sampler,
+                         noise=x_T if noise is None else noise,
+                         noise_seq=seq if noise_seq is None else noise_seq, **kw)
+
+    def decode_loop(image_embeds, batch_size, steps, guidance, h, w, x_T=None,
+                    ladder=None, sampler="ddpm", noise_seq=None, **kw):
+        if x_T is None:
+            x_T = torch.as_tensor(rng.randn(batch_size, h // 8, w // 8, 4)
+                                  .astype(np.float32), device=pipe.device)
+        n = steps if ladder is None else len(ladder)
+        if noise_seq is None and sampler == "ddpm":
+            noise_seq = rng.randn(n, *x_T.shape).astype(np.float32)
+        return decode(image_embeds, batch_size, steps, guidance, h, w, x_T=x_T,
+                      ladder=ladder, sampler=sampler, noise_seq=noise_seq, **kw)
+
+    pipe.run_prior, pipe._decode_loop = run_prior22, decode_loop
+
+
+def _small_pair22(torch, task_type, seed):
+    """The small 2.2 pipeline (``SMALL22``) on the card (bf16) and on the
+    CPU (fp32) with the same seeded weights.  The MoVQ's output conv is
+    scaled by 0.2, which puts the random weights' image at a standard
+    deviation of about 0.3, where the 8-bit images that hires upsamples
+    keep their detail."""
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_2
+    from kandinsky2_tpu_torch.utils import stub_tokenizer22
+
+    kw = dict(task_type=task_type, tokenizer=stub_tokenizer22(64), overrides=SMALL22)
+    gpu = Kandinsky2_2(dtype=torch.bfloat16, device="cuda", **kw)
+    gpu.init_random_params(torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():
+        gpu.movq.decoder.conv_out.weight.mul_(0.2)
+        gpu.movq.decoder.conv_out.bias.mul_(0.2)
+    cpu = Kandinsky2_2(dtype=torch.float32, device="cpu", **kw)
+    for name, model in cpu.models().items():
+        model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.models()[name].state_dict().items()})
+    return gpu, cpu
+
+
+def phase_tasks22_small(torch, np):
+    """Every 2.2 entry point at a small width on the card (kernels, bf16)
+    against the CPU (plain versions, fp32), with the same weights and
+    injected noise; the limit is phase 4's."""
+    from kandinsky2_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    pairs = {task: _small_pair22(torch, task, seed) for task, seed in
+             (("text2img", 21), ("inpainting", 22), ("controlnet", 23))}
+    rng = np.random.RandomState(24)
+    lat = lambda *shape: rng.randn(*shape).astype(np.float32)
+    small = dict(decoder_steps=10, prior_steps=5, h=64, w=64, output="float")
+    img, img2 = seeded_image(np, 25, 64), seeded_image(np, 26, 64)
+    mask = np.zeros((64, 64), np.float32)
+    mask[:, 32:] = 1.0  # repaint the right half
+    hint = rng.rand(64, 64, 3).astype(np.float32)
+    emb = lat(32)
+    # the re-noising draws, which the entry points take as noise=
+    renoise, hires_noise = lat(1, 8, 8, 4), lat(1, 16, 16, 4)
+    emb_noise, emb_seq = lat(1, 32), lat(3, 1, 32)
+    cases = {
+        "text2img ddpm": ("text2img", lambda p: p.generate_text2img(PROMPT, **small)),
+        "text2img dpmpp": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, sampler="dpmpp", **small)),
+        "text2img dpmpp_karras": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, sampler="dpmpp_karras", **small)),
+        "text2img prior dpmpp": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, prior_sampler="dpmpp", **small)),
+        "img2img": ("text2img", lambda p: p.generate_img2img(
+            PROMPT, img, strength=0.5, noise=renoise,
+            **dict(small, decoder_steps=20))),
+        "mix_images": ("text2img", lambda p: p.mix_images(
+            [PROMPT, img2], [0.4, 0.6], **small)),
+        "inpainting": ("inpainting", lambda p: p.generate_inpainting(
+            PROMPT, img, mask, **small)),
+        "controlnet hint": ("controlnet", lambda p: p.generate_controlnet(
+            PROMPT, hint, **small)),
+        "turbo_interval 3": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, turbo_interval=3, **small)),
+        "run_prior_emb2emb": ("text2img", lambda p: p.run_prior_emb2emb(
+            emb, PROMPT, strength=0.6, prior_steps=5, noise=emb_noise,
+            noise_seq=emb_seq).float().cpu().numpy()),
+    }
+    tol = 0.15  # phase 4's limit for the small CFG path
+    for name, (task, run) in cases.items():
+        gpu, cpu = pairs[task]
+        for pipe in (gpu, cpu):
+            inject_noise22(pipe, 27, np)
+        reset_launch_counts()
+        got = run(gpu)
+        counts = launch_counts()
+        want = run(cpu)
+        for pipe in (gpu, cpu):
+            del pipe.run_prior, pipe._decode_loop
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        print(f"tasks22 small: {name} cuda/bf16 vs cpu/fp32 rel_l2 {rel:.3e} "
+              f"(tol {tol}); shape {got.shape}; launches {json.dumps(counts)}")
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"tasks22 small: {name} shape or values")
+        check(float(got.std()) > 0, f"tasks22 small: {name} output is constant")
+        check(rel <= tol, f"tasks22 small: {name} on the card disagrees with the CPU")
+        if name != "run_prior_emb2emb":  # the prior has no GroupNorm or K3
+            check(all(counts[n] > 0 for n in FORWARD_KERNELS),
+                  f"tasks22 small: {name} skipped a kernel")
+    _hires22_small(pairs["text2img"], hires_noise, dict(small, h=128, w=128), tol, np)
+    del pairs
+
+
+def _hires22_small(pair, noise, kw, tol, np):
+    """Hires with the UNet as drawn, held to ``tol`` end to end and in its
+    two parts: the first stage's 8-bit images against the CPU's, and the
+    output against the CPU's second stage run from the card's first-stage
+    images.  With random weights the second stage turns a small change of
+    those images into a change of its output many times larger, in fp32
+    alone, so the CPU's own response to the card's images is printed
+    beside the end-to-end distance: it is the larger part of that."""
+    from PIL import Image
+
+    from kandinsky2_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    def run(pipe, ups=None):
+        """``pipe``'s hires output and the first-stage images it refined
+        (``ups`` replaces them)."""
+        seen = []
+        img2img = pipe.generate_img2img
+
+        def refine(prompt, images, **kw2):
+            seen.append([np.asarray(im, np.float32) for im in images])
+            return img2img(prompt, images if ups is None else ups, **kw2)
+
+        inject_noise22(pipe, 27, np)
+        pipe.generate_img2img = refine
+        try:
+            out = pipe.generate_text2img_hires(PROMPT, strength=0.5, noise=noise, **kw)
+        finally:
+            del pipe.run_prior, pipe._decode_loop, pipe.generate_img2img
+        return out, seen[0]
+
+    gpu, cpu = pair
+    reset_launch_counts()
+    got, gpu_ups = run(gpu)
+    counts = launch_counts()
+    want_own, cpu_ups = run(cpu)
+    want, _ = run(cpu, [Image.fromarray(u.astype(np.uint8)) for u in gpu_ups])
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    stage1, stage2 = rel(np.stack(gpu_ups), np.stack(cpu_ups)), rel(got, want)
+    whole = rel(got, want_own)
+    print(f"tasks22 small: hires cuda/bf16 vs cpu/fp32 rel_l2 {whole:.3e}; first "
+          f"stage's 8-bit images {stage1:.3e}, output from the card's images "
+          f"{stage2:.3e} (tol {tol} each); the CPU's own response to the card's "
+          f"images {rel(want, want_own):.3e}; shape {got.shape}; "
+          f"launches {json.dumps(counts)}")
+    check(got.shape == want.shape and bool(np.isfinite(got).all()),
+          "tasks22 small: hires shape or values")
+    check(float(got.std()) > 0, "tasks22 small: hires output is constant")
+    check(max(whole, stage1, stage2) <= tol,
+          "tasks22 small: hires on the card disagrees with the CPU")
+    check(all(counts[n] > 0 for n in FORWARD_KERNELS),
+          "tasks22 small: hires skipped a kernel")
+
+
+def phase_t2i22(torch, np, smi: str):
+    """Kandinsky 2.2 text2img at the published configuration, 768²."""
+    from kandinsky2_tpu_torch.models.layers import GroupNorm32
+    from kandinsky2_tpu_torch.ops import launch_counts
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_2
+    from kandinsky2_tpu_torch.utils import stub_tokenizer22
+    from kandinsky2_tpu_torch.weights.configs22 import pipeline_overrides
+
+    t0 = time.perf_counter()
+    pipe = Kandinsky2_2(tokenizer=stub_tokenizer22(), dtype=torch.bfloat16,
+                        overrides=pipeline_overrides("text2img"),
+                        device="cuda")
+    pipe.init_random_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = {k: sum(p.numel() for p in m.parameters())
+                for k, m in pipe.models().items()}
+    print(f"t2i22: built the full-size 2.2 pipeline in {time.perf_counter() - t0:.2f} "
+          f"s, params {json.dumps(n_params)} ({sum(n_params.values())} in all)")
+    call = lambda seed: pipe.generate_text2img(
+        PROMPT, generator=torch.Generator(device="cuda").manual_seed(seed), **T2I22)
+    t0 = time.perf_counter()
+    call(1)
+    torch.cuda.synchronize()
+    print(f"t2i22: warm-up call {time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_path_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = call(2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"t2i22: launches during the timed call {json.dumps(counts)}")
+    check(img.shape == (1, 768, 768, 3), f"t2i22: image shape {img.shape}")
+    check(bool(np.isfinite(img).all()), "t2i22: image has non-finite values")
+    check(float(img.std()) > 0, "t2i22: image is constant")
+    # a UNet22 call runs 95 GroupNorms and 22 attentions, as 2.1's UNet
+    check_full_launches("t2i22", counts, T2I22["decoder_steps"], encoded=False)
+    print(f"t2i22: image min {img.min():.4f} max {img.max():.4f} std {img.std():.4f}; "
+          f"peak device memory {peak:.2f} GiB")
+    print(f"t2i22: {seconds:.4f} s/image at 768^2, prior 25 and decoder 50 DDPM "
+          f"steps, CFG 4 and 4, batch 1, bf16 on {smi}")
+
+    # one CFG-doubled UNet22 denoise call at 768² (latent 96²): its
+    # GroupNorm input shapes, device ops and device time
+    g = torch.Generator(device="cuda").manual_seed(12)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    unet = pipe.unet
+    with torch.inference_mode():
+        cond = unet.encode_conditioning(randn(2, unet.encoder_hid_dim))
+        xt, t = randn(2, 96, 96, 4), torch.tensor([981.0, 981.0], device="cuda")
+        denoise = lambda: unet.denoise(xt, t, *cond)
+        tally = {}
+
+        def count(mod, args, kwargs):
+            x = args[0]
+            key = (f"[{x.shape[0]}, {x[0, ..., 0].numel()}, {x.shape[-1]}] "
+                   f"{str(x.dtype)[6:]}{' FiLM' if kwargs.get('film') else ''}"
+                   f"{' SiLU' if mod.swish else ''}")
+            tally[key] = tally.get(key, 0) + 1
+
+        hooks = [m.register_forward_pre_hook(count, with_kwargs=True)
+                 for m in unet.modules() if isinstance(m, GroupNorm32)]
+        denoise()
+        for h in hooks:
+            h.remove()
+        ops, dev_ms, _ = device_profile(torch, denoise)
+    print(f"t2i22: GroupNorm calls per UNet22 denoise call, {sum(tally.values())} in "
+          f"all, by input shape: " + "; ".join(
+              f"{k}: {n}" for k, n in sorted(tally.items(), key=lambda kv: -kv[1])))
+    print(f"t2i22: one UNet22 denoise call [2, 96, 96, 4]: {ops} device ops, "
+          f"{dev_ms:.1f} ms of device time")
+    check(sum(tally.values()) == UNET_LAUNCHES[0], "t2i22: GroupNorms per UNet22 call")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call(3)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels = [e for e in events if not e.is_user_annotation]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    spans = {e.key: e.device_time_total / 1e3 for e in events
+             if e.is_user_annotation and e.key.startswith("k22.")}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    print("t2i22: profiled call, device time by name (ms, calls): " + "; ".join(
+        f"{e.key[:50]} {e.self_device_time_total / 1e3:.1f} ({e.count})" for e in top))
+    print(f"t2i22: profiled call {sum(e.count for e in kernels)} device ops, "
+          f"{dev_ms:.1f} ms of device time, device idle share "
+          f"{1 - dev_ms / 1e3 / seconds:.3f} of the unprofiled {seconds:.4f} s/image; "
+          f"spans (device ms) " + "; ".join(f"{k} {v:.1f}" for k, v in spans.items()))
+    check(dev_ms > 0, "t2i22: the profiler saw no device time")
+    return counts, seconds
 
 
 def rel_err(got, want) -> float:
@@ -1290,6 +1621,16 @@ def main() -> int:
 
     # 8. full-width decoder training steps
     train_counts, step_s = phase_train_full(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. every 2.2 entry point at a small width against the CPU
+    phase_tasks22_small(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. full-width 2.2 text2img, this slice's main path
+    t2i22_counts, t2i22_s = phase_t2i22(torch, np, smi)
 
     meta = {
         "group_norm_stats": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
@@ -1315,6 +1656,7 @@ def main() -> int:
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "train_launches": train_counts[name],
             **{f"{task}_launches": tasks[task][0][name] for task in tasks},
+            "t2i22_launches": t2i22_counts[name],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1323,7 +1665,7 @@ def main() -> int:
         })
     print(f"slice: {seconds:.4f} s/image; " + "; ".join(
         f"{task}: {sec:.4f} s/image" for task, (_, sec) in tasks.items())
-        + f"; train: {step_s:.4f} s/step")
+        + f"; train: {step_s:.4f} s/step; 2.2 text2img: {t2i22_s:.4f} s/image")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

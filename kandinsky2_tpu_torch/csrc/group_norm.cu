@@ -9,10 +9,20 @@
 // launches per call.  Here one launch reads x [B, N, C] (bf16 or fp32) once
 // and writes per-(b, c) fp32 a and b such that the norm of x is x * a + b:
 //
-//   mean_g = sum_{n, c in g} x / cnt,  ex2_g = sum x^2 / cnt,  cnt = N * C / G
-//   var_g  = max(ex2_g - mean_g^2, 0)          (one pass, the JAX formula)
+//   p_g    = x[b, 0, g * C / G]   (the pivot: the group's first element)
+//   m_g    = sum_{n, c in g} (x - p_g) / cnt,  cnt = N * C / G
+//   mean_g = p_g + m_g
+//   var_g  = max(sum (x - p_g)^2 / cnt - m_g^2, 0)
 //   a = scale / sqrt(var_g + eps),  b = bias - mean_g * a
 //   with FiLM (fs, fb):  a *= 1 + fs,  b = b * (1 + fs) + fb
+//
+// The sums are shifted by the pivot, a value of the group itself, so the
+// variance stays one pass over x without the one-pass formula's loss of
+// digits: E[x^2] - mean^2 in fp32 (the JAX package's _moments and
+// _coefficients) cancels as (mean / std)^2, about 5e-2 of the norm at a
+// mean 1000 standard deviations from zero; the shifted form cancels as
+// ((mean - p_g) / std)^2, which a value of the group keeps small.  Every
+// block of a batch row shares the pivots, so its partials still add.
 //
 // Bound on the H100: a few flops per element against one read of x, so it
 // is bound by device-memory bytes (B N C x its element size over 3.35 TB/s;
@@ -91,9 +101,9 @@
 // a scratch of its own and the stream.  k2_group_norm launches K1 and then
 // K2 on the stream, with the coefficients in that scratch.
 //
-// ptxas (-Xptxas -v, sm_90a, CUDA 12.9) prints both kernels' registers in
-// chip_smoke.py's build phase.  K1: 32 to 71 registers (71 for bf16 with
-// 16-byte loads), no spills; 16 bytes of static shared memory beside the
+// ptxas (-Xptxas -v, sm_90a) prints both kernels' registers in
+// chip_smoke.py's build phase.  K1: 40 to 64 registers (64 for bf16 with
+// 16-byte loads, the pivots included), no spills; 16 bytes of static shared memory beside the
 // dynamic (2 TY C + 2 G) floats, 16 KB to 24 KB at the path's shapes.  K2:
 // 30 to 58 registers (54 to 58 for bf16 with 16-byte loads), no spills, no
 // shared memory.
@@ -176,11 +186,15 @@ __global__ void group_norm_stats_kernel(const T* __restrict__ x, int N, int C,
   const int cs = C / G;
   const int n1 = min(N, (sp + 1) * rows_per_split);
 
-  // 1. this thread's rows of its channel chunk
-  float s1[VEC], s2[VEC];
+  // 1. this thread's rows of its channel chunk, less its groups' pivots
+  const T* x0 = x + static_cast<ll>(b) * N * C;
+  float s1[VEC], s2[VEC], pv[VEC];
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) s1[i] = s2[i] = 0.f;
-  const T* xb = x + static_cast<ll>(b) * N * C + tx * VEC;
+  for (int i = 0; i < VEC; ++i) {
+    s1[i] = s2[i] = 0.f;
+    pv[i] = to_f(x0[(tx * VEC + i) / cs * cs]);
+  }
+  const T* xb = x0 + tx * VEC;
   int n = sp * rows_per_split + ty;
   for (; n + (UNROLL - 1) * TY < n1; n += UNROLL * TY) {
     float v[UNROLL][VEC];
@@ -191,8 +205,9 @@ __global__ void group_norm_stats_kernel(const T* __restrict__ x, int N, int C,
     for (int u = 0; u < UNROLL; ++u)
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
-        s1[i] += v[u][i];
-        s2[i] = fmaf(v[u][i], v[u][i], s2[i]);
+        const float d = v[u][i] - pv[i];
+        s1[i] += d;
+        s2[i] = fmaf(d, d, s2[i]);
       }
   }
   for (; n < n1; n += TY) {
@@ -200,8 +215,9 @@ __global__ void group_norm_stats_kernel(const T* __restrict__ x, int N, int C,
     load_vec<T, VEC>(xb + static_cast<ll>(n) * C, v);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      s1[i] += v[i];
-      s2[i] = fmaf(v[i], v[i], s2[i]);
+      const float d = v[i] - pv[i];
+      s1[i] += d;
+      s2[i] = fmaf(d, d, s2[i]);
     }
   }
 
@@ -295,9 +311,9 @@ __global__ void group_norm_stats_kernel(const T* __restrict__ x, int N, int C,
       t1 += q1[j * G + g];
       t2 += q2[j * G + g];
     }
-    const float mean = t1 / p.cnt;
-    const float var = fmaxf(t2 / p.cnt - mean * mean, 0.f);
-    mean_s[g] = mean;
+    const float m = t1 / p.cnt;  // the mean less the pivot
+    const float var = fmaxf(t2 / p.cnt - m * m, 0.f);
+    mean_s[g] = to_f(x0[g * cs]) + m;
     rstd_s[g] = 1.f / sqrtf(var + p.eps);
   }
   __syncthreads();

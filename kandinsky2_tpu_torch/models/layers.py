@@ -80,7 +80,8 @@ class Conv2d(nn.Conv2d):
 
 
 class GroupNorm32(nn.Module):
-    """GroupNorm over the channel (last) axis with fp32 one-pass moments, an
+    """GroupNorm over the channel (last) axis with fp32 one-pass moments
+    (shifted by each group's first element, ``ops/group_norm.py``), an
     optional FiLM ``norm(x)·(1+scale)+shift`` folded into the coefficients,
     and optional SiLU (nn.py:26-37).  Runs the GroupNorm kernel pair
     (``ops/group_norm.py``) on a CUDA tensor."""

@@ -1,8 +1,10 @@
-"""Text and image encoder towers of the 2.1 path, the counterpart of
+"""Text and image encoder towers, the counterpart of
 ``kandinsky2_tpu/models/text_encoders.py``: XLM-RoBERTa + MultilingualCLIP
-behind ``TextEncoder`` ('multiclip'), and the OpenAI CLIP text tower and
-ViT.  Their attention is masked or short, so it stays plain PyTorch with the
-JAX package's semantics (fp32 logits and softmax).
+behind ``TextEncoder`` ('multiclip'), the OpenAI CLIP text tower and ViT of
+2.1, and the HF-layout CLIP vision tower with projection of 2.2
+(``HFCLIPVision``, ViT-bigG-14).  Their attention is masked or short, so it
+stays plain PyTorch with the JAX package's semantics (fp32 logits and
+softmax).
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ NEG_INF = torch.finfo(torch.float32).min
 
 def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
+
+
+def exact_gelu(x):
+    return F.gelu(x)
 
 
 def _mha(q, k, v, heads, mask=None):
@@ -242,3 +248,71 @@ class CLIPViT(nn.Module):
             x = blk(x)
         x = self.ln_post(x[:, 0])
         return x.float() @ self.proj.float()
+
+
+class _HFCLIPLayer(nn.Module):
+    """HF CLIPEncoderLayer: pre-LN, separate q/k/v projections, an MLP with
+    ``act`` (exact GELU for ViT-bigG)."""
+
+    def __init__(self, hidden, heads, intermediate, act=exact_gelu, eps=1e-5,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.heads, self.act = heads, act
+        self.layer_norm1 = LayerNormF32(hidden, eps, device=device)
+        self.self_attn = Container(
+            q_proj=Linear(hidden, hidden, **kw), k_proj=Linear(hidden, hidden, **kw),
+            v_proj=Linear(hidden, hidden, **kw), out_proj=Linear(hidden, hidden, **kw))
+        self.layer_norm2 = LayerNormF32(hidden, eps, device=device)
+        self.mlp = Container(fc1=Linear(hidden, intermediate, **kw),
+                             fc2=Linear(intermediate, hidden, **kw))
+
+    def forward(self, x, mask=None):
+        h = self.layer_norm1(x)
+        at = self.self_attn
+        a = _mha(at.q_proj(h), at.k_proj(h), at.v_proj(h), self.heads, mask)
+        x = x + at.out_proj(a)
+        return x + self.mlp.fc2(self.act(self.mlp.fc1(self.layer_norm2(x))))
+
+
+class HFCLIPVision(nn.Module):
+    """HF ``CLIPVisionModelWithProjection`` layout (the 2.2 image encoder);
+    the defaults are ViT-bigG-14 with projection_dim 1280.  NHWC images
+    already CLIP-normalised -> the projected embedding [B, projection_dim]
+    in fp32."""
+
+    def __init__(self, image_size=224, patch_size=14, hidden=1664, layers=48,
+                 heads=16, intermediate=8192, projection_dim=1280, act=exact_gelu,
+                 eps=1e-5, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.hidden = hidden
+        self.image_size = image_size
+        n_pos = (image_size // patch_size) ** 2 + 1
+        embeddings = Container(
+            patch_embedding=Conv2d(3, hidden, patch_size, stride=patch_size, padding=0,
+                                   bias=False, dtype=dtype, device=device),
+            position_embedding=nn.Embedding(n_pos, hidden, device=device))
+        embeddings.class_embedding = nn.Parameter(torch.zeros(hidden, device=device))
+        self.vision_model = Container(
+            embeddings=embeddings,
+            pre_layrnorm=LayerNormF32(hidden, eps, device=device),
+            encoder=Container(layers=nn.ModuleList(
+                _HFCLIPLayer(hidden, heads, intermediate, act, eps, dtype, device)
+                for _ in range(layers))),
+            post_layernorm=LayerNormF32(hidden, eps, device=device))
+        self.visual_projection = Linear(hidden, projection_dim, bias=False,
+                                        device=device)
+
+    def forward(self, images):
+        vm = self.vision_model
+        B = images.shape[0]
+        x = vm.embeddings.patch_embedding(images.to(self.dtype)).reshape(B, -1, self.hidden)
+        cls = vm.embeddings.class_embedding.to(x.dtype).expand(B, 1, self.hidden)
+        x = torch.cat([cls, x], dim=1)
+        x = x + vm.embeddings.position_embedding.weight.to(x.dtype)[None]
+        x = vm.pre_layrnorm(x)
+        for layer in vm.encoder.layers:
+            x = layer(x)
+        pooled = vm.post_layernorm(x[:, 0])
+        return self.visual_projection(pooled.float())

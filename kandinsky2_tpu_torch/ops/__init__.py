@@ -8,7 +8,7 @@ functions from them.)
 
 from . import flash_attention as _flash
 from . import group_norm as _group_norm
-from .attention import qkv_attention
+from .attention import added_kv_attention, qkv_attention
 
 KERNEL_WRAPPERS = {
     "group_norm_stats": _group_norm.group_norm_stats,

@@ -19,6 +19,13 @@ rule never catches a kernel error: the kernel wrappers still raise for
 what they do not take.  ``qkv_attention.plain_on_card`` counts the calls
 on CUDA tensors that took ``reference_attention``, so a bf16 path can be
 held to the kernels alone.
+
+``added_kv_attention`` serves the 2.2 UNet's ``AddedKVAttention``
+(``kandinsky2_tpu/models/unet22.py``), whose own semantics are K3's: fp32
+logits with one 1/√d scale, fp32 softmax, P cast to v's dtype before P·V.
+It takes the same route to the kernels; what they do not take runs
+``added_kv_reference_attention``, those semantics in plain PyTorch, and
+counts in the same ``qkv_attention.plain_on_card``.
 """
 
 from __future__ import annotations
@@ -70,3 +77,23 @@ def qkv_attention(
 
 
 qkv_attention.plain_on_card = 0
+
+
+def added_kv_reference_attention(q, k, v):
+    """q: [B, T, H, c], k/v: [B, S, H, c].  ``AddedKVAttention``'s attention
+    in the JAX package: logits of the activations summed in fp32, one
+    1/√c scale, fp32 softmax, P cast to v's dtype before P·V."""
+    logits = torch.einsum("bthc,bshc->bhts", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhts,bshc->bthc", w, v)
+
+
+def added_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The 2.2 UNet's unmasked attention, q [B, T, H, c], k/v [B, S, H, c]
+    (S = T + the image tokens): K3 where ``use_flash_kernel`` sends it,
+    else ``added_kv_reference_attention``."""
+    if use_flash_kernel(q, k, v):
+        return flash_attention(q, k, v)[0]
+    if q.is_cuda:
+        qkv_attention.plain_on_card += 1
+    return added_kv_reference_attention(q, k, v)

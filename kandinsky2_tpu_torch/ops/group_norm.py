@@ -5,10 +5,12 @@ Replaces the Pallas TPU pair of ``kandinsky2_tpu/ops/group_norm.py``:
 
 * K1 ``group_norm_stats`` replaces ``_moments`` (``_moments_kernel``) and
   the XLA glue ``_coefficients`` after it: one CUDA C++ launch reads x
-  [B, N, C] once, sums Σx and Σx² in fp32, finishes the cross-block
+  [B, N, C] once, sums x − p and (x − p)² in fp32 (p, the pivot, is each
+  group's first element of the batch row), finishes the cross-block
   reduction itself, and writes per-(b, c) fp32 coefficients a, b with the
-  group statistics (var = max(E[x²] − mean², 0), rsqrt(var + eps)), the
-  affine scale/bias and the FiLM pair (1 + fs, fb) folded in.
+  group statistics (mean = p + m, var = max(E[(x − p)²] − m², 0) with
+  m = E[x − p], then rsqrt(var + eps)), the affine scale/bias and the FiLM
+  pair (1 + fs, fb) folded in.
 * K2 ``group_norm_apply`` replaces ``_apply`` (``_apply_kernel``): one CUDA
   C++ launch computes y = x·a + b in fp32, then y·sigmoid(swish·y) where
   swish != 0, and rounds once to x's dtype.
@@ -30,6 +32,15 @@ the tests and the chip script.
 K1's sums are taken in an order fixed by the shape, so its a and b are
 bitwise repeatable; against the plain version they differ by fp32
 summation order only, a relative error of about 1e-6·√N on the moments.
+
+The shifted sums depart from the JAX package, whose ``_moments`` and
+``_coefficients`` take the one-pass E[x²] − mean² in fp32: that form
+cancels as (mean/std)² and loses about 5e-2 of the norm where a group's
+mean lies 1000 standard deviations from zero, while the shifted form
+cancels as ((mean − p)/std)², small for a pivot taken from the group.
+It stays one pass over x, and every block of a batch row shares the
+pivots, so its partial sums still add.  At ordinary activations the two
+agree to fp32 rounding.
 
 Gradients: ``GroupNormFunction`` is the counterpart of the ``custom_vjp``
 of ``pallas_group_norm``.  Its forward is K1 + K2 and saves only the
@@ -85,20 +96,24 @@ def _check_cuda(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: needs a contiguous [B, N, C] tensor")
 
 
-def group_norm_moments_plain(x3: torch.Tensor):
-    """(Σx, Σx²) over N of x3 [B, N, C], each [B, C] fp32."""
-    x32 = x3.float()
-    return x32.sum(1), (x32 * x32).sum(1)
+def group_norm_moments_plain(x3: torch.Tensor, num_groups: int):
+    """(pivots [B, G], Σ(x − p), Σ(x − p)² over N [B, C]) of x3 [B, N, C],
+    in fp32: K1's pivot p is each group's first channel at row 0, detached,
+    since the norm does not depend on it."""
+    cs = x3.shape[2] // num_groups
+    p = x3[:, 0, ::cs].detach().float()
+    d = x3.float() - p.repeat_interleave(cs, dim=-1)[:, None]
+    return p, d.sum(1), (d * d).sum(1)
 
 
-def _coefficients(s1, s2, cnt, scale, bias, film, g, eps):
-    """Group-combine the moments and fold everything affine into per-channel
-    a, b ([B, C] fp32)."""
+def _coefficients(p, s1, s2, cnt, scale, bias, film, g, eps):
+    """Group-combine the shifted moments (pivots ``p`` [B, G]) and fold
+    everything affine into per-channel a, b ([B, C] fp32)."""
     B, C = s1.shape
     cs = C // g
-    mean_g = s1.reshape(B, g, cs).sum(-1) / cnt
-    ex2_g = s2.reshape(B, g, cs).sum(-1) / cnt
-    var_g = torch.clamp(ex2_g - mean_g * mean_g, min=0.0)
+    m_g = s1.reshape(B, g, cs).sum(-1) / cnt
+    mean_g = p + m_g
+    var_g = torch.clamp(s2.reshape(B, g, cs).sum(-1) / cnt - m_g * m_g, min=0.0)
     inv_c = torch.rsqrt(var_g + eps).repeat_interleave(cs, dim=-1)
     mean_c = mean_g.repeat_interleave(cs, dim=-1)
     a = inv_c * scale.float()
@@ -112,11 +127,11 @@ def _coefficients(s1, s2, cnt, scale, bias, film, g, eps):
 
 
 def group_norm_stats_plain(x3, scale, bias, film, num_groups: int, eps: float):
-    """K1's function in plain PyTorch: the moments, then ``_coefficients``.
-    Returns (a, b), each [B, C] fp32."""
-    s1, s2 = group_norm_moments_plain(x3)
+    """K1's function in plain PyTorch: the shifted moments, then
+    ``_coefficients``.  Returns (a, b), each [B, C] fp32."""
+    p, s1, s2 = group_norm_moments_plain(x3, num_groups)
     cnt = float(x3.shape[1] * (x3.shape[2] // num_groups))
-    return _coefficients(s1, s2, cnt, scale, bias, film, num_groups, eps)
+    return _coefficients(p, s1, s2, cnt, scale, bias, film, num_groups, eps)
 
 
 def group_norm_apply_plain(x3, a, b, swish: float):
@@ -438,7 +453,7 @@ class GroupNormFunction(torch.autograd.Function):
 def group_norm(x, scale, bias, num_groups: int, eps: float, swish: float = 0.0,
                film=None):
     """GroupNorm over the last (channel) axis of x [B, ..., C], one-pass fp32
-    moments, optional FiLM ``film=(fs, fb)`` ([B, C] or [B, 1, 1, C]) and
+    moments shifted by each group's first element, optional FiLM ``film=(fs, fb)`` ([B, C] or [B, 1, 1, C]) and
     SiLU; output in x's dtype.  Routes to K1 + K2 through
     ``GroupNormFunction``, so it is differentiable on every device; with
     grad mode off (serving runs under ``inference_mode``) it calls them

@@ -92,10 +92,11 @@ def clip_preprocess(pil_image, image_size: int = 224) -> np.ndarray:
 RESIDUAL_OUTPUTS = ("out_layers.3", "proj_out", "conv2")
 
 
-def init_random_(module: nn.Module, generator: torch.Generator) -> None:
+def init_random_(module: nn.Module, generator: torch.Generator,
+                 residual_outputs=RESIDUAL_OUTPUTS) -> None:
     """Draw every parameter from ``generator``: weights of linear layers and
     convolutions ~ N(0, 1/fan_in), a tenth of that for the residual
-    branches' last layers (``RESIDUAL_OUTPUTS``; the UNet's output conv is
+    branches' last layers (``residual_outputs``; the UNet's output conv is
     drawn in full, so its output is not identically zero), biases and
     embeddings ~ N(0, 0.02²), other free parameters ~ N(0, 0.01²) or
     N(0, 1/rows) for projection matrices; norms keep weight 1, bias 0."""
@@ -108,7 +109,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     for mod_name, mod in module.named_modules():
         if isinstance(mod, (GroupNorm32, LayerNormF32)):
             continue
-        gain = 0.1 if mod_name.endswith(RESIDUAL_OUTPUTS) else 1.0
+        gain = 0.1 if mod_name.endswith(residual_outputs) else 1.0
         for name, p in mod.named_parameters(recurse=False):
             if name == "bias":
                 draw(p, 0.02)

@@ -1,7 +1,8 @@
-"""Host-side helpers of 2.1 inference, copied from
+"""Host-side helpers of 2.1 and 2.2 inference, copied from
 ``kandinsky2_tpu/utils.py`` (which imports the JAX diffusion package):
 prompts, injected noise, the init image and mask of img2img and
-inpainting, and the conversion of the images to PIL."""
+inpainting, the stand-in tokenizers of runs with random weights, and the
+conversion of the images to PIL."""
 
 from __future__ import annotations
 
@@ -120,6 +121,30 @@ def stub_tokenizers(vocab_size: int = 250002):
             return toks, mask
 
     return HFTok(), BPETok()
+
+
+def stub_tokenizer22(vocab_size: int = 49408, eot_token_id: int | None = None):
+    """A deterministic stand-in for the 2.2 prior's CLIP BPE tokenizer, for
+    runs with random weights: each prompt's ids end with the end-of-text id
+    (``vocab_size - 1`` by default, 49407 for CLIP), where ``HFCLIPText``
+    pools; the other ids stay below ``vocab_size - 4``.  The same as
+    ``tests/test_pipeline22.py``'s at its tiny vocabulary."""
+    eot = vocab_size - 1 if eot_token_id is None else eot_token_id
+    id_range = min(49000, vocab_size - 4)
+
+    class BPETok:
+        def padded_tokens_and_mask(self, texts, ctx):
+            n = len(texts)
+            toks = np.zeros((n, ctx), np.int32)
+            mask = np.zeros((n, ctx), bool)
+            for i, t in enumerate(texts):
+                L = min(ctx, 2 + len(t))
+                toks[i, :L - 1] = 1 + (np.arange(L - 1) % id_range)
+                toks[i, L - 1] = eot
+                mask[i, :L] = True
+            return toks, mask
+
+    return BPETok()
 
 
 def process_images(batch: np.ndarray):

@@ -143,3 +143,63 @@ def test_text2img_bf16_matches_jax(pipes, monkeypatch):
           f"(tol {BF16_TOL['text2img']})")
     assert np.std(got) > 1e-3
     assert rel <= BF16_TOL["text2img"], f"text2img: {rel:.3e}"
+
+
+# --- Kandinsky 2.2 ------------------------------------------------------------
+
+# relative L2 of the port against JAX, both bf16, at test_pipeline22.py's
+# TINY shape with 64-wide UNet heads: about twice the value measured on the
+# CPU, which follows each entry
+BF16_TOL22 = {
+    "unet22": 3.5e-2,  # 1.735e-2
+    "text2img22": 7.5e-2,  # 3.744e-2
+}
+
+
+@pytest.fixture(scope="module")
+def pipes22():
+    from test_torch_common import parity_pipelines22
+
+    jp, tp, _ = parity_pipelines22(head_channels=64, jax_dtype=jnp.bfloat16,
+                                   torch_dtype=torch.bfloat16)
+    return jp, tp
+
+
+def test_unet22_forward_bf16_matches_jax(pipes22):
+    """The 2.2 UNet, its added-KV attention on K3's route (the kernel's plain
+    version on the CPU in bf16)."""
+    jp, tp = pipes22
+    rng = np.random.RandomState(6)
+    x = rng.randn(2, 8, 8, 4).astype(np.float32)
+    t = np.array([981.0, 301.0], np.float32)
+    emb = rng.randn(2, jp.unet.encoder_hid_dim).astype(np.float32)
+    want = jax.jit(lambda p, *a: jp.unet.apply({"params": p}, *a))(
+        jp.params["unet"], x, t, emb)
+    with torch.inference_mode():
+        got = tp.unet(*(torch.from_numpy(a) for a in (x, t, emb)))
+    rel = _rel_l2(got.float().numpy(), np.asarray(want, np.float32))
+    print(f"bf16 port vs bf16 JAX: unet22 rel_l2 {rel:.3e} (tol {BF16_TOL22['unet22']})")
+    assert rel <= BF16_TOL22["unet22"], f"unet22: {rel:.3e}"
+
+
+def test_text2img22_bf16_matches_jax(pipes22, monkeypatch):
+    """The small 2.2 text2img path: 5 prior and 10 decoder DDPM steps under
+    CFG 4, every noise injected."""
+    import kandinsky2_tpu.pipelines.kandinsky2_2 as jpipe22
+
+    jp, tp = pipes22
+    monkeypatch.setattr(jpipe22, "process_images", np.asarray)
+    rng = np.random.RandomState(7)
+    D = jp.prior.embedding_dim
+    kw = dict(decoder_steps=10, prior_steps=5, h=64, w=64,
+              noise=rng.randn(1, 8, 8, 4).astype(np.float32),
+              noise_seq=rng.randn(10, 1, 8, 8, 4).astype(np.float32),
+              prior_noise=rng.randn(1, D).astype(np.float32),
+              prior_noise_seq=rng.randn(5, 1, D).astype(np.float32))
+    want = np.asarray(jp.generate_text2img("red sand dunes under a violet sky", **kw))
+    got = tp.generate_text2img("red sand dunes under a violet sky", output="float", **kw)
+    rel = _rel_l2(got, want)
+    print(f"bf16 port vs bf16 JAX: 2.2 text2img 10 DDPM steps rel_l2 {rel:.3e} "
+          f"(tol {BF16_TOL22['text2img22']})")
+    assert np.std(got) > 1e-3
+    assert rel <= BF16_TOL22["text2img22"], f"text2img22: {rel:.3e}"

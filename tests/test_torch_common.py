@@ -199,3 +199,134 @@ def inject_decoder_noise(monkeypatch, pipe, seed: int):
         return inner(*args, noise=noise, h=h, w=w, batch_size=batch_size, **kw)
 
     monkeypatch.setattr(pipe, "generate_img", generate_img)
+
+
+# --- the 2.2 pipeline in both frameworks --------------------------------------
+
+# tests/test_pipeline22.py's TINY overrides
+TINY22 = dict(
+    image_encoder=dict(image_size=28, patch_size=14, hidden=32, layers=2, heads=4,
+                       intermediate=64, projection_dim=32),
+    text_encoder=dict(vocab_size=64, context_length=8, hidden=32, layers=2, heads=4,
+                      intermediate=64, projection_dim=32, eot_token_id=63),
+    prior=dict(num_attention_heads=4, attention_head_dim=16, num_layers=2,
+               embedding_dim=32, num_embeddings=8),
+    unet=dict(block_out_channels=(32, 64), layers_per_block=1, attention_head_dim=32,
+              cross_attention_dim=32, encoder_hid_dim=32, num_image_tokens=2),
+    movq=dict(z_channels=4, embed_dim=4, n_embed=32, ch=32, ch_mult=(1, 1, 1, 2),
+              num_res_blocks=1, attn_resolutions=(8,), resolution=64),
+)
+
+
+def tiny22(head_channels=32):
+    """TINY22, or its variant with 64-wide UNet heads (the width K3 takes)."""
+    if head_channels == 32:
+        return TINY22
+    unet = dict(TINY22["unet"], block_out_channels=(64, 128), attention_head_dim=64)
+    return dict(TINY22, unet=unet)
+
+
+def parity_pipelines22(task_type="text2img", seed=21, head_channels=32,
+                       jax_dtype=None, torch_dtype=torch.float32, unet_out_scale=1.0):
+    """(JAX Kandinsky2_2, port Kandinsky2_2 on the CPU, params) at
+    ``tiny22(head_channels)`` with the same numpy-seeded parameters and the
+    port's 2.2 stand-in tokenizer (the JAX test's ``StubBPE``); the MoVQ's
+    output conv scaled by 0.01 as in ``parity_pipelines``, the UNet's by
+    ``unet_out_scale``."""
+    import jax.numpy as jnp
+
+    from kandinsky2_tpu.pipelines.kandinsky2_2 import Kandinsky2_2 as J22
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_2 as T22
+    from kandinsky2_tpu_torch.utils import stub_tokenizer22
+
+    ov = tiny22(head_channels)
+    tok = stub_tokenizer22(ov["text_encoder"]["vocab_size"])
+    jp = J22(task_type=task_type, tokenizer=tok, dtype=jax_dtype or jnp.float32,
+             overrides=ov)
+    params = numpy_params(
+        jax.eval_shape(jp.init_random_params, jax.random.PRNGKey(0)), seed)
+    # clip_std drawn around 1, as the port's init_random_params draws it
+    params["prior"]["clip_std"] = np.abs(1.0 + params["prior"]["clip_std"])
+    conv_out = params["movq"]["decoder"]["conv_out"]
+    conv_out["kernel"] = conv_out["kernel"] * np.float32(0.01)
+    unet_out = params["unet"]["conv_out"]
+    unet_out["kernel"] = unet_out["kernel"] * np.float32(unet_out_scale)
+    jp.params = jax.tree_util.tree_map(jnp.asarray, params)
+    tp = T22(task_type=task_type, tokenizer=tok, dtype=torch_dtype, overrides=ov,
+             device="cpu")
+    tp.load_jax_params(params)
+    return jp, tp, params
+
+
+def capture_jax_floats22(monkeypatch):
+    """``capture_jax_floats`` for the JAX 2.2 pipeline."""
+    import kandinsky2_tpu.pipelines.kandinsky2_2 as jpipe22
+
+    to_pil = jpipe22.process_images
+
+    def process_images(batch):
+        out = JaxImages(to_pil(batch))
+        out.floats = np.asarray(batch, np.float32)
+        return out
+
+    monkeypatch.setattr(jpipe22, "process_images", process_images)
+
+
+def inject_prior22(monkeypatch, pipe, seed: int):
+    """Fill the x_T (and, on the ddpm ladder, the per-step noise) that a 2.2
+    pipeline's ``run_prior`` would draw from a numpy seed wherever the
+    caller passes none, the same draws in the same order on both sides."""
+    rng = np.random.RandomState(seed)
+    inner = pipe.run_prior
+    D = pipe.prior.embedding_dim
+
+    def run_prior(prompt, batch_size=1, prior_steps=25, guidance_scale=4,
+                  negative_prompt="", sampler="ddpm", noise=None, noise_seq=None, **kw):
+        x_T = rng.randn(batch_size, D).astype(np.float32)
+        seq = (rng.randn(prior_steps, batch_size, D).astype(np.float32)
+               if sampler == "ddpm" else None)
+        return inner(prompt, batch_size, prior_steps, guidance_scale, negative_prompt,
+                     sampler=sampler, noise=x_T if noise is None else noise,
+                     noise_seq=seq if noise_seq is None else noise_seq, **kw)
+
+    monkeypatch.setattr(pipe, "run_prior", run_prior)
+
+
+def inject_decoder22(monkeypatch, pipe, seed: int, to_tensor=False):
+    """Fill the x_T and the ddpm per-step noise that a 2.2 pipeline's
+    ``_decode_loop`` would draw from a numpy seed wherever the caller passes
+    none (``to_tensor`` for the port, whose loop takes tensors)."""
+    rng = np.random.RandomState(seed)
+    inner = pipe._decode_loop
+
+    def _decode_loop(image_embeds, batch_size, steps, guidance, h, w, x_T=None,
+                     ladder=None, sampler="ddpm", noise_seq=None, **kw):
+        if x_T is None:
+            x_T = rng.randn(batch_size, h // 8, w // 8, 4).astype(np.float32)
+            if to_tensor:
+                x_T = torch.from_numpy(x_T)
+        n = steps if ladder is None else len(ladder)
+        if noise_seq is None and sampler == "ddpm":
+            noise_seq = rng.randn(n, *x_T.shape).astype(np.float32)
+        return inner(image_embeds, batch_size, steps, guidance, h, w, x_T=x_T,
+                     ladder=ladder, sampler=sampler, noise_seq=noise_seq, **kw)
+
+    monkeypatch.setattr(pipe, "_decode_loop", _decode_loop)
+
+
+def flash_route(monkeypatch):
+    """Send every unmasked fp32 attention of the port's 2.2 UNet down K3's
+    route (the kernel's plain version on the CPU), which the routing rule
+    keeps for bf16; returns the list of the routed calls' (q, k) shapes."""
+    from kandinsky2_tpu_torch.ops import attention as tattn
+
+    calls = []
+    plain = tattn.flash_attention
+
+    def counted(q, k, v):
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return plain(q, k, v)
+
+    monkeypatch.setattr(tattn, "use_flash_kernel", lambda q, k, v: True)
+    monkeypatch.setattr(tattn, "flash_attention", counted)
+    return calls

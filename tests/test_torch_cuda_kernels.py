@@ -1,7 +1,7 @@
 """The port's hand-written kernels against their plain PyTorch versions on
-the card, at the shapes of the 768² 2.1 text2img path and of the decoder
-training step, in bf16; and the autograd Functions that carry gradients
-through them.
+the card, at the shapes of the 768² 2.1 and 2.2 text2img paths and of the
+decoder training step, in bf16; GroupNorm against fp64 far from zero mean;
+and the autograd Functions that carry gradients through them.
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run where JAX is not installed, without the JAX-pinning conftest:
@@ -142,6 +142,47 @@ def test_flash_kernel_matches_plain(gen, B, T, S, H, d):
     o_max = o_ref.float().abs().max().item()
     assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2 * o_max
     assert (lse - lse_ref).abs().max().item() <= 1e-3 * lse_ref.abs().max().item()
+
+
+@pytest.mark.parametrize("B,T,n_tokens,H", [
+    (2, 2304, 10, 12), (2, 576, 10, 20), (2, 144, 10, 24)])
+def test_flash_kernel_on_the_added_kv_attention(gen, B, T, n_tokens, H):
+    """K3 as the 2.2 UNet's ``AddedKVAttention`` calls it at 768²: k and v
+    the concatenation [image tokens; spatial], S = T + 10 (ragged against
+    the 64-row tiles), through ``added_kv_attention``, against the plain
+    version and the added-KV formula."""
+    from kandinsky2_tpu_torch.ops.attention import (
+        added_kv_attention,
+        added_kv_reference_attention,
+    )
+
+    q, k, v, ek, ev = (torch.randn((B, L, H, 64), generator=gen, device="cuda")
+                       .to(torch.bfloat16) for L in (T, T, T, n_tokens, n_tokens))
+    k, v = torch.cat([ek, k], dim=1), torch.cat([ev, v], dim=1)
+    before = flash_attention_fwd.launches
+    with torch.inference_mode():
+        o = added_kv_attention(q, k, v)
+    assert flash_attention_fwd.launches == before + 1
+    o_ref, _ = flash_attention_plain(q, k, v)
+    ref = added_kv_reference_attention(q, k, v)
+    torch.cuda.synchronize()
+    o_max = o_ref.float().abs().max().item()
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2 * o_max
+    assert (o.float() - ref.float()).abs().max().item() <= 2e-2 * o_max
+
+
+def test_group_norm_far_from_zero_mean_against_fp64(gen):
+    """K1 + K2 in fp32 where each group's mean lies 1000 standard deviations
+    from zero: within 1e-4 relative L2 of fp64 ``group_norm`` on the same
+    input (the shifted sums; the one-pass form reached 5.5e-2)."""
+    B, N, C = 2, 96 * 96, 384
+    x = torch.randn((B, N, C), generator=gen, device="cuda") + 1000.0
+    one, zero = torch.ones(C, device="cuda"), torch.zeros(C, device="cuda")
+    with torch.inference_mode():
+        y = tgn.group_norm(x, one, zero, 32, 1e-5)
+    truth = torch.nn.functional.group_norm(
+        x.double().permute(0, 2, 1), 32, eps=1e-5).permute(0, 2, 1)
+    assert ((y.double() - truth).norm() / truth.norm()).item() <= 1e-4
 
 
 def test_flash_kernel_reads_the_unet_q_view_in_place(gen):

@@ -3,7 +3,12 @@ the full ``CONFIG_2_1`` width on the meta device (nothing allocated) against
 the JAX trees from ``jax.eval_shape`` of ``init``.  The bridge must map every
 JAX leaf onto a port key of the transposed shape, and fill every port key:
 for the MoVQ that includes the encoder, ``quant_conv`` and ``quantize``;
-the inpainting UNet (``InpaintText2ImUNet21``) is checked beside them."""
+the inpainting UNet (``InpaintText2ImUNet21``) is checked beside them.  The
+same for the five 2.2 models at the vendored published configuration
+(``weights/configs22.pipeline_overrides``), with their parameter counts,
+and the 2.2 inpainting and ControlNet UNets."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -66,3 +71,68 @@ def test_fullsize_bridge_covers_model(pipes, name):
         for prefix in ("encoder.", "quant_conv.", "quantize.", "decoder."):
             assert any(k.startswith(prefix) for k in mapping), prefix
         assert target["quantize.embedding.weight"] == (16384, 4)
+
+
+# --- Kandinsky 2.2 at the published configuration -------------------------------
+
+# parameters of each 2.2 model at the vendored configuration
+PARAMS22 = {"unet": 1_309_009_800, "movq": 67_832_495, "prior": 1_026_225_920,
+            "text_encoder": 694_659_840, "image_encoder": 1_844_907_264}
+
+
+@pytest.fixture(scope="module")
+def pipes22():
+    from kandinsky2_tpu.pipelines.kandinsky2_2 import Kandinsky2_2 as J22
+    from kandinsky2_tpu.weights import configs22 as jcfg
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_2 as T22
+    from kandinsky2_tpu_torch.weights import configs22 as tcfg
+
+    inits, models = {}, {}
+    for task in ("text2img", "inpainting", "controlnet"):
+        jp = J22(task_type=task, dtype=jnp.float32,
+                 overrides=jcfg.pipeline_overrides(None, None, task))
+        tp = T22(task_type=task, overrides=tcfg.pipeline_overrides(task),
+                 device="meta")
+        z = jnp.zeros
+        hint = {"hint": z((1, 64, 64, 3))} if task == "controlnet" else {}
+        x_ch = jp.unet.in_channels - (4 if task == "controlnet" else 0)
+        unet_init = (lambda jp, x_ch, hint: lambda k: jp.unet.init(
+            k, z((1, 8, 8, x_ch)), z((1,)), z((1, jp.unet.encoder_hid_dim)), **hint))(
+            jp, x_ch, hint)
+        if task != "text2img":
+            inits["unet_" + task] = unet_init
+            models["unet_" + task] = tp.unet
+            continue
+        D, ctx = jp.prior.embedding_dim, jp.text_encoder.context_length
+        inits.update({
+            "unet": unet_init,
+            "movq": lambda k: jp.movq.init(k, z((1, 64, 64, 3))),
+            "prior": lambda k: jp.prior.init(
+                k, z((1, D)), z((1,)), z((1, D)),
+                z((1, jp.prior.num_embeddings, jp.text_encoder.hidden)),
+                jnp.ones((1, jp.prior.num_embeddings), bool)),
+            "text_encoder": lambda k: jp.text_encoder.init(k, z((1, ctx), jnp.int32)),
+            "image_encoder": lambda k: jp.image_encoder.init(k, z((1, 224, 224, 3))),
+        })
+        models.update(tp.models())
+    return inits, models
+
+
+@pytest.mark.parametrize("name", list(PARAMS22) + ["unet_inpainting", "unet_controlnet"])
+def test_fullsize_bridge_covers_model22(pipes22, name):
+    inits, models = pipes22
+    shapes = jax.eval_shape(inits[name], jax.random.PRNGKey(0))["params"]
+    target = {k: tuple(v.shape) for k, v in models[name].state_dict().items()}
+    mapping = plan(shapes, target)
+    assert set(mapping) == set(target)
+    n_params = sum(math.prod(s) for s in target.values())
+    if name in PARAMS22:
+        assert n_params == PARAMS22[name], n_params
+    if name == "unet_inpainting":  # latent 4 + masked latent 4 + mask 1
+        assert target["conv_in.weight"] == (384, 9, 3, 3)
+    if name == "unet_controlnet":  # latent 4 + the hint stack's 4
+        assert target["conv_in.weight"] == (384, 8, 3, 3)
+        assert target["add_embedding.input_hint_block.14.weight"] == (4, 256, 3, 3)
+    if name == "unet":
+        assert target["mid_block.attentions.0.add_k_proj.weight"] == (1536, 768)
+        assert target["encoder_hid_proj.image_embeds.weight"] == (7680, 1280)

@@ -50,12 +50,15 @@ def test_group_norm_matches_pallas_and_xla(film, swish, eps):
 
 
 def test_moments_and_apply_plain_pieces():
-    """K1's plain moments and K2 separately: per-channel sums and the fused
+    """K1's plain moments and K2 separately: per-channel sums less each
+    group's pivot (its first channel at row 0), and the fused
     multiply-add."""
     x, _, _, _ = _inputs(1, shape=(2, 40, 96))
-    s1, s2 = tgn.group_norm_moments_plain(torch.from_numpy(x))
-    np.testing.assert_allclose(s1.numpy(), x.sum(1), rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(s2.numpy(), (x * x).sum(1), rtol=1e-5, atol=1e-3)
+    p, s1, s2 = tgn.group_norm_moments_plain(torch.from_numpy(x), 32)
+    np.testing.assert_array_equal(p.numpy(), x[:, 0, ::3])
+    d = x - np.repeat(x[:, 0, ::3], 3, axis=-1)[:, None]
+    np.testing.assert_allclose(s1.numpy(), d.sum(1), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(s2.numpy(), (d * d).sum(1), rtol=1e-5, atol=1e-3)
     a = np.random.RandomState(2).randn(2, 96).astype(np.float32)
     b = np.random.RandomState(3).randn(2, 96).astype(np.float32)
     y = tgn.group_norm_apply(torch.from_numpy(x), torch.from_numpy(a),
@@ -255,3 +258,22 @@ def test_groupnorm32_module_matches_jax_pallas_route(pallas_norm, eps):
         got = tm(torch.from_numpy(x), film=(torch.from_numpy(fs), torch.from_numpy(fb)))
     assert_close(got, want, MODULE_TOL, "GroupNorm32")
 
+
+
+@pytest.mark.parametrize("mean_over_std", [1, 10, 100, 1000])
+def test_plain_group_norm_holds_far_from_zero_mean(mean_over_std):
+    """The plain GroupNorm (the CPU route, the backward's recompute and K1's
+    plain version) against fp64 ``torch.nn.functional.group_norm`` on the
+    same fp32 input, where every group's mean lies ``mean_over_std``
+    standard deviations from zero: within 1e-4 relative L2.  The shifted
+    sums keep it there; the one-pass E[x²] − mean² reached 5.5e-2 at
+    1000."""
+    B, N, C = 2, 48 * 48, 384
+    rng = np.random.RandomState(mean_over_std)
+    x = (rng.randn(B, N, C) * 0.5 + 0.5 * mean_over_std).astype(np.float32)
+    xt = torch.from_numpy(x)
+    got = tgn.group_norm_plain(xt, torch.ones(C), torch.zeros(C), 32, 1e-5)
+    truth = torch.nn.functional.group_norm(
+        xt.double().permute(0, 2, 1), 32, eps=1e-5).permute(0, 2, 1)
+    rel = ((got.double() - truth).norm() / truth.norm()).item()
+    assert rel <= 1e-4, f"mean/std {mean_over_std}: rel_l2 {rel:.3e}"
