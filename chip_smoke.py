@@ -14,7 +14,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels: each forward kernel against its plain PyTorch version on the
    card at the shapes of the 768² text2img paths of 2.1 and 2.2 (the 2.2
    UNet's GroupNorms, 2048 to 2816 channels wide where its up path
-   concatenates skips, and its added-KV attention, S = T + 10), bf16 (one
+   concatenates skips, and its added-KV attention, S = T + 10) and of the
+   512² 2.0 path (Text2ImUNet20's GroupNorms and attention, S = T + 154;
+   the KL-VAE decoder's GroupNorms up to [262144, 256] and its d = 512
+   mid attention), bf16 (one
    fp32 GroupNorm, the UNet output head), with the stated tolerance; K3's bf16 output and
    the reference's rounding (bf16 logits of d^-1/4 pre-scaled q and k)
    each against an fp32 truth, K3 no worse; and the path's own
@@ -98,6 +101,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    memory; a finite, non-constant image; the GroupNorm input shapes of one
    UNet22 call and that call's device ops; then one call under the
    profiler (device ops and time, idle share, the ``k22.*`` spans).
+11. 2.0 tasks, small: every Kandinsky 2.0 entry point at a small width
+   (``configs.small_config20`` with 64-wide UNet heads, so that K3 runs)
+   on the card (kernels, bf16) against the CPU (plain versions, fp32),
+   with phase 4's limit and every noise injected (the KL posterior's
+   too): text2img through DDIM at eta 0.05, the p_sampler, PLMS, DPM++ 2M
+   and its Karras grid, img2img at strength 0.7 and inpainting (both
+   512², as the reference's), and ``decode_latents``; each must launch K1,
+   K2 and K3 and no attention call on the card may take the plain route.
+12. 2.0 text2img, full width, this slice's main path: ``Kandinsky2`` at
+   CONFIG_2_0 (2.01B parameters: XLM-R large, mT5-small, Text2ImUNet20,
+   the KL-VAE) with random bf16 weights from a seeded generator and the
+   stand-in tokenizers, as ``generate_text2img(prompt)`` is called with
+   its own defaults: 512², DDIM 100 at eta 0.05, guidance 7, batch 1; one
+   warm-up and one timed call, during which K1 and K2 must launch
+   100 × 95 + 30 (the UNet calls and the KL-VAE decoder) and K3
+   100 × 22 + 1 times with no attention call on the card by the plain
+   route; peak memory; the GroupNorm input shapes of one UNet call and
+   its device ops; one call under the profiler (device ops and time, idle
+   share, the ``k20.*`` spans).  Then img2img at strength 0.7 (30 of the
+   100 steps, the KL encoder's 22 GroupNorms and 1 attention more) on that
+   pipeline and, that pipeline freed, inpainting on a
+   task_type="inpainting" one, each timed and pinned as in phase 5b
+   (unprofiled: the text2img call shows where a 2.0 image's time goes).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' results as JSON, and the line before that the card's name and
@@ -123,6 +149,13 @@ FORWARD_KERNELS = ("group_norm_stats", "group_norm_apply", "flash_attention_fwd"
 # (K1 and K2 each) and 22 attentions (K3), the MoVQ decoder 33 and 4, its
 # encoder 24 and 3
 UNET_LAUNCHES, DECODER_LAUNCHES, ENCODER_LAUNCHES = (95, 22), (33, 4), (24, 3)
+# the 2.0 KL-VAE's: its decoder 30 GroupNorms and 1 attention (the mid
+# block's), its encoder 22 and 1; Text2ImUNet20's torso is 2.1's (95, 22)
+KL_DECODER_LAUNCHES, KL_ENCODER_LAUNCHES = (30, 1), (22, 1)
+# phase 12's full-width 2.0 text2img: generate_text2img's own defaults,
+# 512², DDIM 100 at eta 0.05, guidance 7, batch 1
+T2I20 = dict(output="float")
+T2I20_STEPS, T2I20_SIZE = 100, 512
 # phase 5b's full-width tasks: 768², DDIM 50, prior "25", CFG 4 and 4
 FULL_TASK = dict(num_steps=50, guidance_scale=4, h=768, w=768, sampler="ddim_sampler",
                  prior_cf_scale=4, prior_steps="25", output="float")
@@ -257,14 +290,15 @@ def reset_path_counts() -> None:
     qkv_attention.plain_on_card = 0
 
 
-def check_full_launches(name: str, counts: dict, unet_calls: int, encoded: bool):
+def check_full_launches(name: str, counts: dict, unet_calls: int, encoded: bool,
+                        decoder=DECODER_LAUNCHES, encoder=ENCODER_LAUNCHES):
     """A full-width path's forward launches are exactly what its UNet calls
-    and MoVQ passes need, and no attention call on the card took the plain
-    route (every one went through K3)."""
+    and codec passes need (the MoVQ's by default, ``decoder`` and
+    ``encoder`` (GroupNorms, attentions) otherwise), and no attention call
+    on the card took the plain route (every one went through K3)."""
     from kandinsky2_tpu_torch.ops import qkv_attention
 
-    parts = [UNET_LAUNCHES] * unet_calls + [DECODER_LAUNCHES] \
-        + [ENCODER_LAUNCHES] * encoded
+    parts = [UNET_LAUNCHES] * unet_calls + [decoder] + [encoder] * encoded
     norms, attns = (sum(p[i] for p in parts) for i in (0, 1))
     want = {"group_norm_stats": norms, "group_norm_apply": norms,
             "flash_attention_fwd": attns}
@@ -287,6 +321,58 @@ def _print_times(name, label, times, bound_ms, bound_by):
           f"{times['plain']:.4f} ms library "
           f"{'none' if lib is None else f'{lib:.4f} ms'}; bound {bound_ms:.4f} ms "
           f"({bound_by}), {bound_ms / times['kernel']:.1%} of it")
+
+
+def groupnorm_tally(name, unet, call) -> dict:
+    """The GroupNorm input shapes of one ``call()`` of ``unet`` ([B, N, C],
+    dtype, FiLM or not, SiLU or not) and how many calls each had, from
+    forward pre-hooks on its ``GroupNorm32`` modules."""
+    from kandinsky2_tpu_torch.models.layers import GroupNorm32
+
+    tally = {}
+
+    def count(mod, args, kwargs):
+        x = args[0]
+        key = (f"[{x.shape[0]}, {x[0, ..., 0].numel()}, {x.shape[-1]}] "
+               f"{str(x.dtype)[6:]}{' FiLM' if kwargs.get('film') else ''}"
+               f"{' SiLU' if mod.swish else ''}")
+        tally[key] = tally.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(count, with_kwargs=True)
+             for m in unet.modules() if isinstance(m, GroupNorm32)]
+    try:
+        call()
+    finally:
+        for h in hooks:
+            h.remove()
+    print(f"{name}: GroupNorm calls per {type(unet).__name__} denoise call, "
+          f"{sum(tally.values())} in all, by input shape: " + "; ".join(
+              f"{k}: {n}" for k, n in sorted(tally.items(), key=lambda kv: -kv[1])))
+    return tally
+
+
+def profiled_image(torch, name, call, seconds, spans):
+    """One image (``call()``) under the profiler: the largest device
+    kernels, device ops and time, the idle share against the unprofiled
+    ``seconds`` and the device time of the ``spans`` ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels = [e for e in events if not e.is_user_annotation]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    stages = {e.key: e.device_time_total / 1e3 for e in events
+              if e.is_user_annotation and e.key.startswith(spans)}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"{name}: profiled call, device time by name (ms, calls): " + "; ".join(
+        f"{e.key[:50]} {e.self_device_time_total / 1e3:.1f} ({e.count})" for e in top))
+    print(f"{name}: profiled call {sum(e.count for e in kernels)} device ops, "
+          f"{dev_ms:.1f} ms of device time, device idle share "
+          f"{1 - dev_ms / 1e3 / seconds:.3f} of the unprofiled {seconds:.4f} s/image; "
+          f"spans (device ms) " + "; ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+    check(dev_ms > 0, f"{name}: the profiler saw no device time")
 
 
 def phase_kernels(torch, results):
@@ -320,6 +406,22 @@ def phase_kernels(torch, results):
             (9216, 768), (9216, 1152), (2304, 384), (2304, 1152), (2304, 1280),
             (2304, 1536), (2304, 2048), (576, 768), (576, 1280), (576, 1536), (576, 2048),
             (576, 2560), (576, 2816), (144, 1280), (144, 2816))),
+        # the 2.0 path at 512²: Text2ImUNet20 (2.1's torso, latent 64²,
+        # CFG batch 2) and the KL-VAE decoder, which no MoVQ layout covers
+        ("unet20 ds1", (2, 64 * 64, 384), torch.bfloat16),
+        ("unet20 ds2", (2, 32 * 32, 768), torch.bfloat16),
+        ("unet20 ds4", (2, 16 * 16, 1152), torch.bfloat16),
+        ("unet20 ds8", (2, 8 * 8, 1536), torch.bfloat16),
+        ("unet20 ds8 skip-concat", (2, 8 * 8, 3072), torch.bfloat16),
+        ("unet20 out.0 fp32", (2, 64 * 64, 384), torch.float32),
+        *((f"kl-vae [{n}, {c}]", (1, n, c), torch.bfloat16) for n, c in (
+            (4096, 512), (16384, 512), (65536, 512), (65536, 256), (262144, 256),
+            (262144, 128))),
+        # the KL-VAE encoder's two layouts that its decoder lacks: the first
+        # norm of the resblocks that widen 128 → 256 at 256² and 256 → 512 at
+        # 128² (img2img and inpainting encode the 512² image)
+        ("kl-vae enc [65536, 128]", (1, 65536, 128), torch.bfloat16),
+        ("kl-vae enc [16384, 256]", (1, 16384, 256), torch.bfloat16),
     ]
     for label, shape, dtype in norm_shapes:
         B, N, C = shape
@@ -444,6 +546,12 @@ def phase_kernels(torch, results):
         ("unet22 ds2 added-KV", (2, 2304, 2314, 12, 64)),
         ("unet22 ds4 added-KV", (2, 576, 586, 20, 64)),
         ("unet22 ds8/middle added-KV", (2, 144, 154, 24, 64)),
+        # the 2.0 UNet at 512²: 77 XLM-R and 77 mT5 tokens before the T
+        # spatial rows; the KL-VAE's mid attention, one head of 512
+        ("unet20 ds2", (2, 1024, 1178, 12, 64)),
+        ("unet20 ds4", (2, 256, 410, 18, 64)),
+        ("unet20 ds8/middle", (2, 64, 218, 24, 64)),
+        ("kl-vae attn", (1, 4096, 4096, 1, 512)),
     ]
     for label, (B, T, S, H, d) in attn_shapes:
         q, k, v = randn((B, T, H, d)), randn((B, S, H, d)), randn((B, S, H, d))
@@ -708,11 +816,14 @@ def phase_tasks_small(torch, np):
     del pairs
 
 
-def _timed_task(torch, np, name, call, smi, unet_calls):
+def _timed_task(torch, np, name, call, smi, unet_calls, size=768, spans="k21.",
+                decoder=DECODER_LAUNCHES, encoder=ENCODER_LAUNCHES, profiled=True):
     """One warm-up call, then one timed call with the launch counters and
-    the peak memory reset just before it; checks the image and that K1,
-    K2 and K3 ran exactly as often as ``unet_calls`` UNet calls and a MoVQ
-    encode and decode need.  Returns (launch counts, seconds)."""
+    the peak memory reset just before it; checks the size² image and that
+    K1, K2 and K3 ran exactly as often as ``unet_calls`` UNet calls and a
+    codec encode and decode need (the MoVQ's by default); then, if
+    ``profiled``, one call under the profiler with the ``spans`` stages.
+    Returns (launch counts, seconds)."""
     from kandinsky2_tpu_torch.ops import launch_counts
 
     t0 = time.perf_counter()
@@ -729,14 +840,17 @@ def _timed_task(torch, np, name, call, smi, unet_calls):
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"tasks full: {name} launches during the timed call {json.dumps(counts)}")
-    check(img.shape == (1, 768, 768, 3), f"{name}: image shape {img.shape}")
+    check(img.shape == (1, size, size, 3), f"{name}: image shape {img.shape}")
     check(bool(np.isfinite(img).all()), f"{name}: image has non-finite values")
     check(float(img.std()) > 0, f"{name}: image is constant")
     check(all(counts[n] > 0 for n in FORWARD_KERNELS), f"{name}: a kernel was not launched")
-    check_full_launches(f"tasks full: {name}", counts, unet_calls, encoded=True)
+    check_full_launches(f"tasks full: {name}", counts, unet_calls, encoded=True,
+                        decoder=decoder, encoder=encoder)
     print(f"tasks full: {name} image min {img.min():.4f} max {img.max():.4f} std "
           f"{img.std():.4f}; peak device memory {peak:.2f} GiB")
-    print(f"tasks full: {name} {seconds:.4f} s/image at 768^2, batch 1, bf16 on {smi}")
+    print(f"tasks full: {name} {seconds:.4f} s/image at {size}^2, batch 1, bf16 on {smi}")
+    if not profiled:
+        return counts, seconds
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -746,7 +860,7 @@ def _timed_task(torch, np, name, call, smi, unet_calls):
     kernels = [e for e in events if not e.is_user_annotation]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     stages = {e.key: e.device_time_total / 1e3 for e in events
-              if e.is_user_annotation and e.key.startswith("k21.")}
+              if e.is_user_annotation and e.key.startswith(spans)}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     print(f"tasks full: {name} profiled call {sum(e.count for e in kernels)} device "
           f"ops, {dev_ms:.1f} ms of device time, device idle share "
@@ -869,7 +983,6 @@ def phase_slice_profile(torch, pipe, kw, seconds, smi):
     print(f"slice: host time per call under inference_mode: group_norm "
           f"[2, 12, 12, 3072] FiLM SiLU {gn_us:.1f} us; flash_attention_fwd "
           f"B 2 T 144 S 231 H 24 {fa_us:.1f} us")
-    from kandinsky2_tpu_torch.models.layers import GroupNorm32
 
     # one CFG-doubled UNet denoise call at 768² (latent 96²)
     mc = pipe.config["model_config"]
@@ -881,21 +994,7 @@ def phase_slice_profile(torch, pipe, kw, seconds, smi):
         xt = randn(2, 96, 96, mc["in_channels"])
         t = torch.tensor([981.0, 981.0], device="cuda")
         call = lambda: unet.denoise(xt, t, xf_proj, xf_out)
-        # the GroupNorm input shapes of one call, [B, N, C], with FiLM or not
-        tally = {}
-
-        def count(mod, args, kwargs):
-            x = args[0]
-            key = (f"[{x.shape[0]}, {x[0, ..., 0].numel()}, {x.shape[-1]}] "
-                   f"{str(x.dtype)[6:]}{' FiLM' if kwargs.get('film') else ''}"
-                   f"{' SiLU' if mod.swish else ''}")
-            tally[key] = tally.get(key, 0) + 1
-
-        hooks = [m.register_forward_pre_hook(count, with_kwargs=True)
-                 for m in unet.modules() if isinstance(m, GroupNorm32)]
-        call()
-        for h in hooks:
-            h.remove()
+        groupnorm_tally("slice", unet, call)
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -905,9 +1004,6 @@ def phase_slice_profile(torch, pipe, kw, seconds, smi):
             walls.append(time.perf_counter() - t0)
         wall_ms = sorted(walls)[1] * 1e3
         ops, dev_ms, _ = device_profile(torch, call)
-    print(f"slice: GroupNorm calls per UNet denoise call, {sum(tally.values())} in "
-          f"all, by input shape: " + "; ".join(
-              f"{k}: {n}" for k, n in sorted(tally.items(), key=lambda kv: -kv[1])))
     print(f"slice: one UNet denoise call [2, 96, 96, 4]: {ops} device ops, "
           f"{dev_ms:.1f} ms of device time, {wall_ms:.1f} ms wall (median of 3), "
           f"idle share {1 - dev_ms / wall_ms:.3f}")
@@ -1104,7 +1200,6 @@ def _hires22_small(pair, noise, kw, tol, np):
 
 def phase_t2i22(torch, np, smi: str):
     """Kandinsky 2.2 text2img at the published configuration, 768²."""
-    from kandinsky2_tpu_torch.models.layers import GroupNorm32
     from kandinsky2_tpu_torch.ops import launch_counts
     from kandinsky2_tpu_torch.pipelines import Kandinsky2_2
     from kandinsky2_tpu_torch.utils import stub_tokenizer22
@@ -1156,47 +1251,222 @@ def phase_t2i22(torch, np, smi: str):
         cond = unet.encode_conditioning(randn(2, unet.encoder_hid_dim))
         xt, t = randn(2, 96, 96, 4), torch.tensor([981.0, 981.0], device="cuda")
         denoise = lambda: unet.denoise(xt, t, *cond)
-        tally = {}
-
-        def count(mod, args, kwargs):
-            x = args[0]
-            key = (f"[{x.shape[0]}, {x[0, ..., 0].numel()}, {x.shape[-1]}] "
-                   f"{str(x.dtype)[6:]}{' FiLM' if kwargs.get('film') else ''}"
-                   f"{' SiLU' if mod.swish else ''}")
-            tally[key] = tally.get(key, 0) + 1
-
-        hooks = [m.register_forward_pre_hook(count, with_kwargs=True)
-                 for m in unet.modules() if isinstance(m, GroupNorm32)]
-        denoise()
-        for h in hooks:
-            h.remove()
+        tally = groupnorm_tally("t2i22", unet, denoise)
         ops, dev_ms, _ = device_profile(torch, denoise)
-    print(f"t2i22: GroupNorm calls per UNet22 denoise call, {sum(tally.values())} in "
-          f"all, by input shape: " + "; ".join(
-              f"{k}: {n}" for k, n in sorted(tally.items(), key=lambda kv: -kv[1])))
     print(f"t2i22: one UNet22 denoise call [2, 96, 96, 4]: {ops} device ops, "
           f"{dev_ms:.1f} ms of device time")
     check(sum(tally.values()) == UNET_LAUNCHES[0], "t2i22: GroupNorms per UNet22 call")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        call(3)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    kernels = [e for e in events if not e.is_user_annotation]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    spans = {e.key: e.device_time_total / 1e3 for e in events
-             if e.is_user_annotation and e.key.startswith("k22.")}
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    print("t2i22: profiled call, device time by name (ms, calls): " + "; ".join(
-        f"{e.key[:50]} {e.self_device_time_total / 1e3:.1f} ({e.count})" for e in top))
-    print(f"t2i22: profiled call {sum(e.count for e in kernels)} device ops, "
-          f"{dev_ms:.1f} ms of device time, device idle share "
-          f"{1 - dev_ms / 1e3 / seconds:.3f} of the unprofiled {seconds:.4f} s/image; "
-          f"spans (device ms) " + "; ".join(f"{k} {v:.1f}" for k, v in spans.items()))
-    check(dev_ms > 0, "t2i22: the profiler saw no device time")
+    profiled_image(torch, "t2i22", lambda: call(3), seconds, "k22.")
     return counts, seconds
+
+
+def _small_pair20(torch, task_type, seed):
+    """The small 2.0 pipeline (``configs.small_config20`` with 64-wide UNet
+    heads, so that K3 takes the UNet's attention and the KL-VAE's 64-wide
+    mid attention) on the card (bf16) and on the CPU (fp32) with the same
+    seeded weights.  The KL-VAE's output conv is scaled by 0.1, as in the
+    CPU tests: the random weights' image then lies at |x| ~ 2."""
+    from kandinsky2_tpu_torch.configs import small_config20
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2
+    from kandinsky2_tpu_torch.utils import stub_tokenizers
+
+    tok, _ = stub_tokenizers(64)
+    kw = dict(config=small_config20(head_channels=64), tokenizer1=tok, tokenizer2=tok,
+              task_type=task_type)
+    gpu = Kandinsky2(dtype=torch.bfloat16, device="cuda", **kw)
+    gpu.init_random_params(torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():
+        gpu.image_encoder.decoder.conv_out.weight.mul_(0.1)
+        gpu.image_encoder.decoder.conv_out.bias.mul_(0.1)
+    cpu = Kandinsky2(dtype=torch.float32, device="cpu", **kw)
+    for name, model in cpu.models().items():
+        model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.models()[name].state_dict().items()})
+    return gpu, cpu
+
+
+def fix_posterior20(pipe, noise):
+    """Make a 2.0 pipeline's KL posterior draw mean + exp(logvar / 2) ·
+    ``noise`` (a seeded numpy array), so that the card and the CPU draw the
+    same; ``del pipe._vae_encode_sample`` undoes it."""
+    import torch
+
+    def sample(image, generator=None):
+        x = torch.as_tensor(image, device=pipe.device).to(pipe.dtype)
+        mean, logvar = pipe.image_encoder.encode(x)
+        n = torch.as_tensor(noise, device=pipe.device)
+        return (mean.float() + torch.exp(0.5 * logvar.float()) * n).float()
+
+    pipe._vae_encode_sample = sample
+
+
+def phase_tasks20_small(torch, np):
+    """Every 2.0 entry point and sampler at a small width on the card
+    (kernels, bf16) against the CPU (plain versions, fp32), with the same
+    weights and injected noise (x_T, the per-step noise of the p_sampler
+    and of DDIM at eta 0.05, the re-noising draw and the KL posterior's);
+    the limit is phase 4's.  img2img and inpainting work at 512², as the
+    reference's."""
+    from kandinsky2_tpu_torch.diffusion.schedules import ddim_ladder
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+
+    pairs = {task: _small_pair20(torch, task, seed) for task, seed in
+             (("text2img", 31), ("inpainting", 32))}
+    rng = np.random.RandomState(33)
+    lat = lambda *shape: rng.randn(*shape).astype(np.float32)
+    t2i = dict(num_steps=10, guidance_scale=4, h=64, w=64, noise=lat(1, 8, 8, 4),
+               output="float")
+    nseq = lat(10, 1, 8, 8, 4)
+    posterior, renoise, x_T512 = lat(1, 64, 64, 4), lat(1, 64, 64, 4), lat(1, 64, 64, 4)
+    nseq512 = lat(10, 1, 64, 64, 4)
+    n_i2i = len(ddim_ladder(10, init_step=300))  # strength 0.7: t <= 300
+    latents = 0.05 * lat(1, 8, 8, 4)
+    img = seeded_image(np, 34, 96)
+    mask = np.ones((96, 96), np.float32)
+    mask[:, 48:] = 0.0  # keep the left half
+    small = dict(num_steps=10, guidance_scale=4, output="float")
+    cases = {
+        "text2img ddim_sampler eta 0.05": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, sampler="ddim_sampler", noise_seq=nseq, **t2i)),
+        "text2img p_sampler": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, sampler="p_sampler", noise_seq=nseq, **t2i)),
+        "text2img plms_sampler": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, sampler="plms_sampler", **t2i)),
+        "text2img dpmpp_sampler": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, sampler="dpmpp_sampler", **t2i)),
+        "text2img dpmpp_karras_sampler": ("text2img", lambda p: p.generate_text2img(
+            PROMPT, sampler="dpmpp_karras_sampler", **t2i)),
+        "img2img strength 0.7": ("text2img", lambda p: p.generate_img2img(
+            PROMPT, img, strength=0.7, noise=renoise, noise_seq=nseq512[:n_i2i],
+            **small)),
+        "inpainting": ("inpainting", lambda p: p.generate_inpainting(
+            PROMPT, img, mask, noise=x_T512, noise_seq=nseq512, **small)),
+        "decode_latents": ("text2img", lambda p: p.decode_latents(latents,
+                                                                  output="float")),
+    }
+    tol = 0.15  # phase 4's limit for the small CFG path
+    for name, (task, run) in cases.items():
+        gpu, cpu = pairs[task]
+        for pipe in (gpu, cpu):
+            fix_posterior20(pipe, posterior)
+        reset_path_counts()
+        got = run(gpu)
+        counts, plain = launch_counts(), qkv_attention.plain_on_card
+        want = run(cpu)
+        for pipe in (gpu, cpu):
+            del pipe._vae_encode_sample
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        print(f"tasks20 small: {name} cuda/bf16 vs cpu/fp32 rel_l2 {rel:.3e} "
+              f"(tol {tol}); shape {got.shape}; launches {json.dumps(counts)}; "
+              f"attention calls on the card by the plain route {plain}")
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"tasks20 small: {name} shape or values")
+        check(float(got.std()) > 0, f"tasks20 small: {name} image is constant")
+        check(rel <= tol, f"tasks20 small: {name} on the card disagrees with the CPU")
+        check(all(counts[n] > 0 for n in FORWARD_KERNELS),
+              f"tasks20 small: {name} skipped a kernel")
+        check(plain == 0, f"tasks20 small: {name}: {plain} attention calls missed K3")
+    del pairs
+
+
+def phase_t2i20(torch, np, smi: str):
+    """Kandinsky 2.0 at CONFIG_2_0 (2.01B parameters), as
+    ``generate_text2img(prompt)`` is called with its own defaults (512²,
+    DDIM 100 at eta 0.05, guidance 7, batch 1), bf16; then img2img at
+    strength 0.7 on that pipeline, and inpainting on a
+    task_type="inpainting" one.  Returns (text2img launch counts, s/image,
+    {task: (launch counts, s/image)})."""
+    from kandinsky2_tpu_torch.diffusion.schedules import ddim_ladder
+    from kandinsky2_tpu_torch.ops import launch_counts
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2
+    from kandinsky2_tpu_torch.utils import process_images, stub_tokenizers
+
+    tok, _ = stub_tokenizers()
+    t0 = time.perf_counter()
+    pipe = Kandinsky2(tokenizer1=tok, tokenizer2=tok, dtype=torch.bfloat16,
+                      device="cuda")
+    pipe.init_random_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = {k: sum(p.numel() for p in m.parameters())
+                for k, m in pipe.models().items()}
+    print(f"t2i20: built the full-size 2.0 pipeline in {time.perf_counter() - t0:.2f} "
+          f"s, params {json.dumps(n_params)} ({sum(n_params.values())} in all)")
+    call = lambda seed: pipe.generate_text2img(
+        PROMPT, generator=torch.Generator(device="cuda").manual_seed(seed), **T2I20)
+    t0 = time.perf_counter()
+    call(1)
+    torch.cuda.synchronize()
+    print(f"t2i20: warm-up call {time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_path_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = call(2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    S = T2I20_SIZE
+    print(f"t2i20: launches during the timed call {json.dumps(counts)}")
+    check(img.shape == (1, S, S, 3), f"t2i20: image shape {img.shape}")
+    check(bool(np.isfinite(img).all()), "t2i20: image has non-finite values")
+    check(float(img.std()) > 0, "t2i20: image is constant")
+    check(len(process_images(img)) == 1, "t2i20: process_images")
+    # K1 = K2 = 100 × 95 + 30 and K3 = 100 × 22 + 1: the UNet calls of the
+    # DDIM ladder and one KL-VAE decode, nothing else with a GroupNorm or an
+    # unmasked attention (the text towers' attention is masked or pooled)
+    check_full_launches("t2i20", counts, T2I20_STEPS, encoded=False,
+                        decoder=KL_DECODER_LAUNCHES)
+    print(f"t2i20: image min {img.min():.4f} max {img.max():.4f} std {img.std():.4f}; "
+          f"peak device memory {peak:.2f} GiB")
+    print(f"t2i20: {seconds:.4f} s/image at {S}^2, DDIM {T2I20_STEPS} at eta 0.05, "
+          f"guidance 7, batch 1, bf16 on {smi}")
+
+    # one CFG-doubled Text2ImUNet20 denoise call at 512² (latent 64²): its
+    # GroupNorm input shapes, device ops and device time
+    g = torch.Generator(device="cuda").manual_seed(12)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    unet, mc = pipe.unet, pipe.config["model_config"]
+    with torch.inference_mode():
+        cond = unet.encode_conditioning(randn(2, 77, mc["text_encoder_in_dim1"]),
+                                        randn(2, mc["text_encoder_in_dim2"]),
+                                        randn(2, 77, 512))
+        xt, t = randn(2, S // 8, S // 8, 4), torch.tensor([981.0, 981.0], device="cuda")
+        denoise = lambda: unet.denoise(xt, t, *cond)
+        tally = groupnorm_tally("t2i20", unet, denoise)
+        ops, dev_ms, _ = device_profile(torch, denoise)
+    print(f"t2i20: one Text2ImUNet20 denoise call [2, {S // 8}, {S // 8}, 4]: {ops} "
+          f"device ops, {dev_ms:.1f} ms of device time")
+    check(sum(tally.values()) == UNET_LAUNCHES[0], "t2i20: GroupNorms per UNet call")
+    profiled_image(torch, "t2i20", lambda: call(3), seconds, "k20.")
+
+    # unprofiled: the text2img call above shows where a 2.0 image's time
+    # goes, and a profiled call costs the script tens of seconds
+    kl = dict(size=S, spans="k20.", decoder=KL_DECODER_LAUNCHES,
+              encoder=KL_ENCODER_LAUNCHES, profiled=False)
+    img_in = seeded_image(np, 17, S)
+    steps = len(ddim_ladder(T2I20_STEPS, init_step=300))
+    print(f"t2i20: img2img strength 0.7: {steps} of the {T2I20_STEPS} DDIM steps run")
+    tasks = {"img2img20": _timed_task(
+        torch, np, "2.0 img2img", lambda seed: pipe.generate_img2img(
+            PROMPT, img_in, strength=0.7, output="float",
+            generator=torch.Generator(device="cuda").manual_seed(seed)),
+        smi, unet_calls=steps, **kl)}
+    del pipe, unet, cond, denoise, xt
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = Kandinsky2(tokenizer1=tok, tokenizer2=tok, task_type="inpainting",
+                      dtype=torch.bfloat16, device="cuda")
+    pipe.init_random_params(torch.Generator(device="cuda").manual_seed(0))
+    mask = np.ones((S, S), np.float32)
+    mask[:, S // 2:] = 0.0  # keep the left half, inpaint the right
+    tasks["inpainting20"] = _timed_task(
+        torch, np, "2.0 inpainting", lambda seed: pipe.generate_inpainting(
+            PROMPT, img_in, mask, output="float",
+            generator=torch.Generator(device="cuda").manual_seed(seed)),
+        smi, unet_calls=T2I20_STEPS, **kl)
+    return counts, seconds, tasks
 
 
 def rel_err(got, want) -> float:
@@ -1357,7 +1627,7 @@ def phase_train_small(torch, np):
     from kandinsky2_tpu_torch.configs import CONFIG_2_1, create_model, schedule_kwargs
     from kandinsky2_tpu_torch.diffusion import make_schedule
     from kandinsky2_tpu_torch.ops import launch_counts, reset_launch_counts
-    from kandinsky2_tpu_torch.pipelines.kandinsky2_1 import init_random_
+    from kandinsky2_tpu_torch.pipelines.base import init_random_
     from kandinsky2_tpu_torch.train import train_2_1_unclip as cli
     from kandinsky2_tpu_torch.train.checkpoint import latest_train_state
     from kandinsky2_tpu_torch.train.train_unclip import unclip_loss
@@ -1547,6 +1817,20 @@ def phase_train_full(torch, np, smi: str):
     return counts, step_s
 
 
+def phase_clock():
+    """A function that prints the seconds since its last call (the phase
+    just run) and since the first, under a label."""
+    start = last = time.perf_counter()
+
+    def lap(label: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        print(f"time: {label} {now - last:.1f} s ({now - start:.1f} s in all)")
+        last = now
+
+    return lap
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1562,6 +1846,7 @@ def main() -> int:
         return 2
 
     # 1. device
+    lap = phase_clock()
     smi = smi_line()
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1582,24 +1867,29 @@ def main() -> int:
                  if any(w in ln for w in ("Compiling entry", "Used", "spill", "wgmma"))]
         print(f"build: ptxas {src}: " + " | ".join(lines))
     print(f"build: nvcc {' + '.join(CUDA_SOURCES)} in parallel {nvcc_s:.2f} s")
+    lap("phases 1-2")
 
     # 3. forward kernels against their plain versions
     results = {name: [] for name in ("group_norm_stats", "group_norm_apply",
                                      "flash_attention_fwd", "flash_attention_bwd_dkv",
                                      "flash_attention_bwd_dq")}
     phase_kernels(torch, results)
+    lap("phase 3")
 
     # 4. the small path against the CPU
     phase_reference(torch, np)
     torch.cuda.empty_cache()
+    lap("phase 4")
 
     # 4b. every 2.1 entry point at a small width against the CPU
     phase_tasks_small(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 4b")
 
     # 5. the full-size slice
     counts, seconds, pipe = phase_slice(torch, np, smi)
+    lap("phase 5")
 
     # 5b. full-width img2img on the slice's pipeline, then, that pipeline
     # freed, inpainting on its own
@@ -1610,27 +1900,46 @@ def main() -> int:
     tasks["inpainting"] = phase_inpainting_full(torch, np, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 5b")
 
     # 6. backward kernels against their plain versions
     phase_kernels_backward(torch, results)
+    lap("phase 6")
 
     # 7. small training runs
     phase_train_small(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 7")
 
     # 8. full-width decoder training steps
     train_counts, step_s = phase_train_full(torch, np, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 8")
 
     # 9. every 2.2 entry point at a small width against the CPU
     phase_tasks22_small(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phase 9")
 
-    # 10. full-width 2.2 text2img, this slice's main path
+    # 10. full-width 2.2 text2img
     t2i22_counts, t2i22_s = phase_t2i22(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 10")
+
+    # 11. every 2.0 entry point at a small width against the CPU
+    phase_tasks20_small(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 11")
+
+    # 12. full-width 2.0 text2img, this slice's main path, then img2img and
+    # inpainting
+    t2i20_counts, t2i20_s, tasks20 = phase_t2i20(torch, np, smi)
+    lap("phase 12")
 
     meta = {
         "group_norm_stats": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
@@ -1657,6 +1966,8 @@ def main() -> int:
             "launches": launches, "train_launches": train_counts[name],
             **{f"{task}_launches": tasks[task][0][name] for task in tasks},
             "t2i22_launches": t2i22_counts[name],
+            "t20_launches": t2i20_counts[name],
+            **{f"{task}_launches": tasks20[task][0][name] for task in tasks20},
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1665,7 +1976,9 @@ def main() -> int:
         })
     print(f"slice: {seconds:.4f} s/image; " + "; ".join(
         f"{task}: {sec:.4f} s/image" for task, (_, sec) in tasks.items())
-        + f"; train: {step_s:.4f} s/step; 2.2 text2img: {t2i22_s:.4f} s/image")
+        + f"; train: {step_s:.4f} s/step; 2.2 text2img: {t2i22_s:.4f} s/image"
+        + f"; 2.0 text2img: {t2i20_s:.4f} s/image; " + "; ".join(
+            f"{task}: {sec:.4f} s/image" for task, (_, sec) in tasks20.items()))
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

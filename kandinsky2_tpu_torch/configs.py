@@ -1,11 +1,12 @@
-"""Kandinsky 2.1 configuration and UNet factory, free of JAX.
+"""Kandinsky 2.0 and 2.1 configurations and the UNet factory, free of JAX.
 
-``CONFIG_2_1``, ``parse_channel_mult``, ``parse_attention_ds`` and
-``schedule_kwargs`` are copies of their counterparts in
-``kandinsky2_tpu/configs.py`` (the JAX package's module imports jax and its
-flax UNets at import time, so it is copied rather than imported).
-``create_model`` builds the PyTorch ``Text2ImUNet21``, or with
-``inpainting`` its ``InpaintText2ImUNet21``.
+``CONFIG_2_0``, ``CONFIG_2_1``, ``parse_channel_mult``,
+``parse_attention_ds`` and ``schedule_kwargs`` are copies of their
+counterparts in ``kandinsky2_tpu/configs.py`` (the JAX package's module
+imports jax and its flax UNets at import time, so it is copied rather than
+imported).  ``create_model`` builds the PyTorch ``Text2ImUNet20`` or
+``Text2ImUNet21`` by ``version``, or with ``inpainting`` their inpainting
+variants.
 """
 
 from __future__ import annotations
@@ -14,6 +15,68 @@ import copy
 from typing import Any
 
 import torch
+
+CONFIG_2_0: dict[str, Any] = {
+    "model_config": {
+        "image_size": 64,
+        "num_channels": 384,
+        "num_res_blocks": 3,
+        "channel_mult": "",
+        "num_heads": 1,
+        "num_head_channels": 64,
+        "num_heads_upsample": -1,
+        "attention_resolutions": "32,16,8",
+        "dropout": 0,
+        "model_dim": 768,
+        "use_scale_shift_norm": True,
+        "resblock_updown": True,
+        "use_fp16": False,
+        "cache_text_emb": True,
+        "text_encoder_in_dim1": 1024,
+        "text_encoder_in_dim2": 640,
+        "pooling_type": "from_model",
+        "in_channels": 4,
+        "out_channels": 8,
+        "up": False,
+        "inpainting": False,
+    },
+    "diffusion_config": {
+        "learn_sigma": True,
+        "sigma_small": False,
+        "steps": 1000,
+        "noise_schedule": "linear",
+        "timestep_respacing": "",
+        "use_kl": False,
+        "predict_xstart": False,
+        "rescale_timesteps": True,
+        "rescale_learned_sigmas": True,
+        "linear_start": 0.0001,
+        "linear_end": 0.02,
+    },
+    "image_enc_params": {
+        "name": "AutoencoderKL",
+        "scale": 0.0512,
+        "params": {
+            "embed_dim": 4,
+            "ddconfig": {
+                "double_z": True,
+                "z_channels": 4,
+                "resolution": 256,
+                "in_channels": 3,
+                "out_ch": 3,
+                "ch": 128,
+                "ch_mult": [1, 2, 4, 4],
+                "num_res_blocks": 2,
+                "attn_resolutions": [],
+                "dropout": 0.0,
+            },
+        },
+    },
+    "text_enc_params1": {"model_path": "", "model_name": "multiclip"},
+    "text_enc_params2": {"model_path": "", "model_name": "MT5EncoderModel"},
+    "tokenizer_name1": "",
+    "tokenizer_name2": "",
+}
 
 CONFIG_2_1: dict[str, Any] = {
     "clip_name": "ViT-L/14",
@@ -151,27 +214,22 @@ def create_model(
     in_channels,
     out_channels,
     inpainting=False,
-    version="2.1",
+    version="2.0",
     image_encoder_in_dim=768,
     num_image_embs=10,
     dtype=None,
     device=None,
     **_unused,
 ):
-    """Config dict -> ``Text2ImUNet21`` (model_creation.py:9-83), or with
-    ``inpainting`` an ``InpaintText2ImUNet21`` of 2C + 1 input channels.
-    ``dtype`` is the activation dtype; parameters stay float32 as in the
-    JAX package."""
-    from .models.unet import InpaintText2ImUNet21, Text2ImUNet21
+    """Config dict -> UNet (model_creation.py:9-83): ``Text2ImUNet20`` for
+    ``version`` "2.0", ``Text2ImUNet21`` for "2.1", or with ``inpainting``
+    their inpainting variants of 2C + 1 input channels.  ``dtype`` is the
+    activation dtype; parameters stay float32 as in the JAX package."""
+    from .models import unet
 
-    if version != "2.1":
-        raise NotImplementedError("the PyTorch port builds the 2.1 UNets only")
     if dtype is None:
         dtype = torch.bfloat16 if use_fp16 else torch.float32
-    if pooling_type != "from_model":
-        raise NotImplementedError("pooling_type must be 'from_model'")
-    cls = InpaintText2ImUNet21 if inpainting else Text2ImUNet21
-    return cls(
+    common = dict(
         in_channels=in_channels * 2 + 1 if inpainting else in_channels,
         model_channels=num_channels,
         out_channels=out_channels,
@@ -184,13 +242,21 @@ def create_model(
         use_scale_shift_norm=use_scale_shift_norm,
         resblock_updown=resblock_updown,
         model_dim=model_dim,
-        image_encoder_in_dim=image_encoder_in_dim,
         text_encoder_in_dim1=text_encoder_in_dim1,
         text_encoder_in_dim2=text_encoder_in_dim2,
-        num_image_embs=num_image_embs,
         dtype=dtype,
         device=device,
     )
+    if version == "2.0":
+        cls = unet.InpaintText2ImUNet20 if inpainting else unet.Text2ImUNet20
+        return cls(pooling_type=pooling_type, **common)
+    if version != "2.1":
+        raise ValueError(f"unknown version {version}")
+    if pooling_type != "from_model":
+        raise NotImplementedError("the 2.1 UNet takes pooling_type 'from_model'")
+    cls = unet.InpaintText2ImUNet21 if inpainting else unet.Text2ImUNet21
+    return cls(image_encoder_in_dim=image_encoder_in_dim,
+               num_image_embs=num_image_embs, **common)
 
 
 def schedule_kwargs(diffusion_config: dict, timestep_respacing=None) -> dict:
@@ -265,4 +331,28 @@ def small_config(head_channels: int = 32) -> dict:
     ie["n_embed"] = 64
     ie["ddconfig"].update(ch=32, ch_mult=[1, 1, 1, 2], num_res_blocks=1,
                           attn_resolutions=[8], resolution=64)
+    return cfg
+
+
+def small_config20(head_channels: int = 16) -> dict:
+    """``tests/test_pipeline20.py``'s ``tiny_config20``: every 2.0 model at a
+    narrow width and a depth of 1-2 (the mT5 at its fixed 512 width, a
+    4-level KL-VAE of width 32 whose mid attention is 64 wide).
+    ``head_channels=64`` widens the UNet to 64 channels with 64-wide heads,
+    the width the flash kernel takes."""
+    cfg = deep_copy_config(CONFIG_2_0)
+    cfg["model_config"].update(
+        num_channels=64 if head_channels == 64 else 32, num_res_blocks=1,
+        channel_mult="1,2", attention_resolutions="32",
+        num_head_channels=head_channels, model_dim=32, text_encoder_in_dim1=24,
+        text_encoder_in_dim2=20)
+    cfg["text_enc_params1"] = dict(
+        model_name="multiclip", in_features=24, out_features=20, layers=2, heads=4,
+        intermediate=48, vocab_size=64, max_positions=40)
+    cfg["t5_params"] = dict(
+        vocab_size=64, d_model=512, d_kv=16, d_ff=64, num_layers=2, num_heads=4,
+        rel_buckets=8, rel_max_distance=20)
+    cfg["image_enc_params"]["params"]["ddconfig"].update(
+        ch=32, ch_mult=[1, 1, 1, 2], num_res_blocks=1, attn_resolutions=[],
+        resolution=64)
     return cfg

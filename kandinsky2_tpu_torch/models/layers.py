@@ -150,3 +150,31 @@ def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
     """2x2 average pool, stride 2, NHWC."""
     B, H, W, C = x.shape
     return x.reshape(B, H // 2, 2, W // 2, 2, C).mean(dim=(2, 4))
+
+
+class AttentionPooling(nn.Module):
+    """Multi-head attention pooling (reference text_encoders.py:24-58):
+    unmasked q/k/v self-attention over the whole sequence with fp32 logits
+    and softmax, position 0 of the projected output.  ``x_dim`` is the
+    input width where it differs from ``in_dim`` (flax infers it)."""
+
+    def __init__(self, heads: int, in_dim: int, out_dim: int,
+                 x_dim: Optional[int] = None, dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.heads = heads
+        x_dim = x_dim or in_dim
+        self.q_linear = Linear(x_dim, in_dim, **kw)
+        self.k_linear = Linear(x_dim, in_dim, **kw)
+        self.v_linear = Linear(x_dim, in_dim, **kw)
+        self.out = Linear(in_dim, out_dim, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, _ = x.shape
+        q, k, v = (lin(x) for lin in (self.q_linear, self.k_linear, self.v_linear))
+        d_k = q.shape[-1] // self.heads
+        q, k, v = (t.reshape(B, T, self.heads, d_k) for t in (q, k, v))
+        logits = torch.einsum("bthc,bshc->bhts", q.float(), k.float()) / math.sqrt(d_k)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.einsum("bhts,bshc->bthc", w, v).reshape(B, T, -1)
+        return self.out(out)[:, 0]

@@ -1,14 +1,17 @@
-"""MoVQ codec, NHWC, the counterpart of ``kandinsky2_tpu/models/movq.py``:
+"""The latent codecs, NHWC, the counterpart of ``kandinsky2_tpu/models/movq.py``:
 ``SpatialNorm``, ``ResnetBlock``, ``AttnBlock``, ``Downsample`` (asymmetric
-pad), ``Upsample``, the conv ``Encoder``, the spatially-normalised
-``Decoder``, the ``VectorQuantizer`` and the ``MOVQ`` facade (``encode``
-through ``quant_conv``, ``decode`` through ``post_quant_conv``).
+pad), ``Upsample``, the conv ``Encoder`` (``double_z`` for the KL-VAE), the
+``Decoder`` (spatially normalised for the MoVQ, plain for the KL-VAE and
+the VQ codec), the ``VectorQuantizer`` and three facades: ``MOVQ`` (2.1 and
+2.2), ``AutoencoderKL`` (2.0's KL-VAE: ``encode`` gives the posterior's
+mean and clipped log-variance) and ``VQModelInterface``.
 
 Every norm runs the GroupNorm kernel pair on a CUDA tensor, and the
 single-head d = 512 ``AttnBlock`` the flash-attention kernel where
-``ops.attention.use_flash_kernel`` sends it (bf16).  The
-encoder's blocks norm with a plain GroupNorm(32, eps 1e-6), the decoder's
-with a ``SpatialNorm`` modulated by the latent.
+``ops.attention.use_flash_kernel`` sends it (bf16).  The encoders' blocks
+norm with a plain GroupNorm(32, eps 1e-6), as the decoder's do where it has
+no ``zq_channels``; the MoVQ decoder's with a ``SpatialNorm`` modulated by
+the latent.
 """
 
 from __future__ import annotations
@@ -132,7 +135,9 @@ class Upsample(nn.Module):
 
 
 class Decoder(nn.Module):
-    """MOVQDecoder (movq_modules.py:228-357): every norm a SpatialNorm."""
+    """Conv decoder (vqgan_blocks.Decoder:370-499); with ``zq_channels`` the
+    MOVQDecoder (movq_modules.py:228-357), every norm a SpatialNorm of the
+    latent ``zq``; with ``zq_channels`` None every norm a GroupNorm."""
 
     def __init__(self, ch=128, out_ch=3, ch_mult: Sequence[int] = (1, 2, 2, 4),
                  num_res_blocks=2, attn_resolutions: Sequence[int] = (32,),
@@ -164,10 +169,10 @@ class Decoder(nn.Module):
                 curr_res *= 2
             levels[i_level] = level
         self.up = nn.ModuleList(levels[i] for i in range(num_res))
-        self.norm_out = SpatialNorm(block_in, zq_channels, **kw)
+        self.norm_out = _make_norm(block_in, zq_channels, dtype, device)
         self.conv_out = Conv2d(block_in, out_ch, **kw)
 
-    def forward(self, z, zq):
+    def forward(self, z, zq=None):
         h = self.conv_in(z)
         h = self.mid.block_1(h, zq)
         h = self.mid.attn_1(h, zq)
@@ -179,16 +184,17 @@ class Decoder(nn.Module):
                     h = level.attn[i](h, zq)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        h = F.silu(self.norm_out(h, zq))
+        h = F.silu(_apply_norm(self.norm_out, h, zq))
         return self.conv_out(h)
 
 
 class Encoder(nn.Module):
-    """Conv encoder (vqgan_blocks.Encoder:253-367), ``double_z`` False."""
+    """Conv encoder (vqgan_blocks.Encoder:253-367); ``double_z`` doubles its
+    output channels (the KL-VAE's mean and log-variance)."""
 
     def __init__(self, ch=128, ch_mult: Sequence[int] = (1, 2, 2, 4),
                  num_res_blocks=2, attn_resolutions: Sequence[int] = (32,),
-                 resolution=256, in_channels=3, z_channels=4,
+                 resolution=256, in_channels=3, z_channels=4, double_z=False,
                  dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
@@ -216,7 +222,8 @@ class Encoder(nn.Module):
             block_2=ResnetBlock(block_in, block_in, **kw),
         )
         self.norm_out = GroupNorm32(block_in, eps=1e-6, device=device)
-        self.conv_out = Conv2d(block_in, z_channels, **kw)
+        self.conv_out = Conv2d(block_in, 2 * z_channels if double_z else z_channels,
+                               **kw)
 
     def forward(self, x):
         h = self.conv_in(x)
@@ -290,3 +297,71 @@ class MOVQ(nn.Module):
 
     def decode(self, quant):
         return self.decoder(self.post_quant_conv(quant), quant)
+
+
+class AutoencoderKL(nn.Module):
+    """The KL-VAE of Kandinsky 2.0 (autoencoder.py:110-157): ``encode``
+    returns the posterior's (mean, log-variance clipped to [-30, 20]),
+    ``decode`` maps latents to images through a plain-GroupNorm decoder."""
+
+    def __init__(self, z_channels=4, embed_dim=4, ch=128,
+                 ch_mult: Sequence[int] = (1, 2, 4, 4), num_res_blocks=2,
+                 attn_resolutions: Sequence[int] = (), resolution=256,
+                 in_channels=3, out_ch=3, dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        common = dict(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+                      attn_resolutions=attn_resolutions, resolution=resolution, **kw)
+        self.encoder = Encoder(in_channels=in_channels, z_channels=z_channels,
+                               double_z=True, **common)
+        self.decoder = Decoder(out_ch=out_ch, z_channels=z_channels, zq_channels=None,
+                               **common)
+        self.quant_conv = Linear(2 * z_channels, 2 * embed_dim, **kw)
+        self.post_quant_conv = Linear(embed_dim, z_channels, **kw)
+
+    def encode(self, x):
+        mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
+
+    def sample_posterior(self, x, noise):
+        """mean + exp(logvar / 2) · noise, ``noise`` of the latent's shape
+        (taken in the latent's dtype)."""
+        mean, logvar = self.encode(x)
+        return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+
+    def decode(self, z):
+        return self.decoder(self.post_quant_conv(z))
+
+    def forward(self, x):
+        return self.decode(self.encode(x)[0])
+
+
+class VQModelInterface(nn.Module):
+    """The plain VQ codec (autoencoder.py:89-107): the conv encoder, the
+    codebook and a plain-GroupNorm decoder."""
+
+    def __init__(self, z_channels=4, embed_dim=4, n_embed=16384, ch=128,
+                 ch_mult: Sequence[int] = (1, 2, 2, 4), num_res_blocks=2,
+                 attn_resolutions: Sequence[int] = (32,), resolution=256,
+                 in_channels=3, out_ch=3, dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        common = dict(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+                      attn_resolutions=attn_resolutions, resolution=resolution, **kw)
+        self.encoder = Encoder(in_channels=in_channels, z_channels=z_channels, **common)
+        self.decoder = Decoder(out_ch=out_ch, z_channels=z_channels, zq_channels=None,
+                               **common)
+        self.quantize = VectorQuantizer(n_embed, embed_dim, device=device)
+        self.quant_conv = Linear(z_channels, embed_dim, **kw)
+        self.post_quant_conv = Linear(embed_dim, z_channels, **kw)
+
+    def encode(self, x):
+        return self.quant_conv(self.encoder(x))
+
+    def decode(self, h, force_not_quantize: bool = False):
+        if not force_not_quantize:
+            h, _ = self.quantize(h)
+        return self.decoder(self.post_quant_conv(h))
+
+    def forward(self, x):
+        return self.decode(self.encode(x))

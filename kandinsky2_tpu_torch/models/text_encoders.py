@@ -1,6 +1,7 @@
 """Text and image encoder towers, the counterpart of
 ``kandinsky2_tpu/models/text_encoders.py``: XLM-RoBERTa + MultilingualCLIP
-behind ``TextEncoder`` ('multiclip'), the OpenAI CLIP text tower and ViT of
+and ``BertEncoder`` behind the ``TextEncoder`` facade (with the OpenAI CLIP
+text tower and ``models/t5.py``'s T5), the OpenAI CLIP text tower and ViT of
 2.1, and the HF-layout CLIP vision tower with projection of 2.2
 (``HFCLIPVision``, ViT-bigG-14).  Their attention is masked or short, so it
 stays plain PyTorch with the JAX package's semantics (fp32 logits and
@@ -134,26 +135,94 @@ class MultilingualCLIP(nn.Module):
         return self.LinearTransformation(pooled), embs
 
 
+class BertEncoder(nn.Module):
+    """HF ``BertModel`` layout: absolute position embeddings from 0, token
+    type 0, the XLM-R encoder stack, and the tanh pooler over [CLS]
+    (reference text_encoders.py:134-137, 156-158).  Returns (full,
+    pooled)."""
+
+    def __init__(self, vocab_size=30522, hidden=768, layers=12, heads=12,
+                 intermediate=3072, max_positions=512, type_vocab=2, eps=1e-12,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.embeddings = Container(
+            word_embeddings=nn.Embedding(vocab_size, hidden, device=device),
+            position_embeddings=nn.Embedding(max_positions, hidden, device=device),
+            token_type_embeddings=nn.Embedding(type_vocab, hidden, device=device),
+            LayerNorm=LayerNormF32(hidden, eps, device=device),
+        )
+        self.encoder = Container(layer=nn.ModuleList(
+            _BertLayer(hidden, heads, intermediate, eps, dtype, device)
+            for _ in range(layers)
+        ))
+        self.pooler = Container(dense=Linear(hidden, hidden, dtype=dtype, device=device))
+
+    def forward(self, input_ids, attention_mask):
+        e = self.embeddings
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        emb = (e.word_embeddings(input_ids) + e.position_embeddings(pos)[None]
+               + e.token_type_embeddings(torch.zeros_like(input_ids)))
+        h = e.LayerNorm(emb).to(self.dtype)
+        attn_mask = (1.0 - attention_mask.float())[:, None, None, :] * NEG_INF
+        for layer in self.encoder.layer:
+            h = layer(h, attn_mask)
+        return h, torch.tanh(self.pooler.dense(h[:, 0]))
+
+
 class TextEncoder(nn.Module):
-    """Facade over the text-encoder backends (text_encoders.py:125-167); the
-    port has 'multiclip', the 2.1 one.  Returns (full, pooled)."""
+    """Facade over the text-encoder backends (text_encoders.py:125-167):
+    'multiclip' (XLM-R + MultilingualCLIP, 2.0's and 2.1's), 'clip' (the
+    OpenAI CLIP text tower), 'T5EncoderModel' / 'MT5EncoderModel'
+    (``models/t5.py``), 'BertModel' and 'xlm_roberta'.  Each returns the
+    reference's (full, pooled), pooled None where the backend has no
+    pooling.  ``in_features`` is the tower width, ``out_features`` the
+    projection width, ``max_positions`` the context length for 'clip'."""
 
     def __init__(self, model_name="multiclip", in_features=1024, out_features=768,
                  layers=24, heads=16, intermediate=4096, vocab_size=250002,
                  max_positions=514, dtype=torch.float32, device=None):
         super().__init__()
-        if model_name != "multiclip":
-            raise NotImplementedError(f"text encoder {model_name} is not ported")
+        self.model_name = model_name
         self.max_positions = max_positions
-        self.model = MultilingualCLIP(
-            out_features=out_features, vocab_size=vocab_size, hidden=in_features,
-            layers=layers, heads=heads, intermediate=intermediate,
-            max_positions=max_positions, dtype=dtype, device=device,
-        )
+        kw = dict(dtype=dtype, device=device)
+        if model_name == "multiclip":
+            self.model = MultilingualCLIP(
+                out_features=out_features, vocab_size=vocab_size, hidden=in_features,
+                layers=layers, heads=heads, intermediate=intermediate,
+                max_positions=max_positions, **kw)
+        elif model_name == "clip":
+            self.model = CLIPTextTower(
+                vocab_size=vocab_size, context_length=max_positions, width=in_features,
+                layers=layers, heads=heads, embed_dim=out_features, **kw)
+        elif model_name in ("T5EncoderModel", "MT5EncoderModel"):
+            from .t5 import T5Encoder
 
-    def forward(self, tokens, mask):
-        pooled, full = self.model(tokens, mask)
-        return full, pooled
+            self.model = T5Encoder(
+                vocab_size=vocab_size, d_model=in_features, d_kv=in_features // heads,
+                d_ff=intermediate, num_layers=layers, num_heads=heads, **kw)
+        elif model_name == "BertModel":
+            self.model = BertEncoder(
+                vocab_size=vocab_size, hidden=in_features, layers=layers, heads=heads,
+                intermediate=intermediate, max_positions=max_positions, **kw)
+        elif model_name == "xlm_roberta":
+            self.model = XLMRobertaEncoder(
+                vocab_size=vocab_size, hidden=in_features, layers=layers, heads=heads,
+                intermediate=intermediate, max_positions=max_positions, **kw)
+        else:
+            raise NotImplementedError(model_name)
+
+    def forward(self, tokens, mask=None):
+        name = self.model_name
+        if name == "multiclip":
+            pooled, full = self.model(tokens, mask)
+            return full, pooled
+        if name == "clip":
+            return self.model(tokens)
+        if name == "BertModel":
+            return self.model(tokens, mask)
+        full = self.model(tokens, mask)
+        return (full.float() if name == "xlm_roberta" else full), None
 
 
 class CLIPResBlock(nn.Module):

@@ -3,7 +3,10 @@
 ``Downsample``, ``Upsample``, the ``UNetModel`` torso, the 2.1 text+image
 conditioned ``Text2ImUNet21`` with its ``encode_conditioning`` / ``denoise``
 split, its inpainting variant ``InpaintText2ImUNet21``, and the turbo
-deep cache (``deep_cache_spec``, ``run_torso_cached``, ``denoise_cached``).
+deep cache (``deep_cache_spec``, ``run_torso_cached``, ``denoise_cached``);
+the 2.0 dual-text ``Text2ImUNet20`` (XLM-R and mT5 tokens as cross-attention
+K/V, an ``AttentionPooling`` of the mT5 sequence in the time embedding) and
+its ``InpaintText2ImUNet20``, on the same torso.
 
 Every GroupNorm runs the GroupNorm kernel pair on a CUDA tensor, and the
 spatial attention (encoder K/V prepended to the spatial K/V, so S = T +
@@ -21,6 +24,7 @@ from torch import nn
 
 from ..ops import qkv_attention
 from .layers import (
+    AttentionPooling,
     Conv2d,
     GroupNorm32,
     LayerNormF32,
@@ -372,32 +376,106 @@ class Text2ImUNet21(UNetModel):
         return self.denoise(x, timesteps, xf_proj, xf_out)
 
 
+def inpaint_input(x, inpaint_image, inpaint_mask):
+    """The inpainting UNets' input x ⊕ image·mask ⊕ mask (zeros where not
+    given)."""
+    if inpaint_image is None:
+        inpaint_image = torch.zeros_like(x)
+    if inpaint_mask is None:
+        inpaint_mask = torch.zeros_like(x[..., :1])
+    return torch.cat([x, inpaint_image * inpaint_mask, inpaint_mask], dim=-1)
+
+
 class InpaintText2ImUNet21(Text2ImUNet21):
     """2.1 inpainting UNet (text2im_model2_1.py:131-155): the input is
     x ⊕ image·mask ⊕ mask, so ``in_channels`` is 2C + 1 (the factory sets
     it)."""
 
-    @staticmethod
-    def _inpaint_input(x, inpaint_image, inpaint_mask):
-        if inpaint_image is None:
-            inpaint_image = torch.zeros_like(x)
-        if inpaint_mask is None:
-            inpaint_mask = torch.zeros_like(x[..., :1])
-        return torch.cat([x, inpaint_image * inpaint_mask, inpaint_mask], dim=-1)
-
     def denoise(self, x, timesteps, xf_proj, xf_out, inpaint_image=None,
                 inpaint_mask=None):
-        return super().denoise(self._inpaint_input(x, inpaint_image, inpaint_mask),
+        return super().denoise(inpaint_input(x, inpaint_image, inpaint_mask),
                                timesteps, xf_proj, xf_out)
 
     def denoise_cached(self, x, timesteps, xf_proj, xf_out, inpaint_image,
                        inpaint_mask, cache, refresh: bool):
         return super().denoise_cached(
-            self._inpaint_input(x, inpaint_image, inpaint_mask), timesteps, xf_proj,
+            inpaint_input(x, inpaint_image, inpaint_mask), timesteps, xf_proj,
             xf_out, cache, refresh)
 
     def forward(self, x, timesteps, full_emb, pooled_emb, image_emb,
                 inpaint_image=None, inpaint_mask=None):
         xf_proj, xf_out = self.encode_conditioning(full_emb, pooled_emb, image_emb)
+        return self.denoise(x, timesteps, xf_proj, xf_out, inpaint_image,
+                            inpaint_mask)
+
+
+T5_DIM = 512  # the mT5-small width that Text2ImUNet20's projections take
+
+
+class Text2ImUNet20(UNetModel):
+    """Kandinsky 2.0 conditioned UNet (text2im_model.py:13-111): the
+    projected XLM-R tokens and the projected mT5 tokens, concatenated, are
+    the cross-attention K/V (77 + 77 at full width); the pooled XLM-R
+    embedding (or, with ``pooling_type`` other than "from_model", an
+    ``AttentionPooling`` of its tokens) and an ``AttentionPooling`` of the
+    mT5 tokens add to the timestep embedding.  The mT5 width is fixed at
+    ``T5_DIM``, as in the reference."""
+
+    def __init__(self, model_dim=768, text_encoder_in_dim1=1024,
+                 text_encoder_in_dim2=640, pooling_type="from_model",
+                 dtype=torch.float32, device=None, **kw):
+        super().__init__(encoder_channels=model_dim, dtype=dtype, device=device,
+                         **kw)
+        mc4 = self.model_channels * 4
+        lin = dict(dtype=dtype, device=device)
+        self.pooling_type = pooling_type
+        self.to_model_dim = Linear(text_encoder_in_dim1, model_dim, **lin)
+        if pooling_type == "from_model":
+            self.proj = Linear(text_encoder_in_dim2, mc4, **lin)
+        else:
+            self.proj = AttentionPooling(8, text_encoder_in_dim2, mc4,
+                                         x_dim=text_encoder_in_dim1, **lin)
+        self.proj2 = AttentionPooling(8, T5_DIM, mc4, **lin)
+        self.to_model_dim2 = Linear(T5_DIM, model_dim, **lin)
+        self.ln_model1 = LayerNormF32(model_dim, device=device)
+        self.ln_model2 = LayerNormF32(mc4, device=device)
+        self.ln_model3 = LayerNormF32(mc4, device=device)
+
+    def encode_conditioning(self, full_emb1, pooled_emb1, full_emb2, pooled_emb2=None):
+        """(xf_proj, xf_out): the time-embedding
+        addend ln2(proj(pooled1)) + ln3(proj2(full2)) and the tokens
+        ln1([to_model_dim(full1); to_model_dim2(full2)]), once per call;
+        ``pooled_emb2`` is unused, as in the reference."""
+        xf_proj = self.ln_model2(self.proj(
+            pooled_emb1 if self.pooling_type == "from_model" else full_emb1))
+        xf_proj = xf_proj + self.ln_model3(self.proj2(full_emb2))
+        xf_out = self.ln_model1(torch.cat(
+            [self.to_model_dim(full_emb1), self.to_model_dim2(full_emb2)], dim=1))
+        return xf_proj, xf_out
+
+    def denoise(self, x, timesteps, xf_proj, xf_out):
+        emb = self.time_embedding(timesteps) + xf_proj.float()
+        return self.run_torso(x, emb, xf_out)
+
+    def forward(self, x, timesteps, full_emb1, pooled_emb1, full_emb2,
+                pooled_emb2=None):
+        xf_proj, xf_out = self.encode_conditioning(full_emb1, pooled_emb1, full_emb2,
+                                                   pooled_emb2)
+        return self.denoise(x, timesteps, xf_proj, xf_out)
+
+
+class InpaintText2ImUNet20(Text2ImUNet20):
+    """2.0 inpainting UNet (text2im_model.py:114-137): the input is
+    x ⊕ image·mask ⊕ mask, 2C + 1 channels."""
+
+    def denoise(self, x, timesteps, xf_proj, xf_out, inpaint_image=None,
+                inpaint_mask=None):
+        return super().denoise(inpaint_input(x, inpaint_image, inpaint_mask),
+                               timesteps, xf_proj, xf_out)
+
+    def forward(self, x, timesteps, full_emb1, pooled_emb1, full_emb2,
+                pooled_emb2=None, inpaint_image=None, inpaint_mask=None):
+        xf_proj, xf_out = self.encode_conditioning(full_emb1, pooled_emb1, full_emb2,
+                                                   pooled_emb2)
         return self.denoise(x, timesteps, xf_proj, xf_out, inpaint_image,
                             inpaint_mask)

@@ -25,22 +25,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch import nn
 from torch.profiler import record_function
 
 from ..configs import CONFIG_2_1, create_model, deep_copy_config, schedule_kwargs
-from ..diffusion import (
-    ddim_loop,
-    dpmpp_2m_loop,
-    make_ddim_tables,
-    make_dpmpp_karras_tables,
-    make_dpmpp_tables,
-    make_schedule,
-    p_sample_loop,
-    plms_loop,
-    q_sample,
-)
-from ..models.layers import Conv2d, GroupNorm32, LayerNormF32, Linear
+from ..diffusion import make_schedule, q_sample
 from ..models.movq import MOVQ
 from ..models.prior import PriorTransformer, prior_sample_fn
 from ..models.text_encoders import CLIPTextTower, CLIPViT, TextEncoder
@@ -51,23 +39,18 @@ from ..utils import (
     get_new_h_w,
     prepare_image_batch,
     prepare_mask,
-    process_images,
     resolve_batch,
 )
-from ..weights.from_jax import load_jax_params
+from .base import (
+    Pipeline,
+    cfg_mix,
+    check_sampler,
+    decoder_schedule,
+    sample_latents,
+)
 
 CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
-SAMPLERS = ("p_sampler", "ddim_sampler", "plms_sampler", "dpmpp_sampler",
-            "dpmpp_karras_sampler")
-
-
-def check_sampler(sampler: str) -> None:
-    if sampler not in SAMPLERS:
-        raise ValueError("Only " + ", ".join(SAMPLERS[:-1]) + " and "
-                         + SAMPLERS[-1] + " are available")
-
-
 def clip_preprocess(pil_image, image_size: int = 224) -> np.ndarray:
     """CLIP preprocessing (resize + centre crop + normalise), NHWC
     [1, S, S, 3] float32; a copy of the JAX package's."""
@@ -86,44 +69,7 @@ def clip_preprocess(pil_image, image_size: int = 224) -> np.ndarray:
     return arr[None]
 
 
-# last layers of residual branches: the reference initialises the UNet's to
-# zero; drawn at a tenth of the usual scale they keep the random network
-# well conditioned in bf16 without being zero
-RESIDUAL_OUTPUTS = ("out_layers.3", "proj_out", "conv2")
-
-
-def init_random_(module: nn.Module, generator: torch.Generator,
-                 residual_outputs=RESIDUAL_OUTPUTS) -> None:
-    """Draw every parameter from ``generator``: weights of linear layers and
-    convolutions ~ N(0, 1/fan_in), a tenth of that for the residual
-    branches' last layers (``residual_outputs``; the UNet's output conv is
-    drawn in full, so its output is not identically zero), biases and
-    embeddings ~ N(0, 0.02²), other free parameters ~ N(0, 0.01²) or
-    N(0, 1/rows) for projection matrices; norms keep weight 1, bias 0."""
-
-    def draw(p, std):
-        with torch.no_grad():
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=generator.device) * std)
-
-    for mod_name, mod in module.named_modules():
-        if isinstance(mod, (GroupNorm32, LayerNormF32)):
-            continue
-        gain = 0.1 if mod_name.endswith(residual_outputs) else 1.0
-        for name, p in mod.named_parameters(recurse=False):
-            if name == "bias":
-                draw(p, 0.02)
-            elif isinstance(mod, nn.Embedding):
-                draw(p, 0.02)
-            elif isinstance(mod, (Linear, Conv2d)):
-                draw(p, gain * p[0].numel() ** -0.5)
-            elif name in ("text_projection", "proj"):
-                draw(p, p.shape[0] ** -0.5)
-            else:
-                draw(p, 0.01)
-
-
-class Kandinsky2_1:
+class Kandinsky2_1(Pipeline):
     """Five-model pipeline: prior, CLIP text and vision towers, XLM-R text
     encoder, latent UNet, MoVQ decoder (kandinsky2_1_model.py:23-104)."""
 
@@ -194,26 +140,6 @@ class Kandinsky2_1:
             "clip_vision": self.clip_vision, "text_encoder": self.text_encoder,
             "unet": self.unet, "movq": self.movq,
         }
-
-    def init_random_params(self, generator: Optional[torch.Generator] = None,
-                           dtype=None):
-        """Random parameters from ``generator`` (seed 0 by default), then cast
-        to ``dtype`` (the activation dtype by default).  ``torch.float32``
-        keeps fp32 parameters while every module still computes in the
-        pipeline's dtype: the JAX trainer's policy (fp32 parameters, bf16
-        compute)."""
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        for model in self.models().values():
-            init_random_(model, generator)
-            model.to(dtype or self.dtype)
-
-    def load_jax_params(self, params: dict):
-        """Load the JAX pipeline's params (``Kandinsky2_1.params`` of the JAX
-        package: one nested dict of arrays per model) through the bridge,
-        keeping each parameter's device and dtype."""
-        for name, model in self.models().items():
-            load_jax_params(model, params[name])
 
     # ------------------------------------------------------------------
     # conditioning encoders
@@ -302,22 +228,6 @@ class Kandinsky2_1:
     # the decoder: sampler loop over the UNet, then MoVQ decode
     # ------------------------------------------------------------------
 
-    def _decoder_tables(self, sampler, num_steps, init_step):
-        """(schedule kwargs, schedule, tables) of a decoder sampler
-        (``_build_latent_fn`` of the JAX pipeline): the p_sampler walks a
-        schedule respaced to ``num_steps``, the others a ladder over the
-        base schedule."""
-        dkw = schedule_kwargs(self._decoder_diff_cfg,
-                              str(num_steps) if sampler == "p_sampler" else "")
-        sched = make_schedule(**dkw["make_schedule"], device=self.device)
-        base, dev = sched.base_alphas_cumprod, self.device
-        make = {"ddim_sampler": make_ddim_tables, "plms_sampler": make_ddim_tables,
-                "dpmpp_sampler": make_dpmpp_tables,
-                "dpmpp_karras_sampler": make_dpmpp_karras_tables}.get(sampler)
-        tables = None if make is None else make(base, num_steps, init_step=init_step,
-                                                device=dev)
-        return dkw, sched, tables
-
     def _sample_images(self, full_emb, pooled_emb, img_prompt, x_T, *, sampler,
                        num_steps, guidance_scale, init_step, inpaint_image,
                        inpaint_mask, turbo_interval, noise_seq, generator):
@@ -328,7 +238,6 @@ class Kandinsky2_1:
         ``k21.unet_<sampler>`` (``k21.unet_ddim`` for DDIM) spans everything
         but the decode."""
         with record_function("k21.unet_" + sampler.removesuffix("_sampler")):
-            dkw, sched, tables = self._decoder_tables(sampler, num_steps, init_step)
             B = x_T.shape[0]
             C = self.config["model_config"]["in_channels"]
             inpainting = self.task_type == "inpainting"
@@ -341,12 +250,7 @@ class Kandinsky2_1:
                          torch.cat([inpaint_mask, inpaint_mask]))
 
             def mix(out):
-                eps, rest = out[..., :C], out[..., C:]
-                cond_eps, uncond_eps = eps[:B], eps[B:]
-                eps_g = uncond_eps + guidance_scale * (cond_eps - uncond_eps)
-                if sampler == "p_sampler":  # the learned-variance channels too
-                    return torch.cat([eps_g, rest[:B]], dim=-1)
-                return eps_g
+                return cfg_mix(out, B, C, guidance_scale, sampler == "p_sampler")
 
             def model_fn(x, t_model):
                 return mix(unet.denoise(torch.cat([x, x]),
@@ -373,28 +277,15 @@ class Kandinsky2_1:
                     x0 = x0 * (1 - inpaint_mask) + inpaint_image * inpaint_mask
                 return x0
 
-            if sampler == "p_sampler":
-                samples = p_sample_loop(
-                    active_fn, sched, x_T, generator, mean_type=dkw["mean_type"],
-                    var_type=dkw["var_type"], clip_denoised=True,
-                    denoised_fn=denoised_fn, init_step=init_step, channel_axis=-1,
-                    model_state=state, noise_seq=noise_seq)
-            elif sampler == "plms_sampler":
-                samples = plms_loop(active_fn, tables, x_T, model_state=state)
-            elif sampler == "ddim_sampler":
-                samples = ddim_loop(active_fn, tables, x_T, model_state=state)
-            else:
-                samples = dpmpp_2m_loop(active_fn, tables, x_T, model_state=state)
+            samples = sample_latents(
+                active_fn, x_T, sampler=sampler, diff_cfg=self._decoder_diff_cfg,
+                num_steps=num_steps, init_step=init_step, generator=generator,
+                denoised_fn=denoised_fn, model_state=state, noise_seq=noise_seq)
         return self._decode(samples)
 
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
         with record_function("k21.movq_decode"):
             return self.movq.decode((latents / self.scale).to(self.dtype)).float()
-
-    @staticmethod
-    def _output(images: torch.Tensor, h: int, w: int, output: str):
-        images = images[:, :h, :w, :].cpu().numpy()
-        return images if output == "float" else process_images(images)
 
     @torch.inference_mode()
     def generate_img(self, prompt, img_prompt, batch_size=1, guidance_scale=7,
@@ -432,7 +323,7 @@ class Kandinsky2_1:
             init_step=init_step, inpaint_image=as_dev(init_img, torch.zeros_like(x_T)),
             inpaint_mask=as_dev(img_mask, torch.zeros_like(x_T[..., :1])),
             turbo_interval=turbo_interval, noise_seq=nseq, generator=generator)
-        return self._output(images, h, w, output)
+        return self._output(images, output, h, w)
 
     def _image_prompt(self, image_emb, negative_decoder_prompt, batch_size, **prior_kw):
         """[image_emb; negative] in the activation dtype: the negative is the
@@ -567,7 +458,8 @@ class Kandinsky2_1:
         latent = self.movq_encode(prepare_image_batch(pil_img, w, h, batch_size)
                                   ) * self.scale
         if sampler == "p_sampler":
-            sched = self._decoder_tables(sampler, num_steps, None)[1]
+            sched = decoder_schedule(self._decoder_diff_cfg, sampler, num_steps,
+                                     self.device)[1]
             start_step = int(sched.num_timesteps * (1 - strength))
             t_noise = int(sched.timestep_map[start_step - 1])
         else:
@@ -638,4 +530,4 @@ class Kandinsky2_1:
         """MoVQ-decode sampler latents [B, h/8, w/8, 4] to images."""
         images = self._decode(torch.as_tensor(latents, dtype=torch.float32,
                                               device=self.device))
-        return self._output(images, images.shape[1], images.shape[2], output)
+        return self._output(images, output)

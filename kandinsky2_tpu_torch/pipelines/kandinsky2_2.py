@@ -1,7 +1,8 @@
 """Kandinsky 2.2 inference in PyTorch, the counterpart of
 ``kandinsky2_tpu/pipelines/kandinsky2_2.py``: ``generate_text2img``,
 ``generate_img2img``, ``generate_text2img_hires``, ``mix_images``,
-``generate_inpainting``, ``generate_controlnet`` (with ``hint=``),
+``generate_inpainting``, ``generate_controlnet`` (its hint given, or
+made from ``image`` by ``depth.make_hint``),
 ``run_prior`` and ``run_prior_emb2emb``, and ``decode_latents``.
 
 Each call runs eagerly: CLIP-bigG text tower -> guided prior (the UnCLIP
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..depth import make_hint
 from ..diffusion import dpmpp_2m_loop, make_dpmpp_karras_tables, make_dpmpp_tables
 from ..diffusion.paired import ddpm_ladder, paired_ancestral_loop, unclip_ladder
 from ..diffusion.schedules import named_betas
@@ -44,13 +46,11 @@ from ..utils import (
     process_images,
     resolve_batch,
 )
-from ..weights.from_jax import load_jax_params
-from .kandinsky2_1 import clip_preprocess, init_random_
+from .base import Pipeline
+from .kandinsky2_1 import clip_preprocess
 
 TASKS = ("text2img", "img2img", "inpainting", "controlnet")
 DECODER_SAMPLERS = ("ddpm", "dpmpp", "dpmpp_karras")
-# the residual branches' last layers, drawn at a tenth of the usual scale
-RESIDUAL_OUTPUTS = ("conv2", "to_out.0")
 
 
 def get_new_h_w_64(h: int, w: int) -> tuple[int, int]:
@@ -84,11 +84,14 @@ def _truncated_ladder(decoder_steps: int, strength: float) -> np.ndarray:
     return ladder
 
 
-class Kandinsky2_2:
+class Kandinsky2_2(Pipeline):
     """Image encoder (ViT-bigG) + CLIP-bigG text tower + prior + decoder
     UNet + MoVQ, on ``device`` (the card by default).  ``overrides`` are
     the per-model constructor kwargs (``weights.configs22.
     pipeline_overrides`` gives the published configuration's)."""
+
+    # the residual branches' last layers, drawn at a tenth of the usual scale
+    residual_outputs = ("conv2", "to_out.0")
 
     def __init__(self, task_type: str = "text2img", tokenizer=None,
                  dtype=torch.bfloat16, overrides: Optional[dict] = None,
@@ -121,28 +124,12 @@ class Kandinsky2_2:
         return {"image_encoder": self.image_encoder, "text_encoder": self.text_encoder,
                 "prior": self.prior, "unet": self.unet, "movq": self.movq}
 
-    def init_random_params(self, generator: Optional[torch.Generator] = None,
-                           dtype=None):
-        """Random parameters from ``generator`` (seed 0 by default), then cast
-        to ``dtype`` (the activation dtype by default); the prior's
-        clip_std is drawn around 1."""
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        for model in self.models().values():
-            init_random_(model, generator, RESIDUAL_OUTPUTS)
+    def _draw_extra_(self, generator: torch.Generator) -> None:
+        """The prior's clip_std, drawn around 1."""
         with torch.no_grad():
             std = self.prior.clip_std
             std.copy_(1.0 + 0.1 * torch.randn(std.shape, generator=generator,
                                               device=generator.device))
-        for model in self.models().values():
-            model.to(dtype or self.dtype)
-
-    def load_jax_params(self, params: dict):
-        """Load the JAX pipeline's params (one nested dict of arrays per
-        model) through the bridge, keeping each parameter's device and
-        dtype."""
-        for name, model in self.models().items():
-            load_jax_params(model, params[name])
 
     def _randn(self, shape, generator):
         return torch.randn(shape, generator=generator, device=self.device)
@@ -348,11 +335,6 @@ class Kandinsky2_2:
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
         with record_function("k22.movq_decode"):
             return self.movq.decode(latents.to(self.dtype)).float()
-
-    @staticmethod
-    def _output(images: torch.Tensor, output: str):
-        images = images.cpu().numpy()
-        return images if output == "float" else process_images(images)
 
     def _embs_for(self, prompt, negative_prior_prompt, negative_decoder_prompt,
                   batch_size, prior_steps, prior_guidance_scale, prior_sampler="ddpm",
@@ -573,17 +555,14 @@ class Kandinsky2_2:
         is MoVQ-encoded and re-noised at the ``strength``-derived step (the
         ControlnetImg2Img flow).  A CFG-doubled ``image_embeds`` skips the
         prior.  ``noise`` is the decoder x_T, or the re-noising draw with
-        ``image``.  Deriving the hint from ``image`` needs the depth model,
-        which the port does not have yet."""
+        ``image``.  Without ``hint`` the hint is ``depth.make_hint``
+        of ``image`` (the heuristic estimator), as in the JAX package."""
         batch_size = resolve_batch(prompt, batch_size)
         h, w = get_new_h_w_64(h, w)
         if hint is None:
             if image is None:
                 raise ValueError("generate_controlnet needs hint= or image=")
-            raise NotImplementedError(
-                "generate_controlnet(image=...) without hint= derives the depth hint "
-                "through the DPT depth model (models/dpt.py and depth.make_hint of "
-                "the JAX package), which this port does not have yet: pass hint=")
+            hint = make_hint(image, h=h, w=w)
         if image_embeds is None:
             image_embeds = self._embs_for(
                 prompt, negative_prior_prompt, negative_decoder_prompt, batch_size,

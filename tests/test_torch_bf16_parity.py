@@ -203,3 +203,69 @@ def test_text2img22_bf16_matches_jax(pipes22, monkeypatch):
           f"(tol {BF16_TOL22['text2img22']})")
     assert np.std(got) > 1e-3
     assert rel <= BF16_TOL22["text2img22"], f"text2img22: {rel:.3e}"
+
+
+# --- Kandinsky 2.0 ------------------------------------------------------------
+
+# relative L2 of the port against JAX, both bf16, at tiny_config20 with
+# 64-wide UNet heads: about twice the value measured on the CPU, which
+# follows each entry
+BF16_TOL20 = {
+    "unet20": 3.0e-2,  # 1.524e-2
+    "t5": 2.4e-2,  # 1.193e-2
+    "vae_kl.decode": 1.5e-2,  # 7.644e-3
+    "vae_kl.encode": 3.5e-2,  # 1.691e-2 (mean), 1.736e-2 (logvar)
+}
+
+
+@pytest.fixture(scope="module")
+def pipes20():
+    from test_torch_common import parity_pipelines20
+
+    jp, tp, _ = parity_pipelines20(head_channels=64, jax_dtype=jnp.bfloat16,
+                                   torch_dtype=torch.bfloat16)
+    return jp, tp
+
+
+def _inputs20(mc):
+    rng = np.random.RandomState(8)
+    f = lambda *shape: rng.randn(*shape).astype(np.float32)
+    mask = np.ones((2, 77), np.int32)
+    mask[1, 9:] = 0
+    return {
+        "unet20": (f(2, 8, 8, 4), np.array([981.0, 501.0], np.float32),
+                   f(2, 38, mc["text_encoder_in_dim1"]), f(2, mc["text_encoder_in_dim2"]),
+                   f(2, 77, 512)),
+        "t5": (rng.randint(2, 64, (2, 77)).astype(np.int32), mask),
+        "vae_kl.decode": (f(1, 8, 8, 4) / 0.0512 * 0.05,),
+        "vae_kl.encode": (np.tanh(f(1, 64, 64, 3)),),
+    }
+
+
+@pytest.mark.parametrize("name", list(BF16_TOL20))
+def test_model_forward20_bf16_matches_jax(pipes20, name):
+    """The 2.0 UNet (its attention on K3's route: the kernel's plain version
+    on the CPU in bf16), the mT5 tower, and the KL-VAE's decode and the
+    mean and log-variance of its encode."""
+    jp, tp = pipes20
+    args = _inputs20(tp.config["model_config"])[name]
+    model, method = {"unet20": ("unet", None), "t5": ("text_encoder2", None),
+                     "vae_kl.decode": ("image_encoder", "decode"),
+                     "vae_kl.encode": ("image_encoder", "encode")}[name]
+    module = getattr(jp, model)
+    kw = {} if method is None else {"method": getattr(type(module), method)}
+    want = jax.jit(lambda p, *a: module.apply({"params": p}, *a, **kw))(
+        jp.params[model], *args)
+    targs = [torch.from_numpy(np.asarray(a)) for a in args]
+    if name == "t5":
+        targs[0] = targs[0].long()
+    with torch.inference_mode():
+        tm = getattr(tp, model)
+        got = (tm if method is None else getattr(tm, method))(*targs)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for k, (g, w) in enumerate(zip(got, want)):
+        rel = _rel_l2(g.float().numpy(), np.asarray(w, np.float32))
+        print(f"bf16 port vs bf16 JAX: {name}[{k}] rel_l2 {rel:.3e} "
+              f"(tol {BF16_TOL20[name]})")
+        assert rel <= BF16_TOL20[name], f"{name}[{k}]: {rel:.3e}"

@@ -57,9 +57,16 @@ def assert_close(got, want, tol, what=""):
 
 
 def test_config_copy_matches_jax_package():
-    """The tests hand the port's config to both packages, so its copy of
-    ``CONFIG_2_1`` must be the JAX package's."""
+    """The tests hand the port's configs to both packages, so its copies of
+    ``CONFIG_2_1`` and ``CONFIG_2_0`` must be the JAX package's."""
     assert torch_configs.CONFIG_2_1 == jax_configs.CONFIG_2_1
+    assert torch_configs.CONFIG_2_0 == jax_configs.CONFIG_2_0
+
+
+def test_small_config20_is_the_jax_tests_tiny_config():
+    from test_pipeline20 import tiny_config20 as jax_tiny
+
+    assert torch_configs.small_config20() == jax_tiny()
 
 
 @pytest.mark.parametrize("name,args", [
@@ -330,3 +337,53 @@ def flash_route(monkeypatch):
     monkeypatch.setattr(tattn, "use_flash_kernel", lambda q, k, v: True)
     monkeypatch.setattr(tattn, "flash_attention", counted)
     return calls
+
+
+# --- the 2.0 pipeline in both frameworks --------------------------------------
+
+
+def tiny_config20(head_channels=16):
+    """``tests/test_pipeline20.py``'s ``tiny_config20`` (the port's
+    ``small_config20``), or its variant with 64-wide UNet heads."""
+    return torch_configs.small_config20(head_channels)
+
+
+def parity_pipelines20(task_type="text2img", seed=20, head_channels=16,
+                       jax_dtype=None, torch_dtype=torch.float32):
+    """(JAX Kandinsky2, port Kandinsky2 on the CPU, params) at
+    ``tiny_config20(head_channels)`` with the same numpy-seeded parameters
+    and the port's stand-in tokenizer for both streams.  The KL-VAE's
+    output conv is scaled by 0.1, which puts the random weights' image at
+    |x| ~ 2, inside the absolute image tolerance's range."""
+    import jax.numpy as jnp
+
+    from kandinsky2_tpu.pipelines.kandinsky2_0 import Kandinsky2 as J20
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2 as T20
+    from kandinsky2_tpu_torch.utils import stub_tokenizers
+
+    tok, _ = stub_tokenizers(64)
+    kw = dict(config=tiny_config20(head_channels), tokenizer1=tok, tokenizer2=tok,
+              task_type=task_type)
+    jp = J20(dtype=jax_dtype or jnp.float32, **kw)
+    params = numpy_params(
+        jax.eval_shape(jp.init_random_params, jax.random.PRNGKey(0)), seed)
+    conv_out = params["image_encoder"]["decoder"]["conv_out"]
+    conv_out["kernel"] = conv_out["kernel"] * np.float32(0.1)
+    jp.params = jax.tree_util.tree_map(jnp.asarray, params)
+    tp = T20(dtype=torch_dtype, device="cpu", **kw)
+    tp.load_jax_params(params)
+    return jp, tp, params
+
+
+def capture_jax_floats20(monkeypatch):
+    """``capture_jax_floats`` for the JAX 2.0 pipeline."""
+    import kandinsky2_tpu.pipelines.kandinsky2_0 as jpipe20
+
+    to_pil = jpipe20.process_images
+
+    def process_images(batch):
+        out = JaxImages(to_pil(batch))
+        out.floats = np.asarray(batch, np.float32)
+        return out
+
+    monkeypatch.setattr(jpipe20, "process_images", process_images)

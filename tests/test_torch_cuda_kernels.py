@@ -1,6 +1,6 @@
 """The port's hand-written kernels against their plain PyTorch versions on
-the card, at the shapes of the 768² 2.1 and 2.2 text2img paths and of the
-decoder training step, in bf16; GroupNorm against fp64 far from zero mean;
+the card, at the shapes of the 768² 2.1 and 2.2 text2img paths, of the
+512² 2.0 path and of the decoder training step, in bf16; GroupNorm against fp64 far from zero mean;
 and the autograd Functions that carry gradients through them.
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
@@ -35,6 +35,11 @@ def gen():
 @pytest.mark.parametrize("shape,eps", [
     ((2, 96 * 96, 384), 1e-5), ((2, 12 * 12, 3072), 1e-5),
     ((1, 96 * 96, 512), 1e-6), ((1, 768 * 768, 128), 1e-6),
+    # the 2.0 path: Text2ImUNet20 at 512², the KL-VAE decoder and the two
+    # layouts only its encoder has
+    ((2, 64 * 64, 384), 1e-5), ((2, 8 * 8, 3072), 1e-5),
+    ((1, 256 * 256, 512), 1e-6), ((1, 512 * 512, 256), 1e-6),
+    ((1, 256 * 256, 128), 1e-6), ((1, 128 * 128, 256), 1e-6),
 ])
 def test_group_norm_kernels_match_plain(gen, shape, eps):
     x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -130,6 +135,9 @@ def test_group_norm_launches_two_kernels(gen):
 @pytest.mark.parametrize("B,T,S,H,d", [
     (2, 2304, 2391, 12, 64), (2, 144, 231, 24, 64), (2, 100, 187, 3, 64),
     (1, 9216, 9216, 1, 512), (1, 100, 77, 1, 512), (1, 100, 187, 1, 512),
+    # the 2.0 UNet at 512² (154 text tokens before the spatial K/V), the
+    # KL-VAE's mid attention
+    (2, 1024, 1178, 12, 64), (2, 64, 218, 24, 64), (1, 4096, 4096, 1, 512),
 ])
 def test_flash_kernel_matches_plain(gen, B, T, S, H, d):
     q, k, v = (torch.randn((B, L, H, d), generator=gen, device="cuda")
@@ -333,7 +341,7 @@ def test_fp32_unet_and_movq_on_the_card_match_the_cpu(gen):
     UNet (32-wide heads) and the MoVQ decoder and encoder."""
     from kandinsky2_tpu_torch.configs import create_model, small_config
     from kandinsky2_tpu_torch.models.movq import MOVQ
-    from kandinsky2_tpu_torch.pipelines.kandinsky2_1 import init_random_
+    from kandinsky2_tpu_torch.pipelines.base import init_random_
 
     cfg = small_config()
     dd = cfg["image_enc_params"]["params"]["ddconfig"]

@@ -6,7 +6,8 @@ for the MoVQ that includes the encoder, ``quant_conv`` and ``quantize``;
 the inpainting UNet (``InpaintText2ImUNet21``) is checked beside them.  The
 same for the five 2.2 models at the vendored published configuration
 (``weights/configs22.pipeline_overrides``), with their parameter counts,
-and the 2.2 inpainting and ControlNet UNets."""
+and the 2.2 inpainting and ControlNet UNets; and the four 2.0 models at
+``CONFIG_2_0`` with the 2.0 inpainting UNet."""
 
 import math
 
@@ -136,3 +137,61 @@ def test_fullsize_bridge_covers_model22(pipes22, name):
     if name == "unet":
         assert target["mid_block.attentions.0.add_k_proj.weight"] == (1536, 768)
         assert target["encoder_hid_proj.image_embeds.weight"] == (7680, 1280)
+
+
+# --- Kandinsky 2.0 at CONFIG_2_0 -------------------------------------------------
+
+# parameters of each 2.0 model at CONFIG_2_0 (XLM-R large 1024 -> 640, the
+# mT5-small encoder, Text2ImUNet20, the KL-VAE)
+PARAMS20 = {"text_encoder1": 559_496_832, "text_encoder2": 146_940_608,
+            "unet": 1_223_352_584, "image_encoder": 83_653_863,
+            "unet_inpainting": 1_223_369_864}
+
+
+@pytest.fixture(scope="module")
+def pipes20():
+    from kandinsky2_tpu.pipelines.kandinsky2_0 import Kandinsky2 as J20
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2 as T20
+
+    jp = J20(dtype=jnp.float32)
+    mc = jp.config["model_config"]
+    z = jnp.zeros
+    cond = lambda: dict(full_emb1=z((1, 77, mc["text_encoder_in_dim1"])),
+                        pooled_emb1=z((1, mc["text_encoder_in_dim2"])),
+                        full_emb2=z((1, 77, 512)))
+    ids = lambda L: (z((1, L), jnp.int32), jnp.ones((1, L), jnp.int32))
+    inits = {
+        "text_encoder1": lambda k: jp.text_encoder1.init(k, *ids(8)),
+        "text_encoder2": lambda k: jp.text_encoder2.init(k, *ids(8)),
+        "unet": lambda k: jp.unet.init(k, z((1, 8, 8, 4)), z((1,)), **cond()),
+        "image_encoder": lambda k: jp.image_encoder.init(k, z((1, 64, 64, 3))),
+        "unet_inpainting": lambda k: J20(dtype=jnp.float32, task_type="inpainting")
+        .unet.init(k, z((1, 8, 8, 4)), z((1,)), inpaint_image=z((1, 8, 8, 4)),
+                   inpaint_mask=z((1, 8, 8, 1)), **cond()),
+    }
+    models = T20(device="meta").models()
+    models["unet_inpainting"] = T20(device="meta", task_type="inpainting").unet
+    return inits, models
+
+
+@pytest.mark.parametrize("name", list(PARAMS20))
+def test_fullsize_bridge_covers_model20(pipes20, name):
+    inits, models = pipes20
+    shapes = jax.eval_shape(inits[name], jax.random.PRNGKey(0))["params"]
+    target = {k: tuple(v.shape) for k, v in models[name].state_dict().items()}
+    mapping = plan(shapes, target)
+    assert set(mapping) == set(target)
+    assert sum(math.prod(s) for s in target.values()) == PARAMS20[name]
+    if name == "text_encoder2":  # mT5-small: the 250112-token table, 8 blocks
+        assert target["shared.weight"] == (250112, 512)
+        assert target[
+            "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] \
+            == (32, 6)
+    if name == "unet":  # the AttentionPooling of the mT5 tokens, the 1x1 convs
+        assert target["proj2.q_linear.weight"] == (512, 512)
+        assert target["to_model_dim2.weight"] == (768, 512)
+    if name == "unet_inpainting":
+        assert target["input_blocks.0.0.weight"] == (384, 9, 3, 3)
+    if name == "image_encoder":
+        assert target["quant_conv.weight"] == (8, 8)
+        assert target["encoder.conv_out.weight"] == (8, 512, 3, 3)

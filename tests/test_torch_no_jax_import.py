@@ -33,11 +33,13 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 32
-    # the host side of 2.1 inference and the 2.2 slice are covered too
+    # the host side of 2.1 inference, the 2.2 slice and the 2.0 slice are
+    # covered too
     for name in ("tokenizers.clip_bpe", "tokenizers.textfix", "host_ops", "utils",
                  "diffusion.samplers", "pipelines.kandinsky2_1", "diffusion.paired",
                  "models.unet22", "models.prior22", "weights.configs22",
-                 "pipelines.kandinsky2_2"):
+                 "pipelines.kandinsky2_2", "depth", "models.t5",
+                 "pipelines.kandinsky2_0", "pipelines.base"):
         assert f"kandinsky2_tpu_torch.{name}" in proc.stdout.split(), name
 
 

@@ -168,15 +168,26 @@ def test_guard_errors_match_jax(pipes, call):
     assert jerr.type in (ValueError, AssertionError)
 
 
-def test_task_type_guard_and_controlnet_image_waits_for_depth():
+def test_task_type_guard_and_controlnet_image_waits_for_depth(monkeypatch, tmp_path):
+    """ControlNet with ``image`` and no ``hint`` makes its hint with the
+    heuristic estimator (held against JAX in ``test_torch_depth.py``); only
+    a configured DPT snapshot, whose network is not ported, raises."""
+    from PIL import Image
+
     from kandinsky2_tpu_torch.pipelines import Kandinsky2_2
+    from kandinsky2_tpu_torch.utils import stub_tokenizer22
 
     from test_torch_common import TINY22
 
     with pytest.raises(ValueError):
         Kandinsky2_2(task_type="upscale", device="meta")
     tp = Kandinsky2_2(task_type="controlnet", dtype=torch.float32, overrides=TINY22,
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="depth"):
-        tp.generate_controlnet(PROMPT, image=np.zeros((64, 64, 3), np.uint8),
-                               decoder_steps=2, prior_steps=2, h=64, w=64)
+                      tokenizer=stub_tokenizer22(64), device="cpu")
+    kw = dict(image=Image.fromarray(np.zeros((64, 64, 3), np.uint8)), decoder_steps=2,
+              prior_steps=2, h=64, w=64, output="float")
+    monkeypatch.delenv("KANDINSKY2_DPT_DIR", raising=False)
+    assert tp.generate_controlnet(PROMPT, **kw).shape == (1, 64, 64, 3)
+    (tmp_path / "config.json").write_text("{}")
+    monkeypatch.setenv("KANDINSKY2_DPT_DIR", str(tmp_path))
+    with pytest.raises(NotImplementedError, match="DPT"):
+        tp.generate_controlnet(PROMPT, **kw)

@@ -20,6 +20,9 @@ LOOP_TOL = 1e-5
 DECODER = dict(steps=1000, noise_schedule="linear", linear_start=0.00085,
                linear_end=0.012, rescale_timesteps=True)
 PRIOR = dict(steps=1000, noise_schedule="cosine")
+# the 2.0 decoder's (CONFIG_2_0): linear 1e-4 to 2e-2
+DECODER20 = dict(steps=1000, noise_schedule="linear", linear_start=0.0001,
+                 linear_end=0.02, rescale_timesteps=True)
 
 
 def _base():
@@ -209,6 +212,42 @@ def case_dpmpp_respaced_xstart():
             run(td, _ttoy, T, lambda v: torch.clamp(v, -10, 10)))
 
 
+def case_ddim20_img2img():
+    """2.0's img2img default: stochastic DDIM (eta 0.05) over its own base
+    schedule, the ladder truncated at t <= 300, the noise injected."""
+    w, x_T = _weights(11, 3), _x_T(6)
+    base = np.asarray(jd.make_schedule(**DECODER20).alphas_cumprod, np.float64)
+    nseq = _noise(12, len(td.schedules.ddim_ladder(25, init_step=300)))
+
+    def run(m, toy, tensor):
+        tables = m.make_ddim_tables(base, 25, eta=0.05, init_step=300)
+        return m.ddim_loop(toy(w), tables, tensor(x_T), eta=0.05,
+                           noise_seq=tensor(nseq))
+
+    return run(js, _jtoy, jnp.asarray), run(td, _ttoy, T)
+
+
+def case_p_sample20_inpaint():
+    """2.0's inpainting p_sampler: over its schedule respaced to 10, from
+    respaced step 7, x0 dynamic-thresholded at 99.5 and blended with the
+    known latent by the mask, then the loop's own dynamic threshold."""
+    w, nseq, x_T = _weights(13, 6), _noise(14, 7), _x_T(7)
+    rng = np.random.RandomState(15)
+    known = rng.randn(*SHAPE).astype(np.float32)
+    mask = (rng.rand(*SHAPE[:-1], 1) > 0.5).astype(np.float32)
+
+    def run(m, toy, tensor, threshold):
+        k, mk = tensor(known), tensor(mask)
+        return m.p_sample_loop(
+            toy(w), m.make_schedule(**DECODER20, timestep_respacing="10"), tensor(x_T),
+            mean_type=m.MeanType.EPSILON, var_type=m.VarType.LEARNED_RANGE,
+            clip_denoised=True, init_step=7, noise_seq=tensor(nseq), channel_axis=-1,
+            denoised_fn=lambda x0: threshold(x0, 99.5) * (1 - mk) + k * mk)
+
+    return (run(jd, _jtoy, jnp.asarray, jd.dynamic_threshold),
+            run(td, _ttoy, T, td.dynamic_threshold))
+
+
 LOOPS = {
     "p_sample_loop epsilon learned_range clip init_step": case_p_sample,
     "p_sample_loop stateful": case_p_sample_stateful,
@@ -227,6 +266,8 @@ LOOPS = {
     "ddim_respaced_loop": lambda: case_ddim_respaced(0.0),
     "ddim_respaced_loop eta 1": lambda: case_ddim_respaced(1.0),
     "dpmpp respaced xstart": case_dpmpp_respaced_xstart,
+    "ddim 2.0 eta 0.05 init_step noise_seq": case_ddim20_img2img,
+    "p_sample_loop 2.0 inpainting threshold and blend": case_p_sample20_inpaint,
 }
 
 
