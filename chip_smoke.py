@@ -64,7 +64,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    encoder puts K1, K2 and K3 at d = 512 on these paths.
 6. kernels, backward: the flash backward kernels (K5 dQ and delta, K4
    dK/dV) against the plain backward at the decoder training step's UNet
-   attention shapes and a ragged toy shape, bitwise repeatable, K5's delta
+   attention shapes (S = T + 87), the 2.2 UNet22's added-KV attention of
+   the LoRA and distillation steps (S = T + 10) and a ragged toy shape,
+   bitwise repeatable, K5's delta
    against rowsum(dO·O); timed in turns with the plain backward, the whole
    backward (K5 + K4) and the backward of ``scaled_dot_product_attention``,
    each beside its bound; and
@@ -79,9 +81,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    with fp32 parameters and bf16 compute, batch 1 at 768², the YAML's
    diffusion config, freeze rules and Adafactor (lr 5e-6), EMA 0.9999, no
    remat; prepare_batch (MoVQ encode, XLM-R, CLIP ViT) and train_step as
-   train_unclip calls them, one warm-up step and five timed steps, during
-   which every kernel must be launched (K4 and K5 22 times a step) and
-   every trainable parameter must get a finite, non-zero gradient.
+   train_unclip calls them: a first step in which every trainable
+   parameter must get a finite, non-zero gradient, a warm-up step and five
+   timed steps, during which the kernels launch exactly K1 = K2 = 119,
+   K3 = 25 and K4 = K5 = 22 times a step with no attention call on the
+   card by the plain route; then a profiled step.
 
 9. 2.2 tasks, small: every Kandinsky 2.2 entry point at a small width
    with 64-wide UNet heads (so that K3 runs) on the card (kernels, bf16)
@@ -124,6 +128,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    pipeline and, that pipeline freed, inpainting on a
    task_type="inpainting" one, each timed and pinned as in phase 5b
    (unprofiled: the text2img call shows where a 2.0 image's time goes).
+13. training, small: one step of each trainer of this training slice on
+   the card (kernels, bf16) against the CPU (plain versions, fp32) with the
+   same weights and injected draws, phase 7's limits: LoRA and step
+   distillation on the small UNet22 with 64-wide heads (a bf16 base; the
+   student fp32), the prior step (no kernel may launch: its attention is
+   masked) and the inpainting decoder step with seeded masks.
+14. training, full width, batch 1, one warm-up and timed steps, each with
+   s/step, peak memory, a profiled step's device idle share and its
+   launches pinned: lora22-768 (UNet22 of
+   weights.configs22.pipeline_overrides("text2img") with a bf16 base,
+   rank-4 factors on default_target, Adam 1e-4, latents [1, 96, 96, 4], 5
+   steps: K1 = K2 = 95, K3 = K4 = K5 = 22 a step; the base bitwise
+   unchanged, the factors moved, merge then unmerge back to the base
+   within bf16 rounding), distill22-768 (the same UNet as the bf16
+   teacher, an fp32 student, Adam 1e-4, num_student_steps 500, 3 steps:
+   K1 = K2 = 285, K3 = 66, K4 = K5 = 22), prior-train (the prior CLI's
+   run on config_prior.yaml over five seeded pictures, then 5 steps on its
+   model, batch and Adafactor: no kernel launched) and inpaint-train-768
+   (phase 8 on a task_type="inpainting" pipeline, masks from
+   train/masks.py).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' results as JSON, and the line before that the card's name and
@@ -177,6 +201,25 @@ SMALL22 = dict(
     movq=dict(z_channels=4, embed_dim=4, n_embed=32, ch=32, ch_mult=(1, 1, 1, 2),
               num_res_blocks=1, attn_resolutions=(8,), resolution=64),
 )
+# train_configs/config_prior.yaml as a dict (the card's machine has no
+# PyYAML; tests/test_torch_train_prior.py holds the two equal)
+PRIOR_YAML = {
+    "params_path": None, "clip_mean_std_path": None, "clip_name": "ViT-L/14",
+    "num_epochs": 2, "save_every": 1000, "save_name": "model",
+    "save_path": "checkpoints/prior",
+    "model_config": {
+        "model": {"type": "prior", "diffusion_sampler": "uniform", "hparams": {
+            "text_ctx": 77, "xf_width": 2048, "xf_layers": 20, "xf_heads": 32,
+            "xf_final_ln": True, "xf_padding": False, "text_drop": 0.2,
+            "clip_dim": 768, "clip_xf_width": 768}},
+        "diffusion": {"steps": 1000, "learn_sigma": False, "sigma_small": True,
+                      "noise_schedule": "cosine", "use_kl": False,
+                      "predict_xstart": True, "rescale_learned_sigmas": False,
+                      "timestep_respacing": ""}},
+    "optim_params": {"name": "optax.adafactor", "params": {"learning_rate": 5e-06}},
+    "data": {"train": {"df_path": None, "clip_image_size": 224, "drop_text_prob": 0.1,
+                       "batch_size": 1, "shuffle": True}},
+}
 CUDA_SOURCES = ("flash_attention.cu", "group_norm.cu")
 PEAK_BF16 = 989e12   # dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12    # fp32 FLOP/s outside the tensor cores
@@ -1493,12 +1536,17 @@ def phase_kernels_backward(torch, results):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     # the UNet attention of the decoder training step at 768², batch 1:
-    # (B, T, S = T + 87 encoder tokens, H), d = 64; and a ragged toy shape
-    # (T and S below one tile), checked but not timed
+    # (B, T, S = T + 87 encoder tokens, H), d = 64; the 2.2 UNet22's added-KV
+    # attention in the LoRA and distillation steps at 768², batch 1 (S = T +
+    # 10 image tokens, H = 768/64, 1280/64 and 1536/64); and a ragged toy
+    # shape (T and S below one tile), checked but not timed
     attn_shapes = [
         ("unet ds2", (1, 2304, 2391, 12)),
         ("unet ds4", (1, 576, 663, 18)),
         ("unet ds8/middle", (1, 144, 231, 24)),
+        ("unet22 ds2", (1, 2304, 2314, 12)),
+        ("unet22 ds4", (1, 576, 586, 20)),
+        ("unet22 ds8/middle", (1, 144, 154, 24)),
         ("ragged toy", (2, 37, 50, 1)),
     ]
     for label, (B, T, S, H) in attn_shapes:
@@ -1624,13 +1672,9 @@ def phase_train_small(torch, np):
 
     from PIL import Image
 
-    from kandinsky2_tpu_torch.configs import CONFIG_2_1, create_model, schedule_kwargs
-    from kandinsky2_tpu_torch.diffusion import make_schedule
     from kandinsky2_tpu_torch.ops import launch_counts, reset_launch_counts
-    from kandinsky2_tpu_torch.pipelines.base import init_random_
     from kandinsky2_tpu_torch.train import train_2_1_unclip as cli
     from kandinsky2_tpu_torch.train.checkpoint import latest_train_state
-    from kandinsky2_tpu_torch.train.train_unclip import unclip_loss
 
     rng = np.random.RandomState(7)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1650,7 +1694,7 @@ def phase_train_small(torch, np):
         fname, step = latest_train_state(str(tmp / "ckpt"))
         check(first.step == 2 and step == 2, "the first run did not save step 2")
         saved = torch.load(fname, map_location="cpu", weights_only=True)
-        for name, v in first.unet.state_dict().items():
+        for name, v in first.model.state_dict().items():
             check(torch.equal(saved["params"][name], v.cpu()), f"saved {name}")
         check(all(n > 0 for n in counts.values()), f"small run skipped a kernel: {counts}")
         del first, saved  # the "kill": the resumed run shares nothing with it
@@ -1658,52 +1702,92 @@ def phase_train_small(torch, np):
         opt_steps = {s["step"] for s in second.optimizer.state.values()}
         check(second.step == 4 and opt_steps == {4},
               f"the resumed run did not continue from the save: {second.step} {opt_steps}")
-        check(all(bool(torch.isfinite(p).all()) for p in second.unet.parameters()),
+        check(all(bool(torch.isfinite(p).all()) for p in second.model.parameters()),
               "resumed parameters not finite")
         print(f"train small: run 2 steps, save, kill, resume 2 steps: step "
               f"{second.step}; launches in the first run {json.dumps(counts)}")
         del second
 
-    mc = cli.small_train_config("", "", "", head_channels=64)["model_config"]
+    run = _small_unclip_step(torch, np, inpainting=False)
+    # the same step in bf16 against fp32, both on the CPU with the plain
+    # versions, gives 1.6e-4 on the loss and 9.9e-3 on the gradients
+    card_against_cpu(torch, "train small: one step", run)
+
+
+def _small_unclip_step(torch, np, inpainting: bool):
+    """run(dev) -> (loss, flat gradient): one decoder loss and backward of
+    the small 2.1 UNet (64-wide heads; the 9-channel one with seeded masks
+    where ``inpainting``) with the same weights, batch, t and noise; fp32
+    on the CPU, bf16 compute with fp32 parameters on the card."""
+    from kandinsky2_tpu_torch.configs import CONFIG_2_1, create_model, schedule_kwargs
+    from kandinsky2_tpu_torch.diffusion import make_schedule
+    from kandinsky2_tpu_torch.pipelines.base import init_random_
+    from kandinsky2_tpu_torch.train import train_2_1_unclip as cli
+    from kandinsky2_tpu_torch.train.masks import get_image_mask
+    from kandinsky2_tpu_torch.train.train_unclip import unclip_loss
+
+    mc = dict(cli.small_train_config("", "", "", head_channels=64)["model_config"],
+              inpainting=inpainting)
     cpu = create_model(**mc, dtype=torch.float32)
     init_random_(cpu, torch.Generator().manual_seed(8))
     gpu = create_model(**mc, dtype=torch.bfloat16, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
     skw = schedule_kwargs(CONFIG_2_1["diffusion_config"], "")
     batch = _small_batch(torch, np, mc, 9)
+    if inpainting:
+        np.random.seed(14)
+        mask = torch.tensor(get_image_mask(2, (8, 8))[..., None].astype(np.float32))
+        batch.update(inpaint_mask=mask, inpaint_image=batch["image_latents"] * mask)
     t = torch.tensor([5, 700])
     noise = torch.tensor(np.random.RandomState(10).randn(2, 8, 8, 4).astype(np.float32))
-    out = {}
-    reset_launch_counts()
-    for dev, unet in (("cuda", gpu), ("cpu", cpu)):
+
+    def run(dev):
+        unet = gpu if dev == "cuda" else cpu
         loss, _ = unclip_loss(
             unet, make_schedule(**skw["make_schedule"], device=dev),
             {k: v.to(dev) for k, v in batch.items()}, t.to(dev), noise.to(dev),
             torch.ones(2, device=dev), mean_type=skw["mean_type"],
             var_type=skw["var_type"], loss_type=skw["loss_type"])
         loss.backward()
-        out[dev] = (loss.item(), torch.cat([p.grad.float().cpu().flatten()
-                                            for p in unet.parameters()]))
-        if dev == "cuda":
-            counts = launch_counts()
-    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    g_gpu, g_cpu = out["cuda"][1], out["cpu"][1]
-    grad_rel = ((g_gpu - g_cpu).norm() / g_cpu.norm()).item()
-    # the same step in bf16 against fp32, both on the CPU with the plain
-    # versions, gives 1.6e-4 on the loss and 9.9e-3 on the gradients
-    print(f"train small: one step cuda/bf16 vs cpu/fp32: loss {out['cuda'][0]:.6f} vs "
-          f"{out['cpu'][0]:.6f} rel {loss_rel:.3e} (tol 1e-2); gradient rel_l2 "
-          f"{grad_rel:.3e} (tol 5e-2); launches {json.dumps(counts)}")
-    check(bool(torch.isfinite(g_gpu).all()), "card gradients not finite")
-    check(loss_rel <= 1e-2, "the train step's loss on the card disagrees with the CPU")
-    check(grad_rel <= 5e-2, "the train step's gradients on the card disagree with the CPU")
-    check(all(n > 0 for n in counts.values()), f"the small step skipped a kernel: {counts}")
+        return loss.item(), torch.cat([p.grad.float().cpu().flatten()
+                                       for p in unet.parameters()])
+
+    return run
 
 
-def phase_train_full(torch, np, smi: str):
-    """One warm-up and five timed decoder train steps at full width."""
-    from kandinsky2_tpu_torch.configs import CONFIG_2_1
+def card_against_cpu(torch, name, run, kernels=True) -> dict:
+    """One step on the card (kernels, bf16) against the same step on the
+    CPU (plain versions, fp32): ``run(dev)`` -> (loss, flat gradient).  The
+    loss within 1e-2 relative, the gradient within 5e-2 relative L2 and
+    finite; every kernel launched on the card (none where ``kernels`` is
+    false).  Returns the card's launches."""
     from kandinsky2_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    loss_gpu, g_gpu = run("cuda")
+    counts = launch_counts()
+    loss_cpu, g_cpu = run("cpu")
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_rel = ((g_gpu - g_cpu).norm() / g_cpu.norm()).item()
+    print(f"{name} cuda/bf16 vs cpu/fp32: loss {loss_gpu:.6f} vs {loss_cpu:.6f} rel "
+          f"{loss_rel:.3e} (tol 1e-2); gradient rel_l2 {grad_rel:.3e} (tol 5e-2) over "
+          f"{g_cpu.numel()} values; launches {json.dumps(counts)}")
+    check(bool(torch.isfinite(g_gpu).all()), f"{name}: card gradients not finite")
+    check(loss_rel <= 1e-2, f"{name}: the loss on the card disagrees with the CPU")
+    check(grad_rel <= 5e-2, f"{name}: the gradients on the card disagree with the CPU")
+    if kernels:
+        check(all(n > 0 for n in counts.values()), f"{name} skipped a kernel: {counts}")
+    else:
+        check(not any(counts.values()), f"{name} launched a kernel: {counts}")
+    return counts
+
+
+def phase_train_full(torch, np, smi: str, name="train full", task_type="text2img"):
+    """Decoder train steps at full width (``task_type`` "inpainting": the
+    9-channel UNet on the CLI's masked batches): a warm-up step with every
+    trainable gradient checked, then ``timed_steps``' warm-up, five timed
+    steps and a profiled one."""
+    from kandinsky2_tpu_torch.configs import CONFIG_2_1
     from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
     from kandinsky2_tpu_torch.train import train_2_1_unclip as cli
     from kandinsky2_tpu_torch.train.optim import decoder_freeze_mask
@@ -1712,7 +1796,8 @@ def phase_train_full(torch, np, smi: str):
 
     t0 = time.perf_counter()
     tok1 = stub_tokenizers()[0]
-    pipe = Kandinsky2_1(tokenizer1=tok1, dtype=torch.bfloat16, device="cuda")
+    pipe = Kandinsky2_1(tokenizer1=tok1, task_type=task_type, dtype=torch.bfloat16,
+                        device="cuda")
     pipe.init_random_params(torch.Generator(device="cuda").manual_seed(0),
                             dtype=torch.float32)
     unet = pipe.unet
@@ -1723,6 +1808,7 @@ def phase_train_full(torch, np, smi: str):
     mask = decoder_freeze_mask(unet, freeze_resblocks=True, freeze_attention=False)
     state = init_state(mask, seed=0)
     prepare_batch = cli.make_prepare_batch(pipe)
+    np.random.seed(12)  # the inpainting masks' draws (train/masks.py)
     rng = np.random.RandomState(11)
     enc = tok1(["red sand dunes under a violet sky"], max_length=77)
     raw = {"image": np.tanh(rng.randn(1, 768, 768, 3)).astype(np.float32),
@@ -1732,8 +1818,19 @@ def phase_train_full(torch, np, smi: str):
     torch.cuda.synchronize()
     n_train = sum(p.numel() for n, p in unet.named_parameters() if mask[n])
     n_all = sum(p.numel() for p in unet.parameters())
-    print(f"train full: built in {time.perf_counter() - t0:.2f} s; UNet {n_all} "
-          f"parameters, {n_train} trainable in {sum(mask.values())} tensors")
+    in_ch = unet.input_blocks[0][0].in_channels
+    print(f"{name}: built in {time.perf_counter() - t0:.2f} s; UNet {n_all} "
+          f"parameters, {in_ch} input channels, {n_train} trainable in "
+          f"{sum(mask.values())} tensors")
+    if task_type == "inpainting":
+        b = prepare_batch(raw)
+        share = float(b["inpaint_mask"].mean())
+        print(f"{name}: a batch's mask {list(b['inpaint_mask'].shape)}, {share:.3f} "
+              "of it kept")
+        check(0.0 < share < 1.0 and torch.equal(
+            b["inpaint_image"], b["image_latents"] * b["inpaint_mask"]),
+            f"{name}: the batch's mask or masked latents")
+        del b
 
     # warm-up step, with every trainable gradient checked before the update
     report = {}
@@ -1751,70 +1848,375 @@ def phase_train_full(torch, np, smi: str):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     hook.remove()
-    print(f"train full: warm-up step {warm_s:.3f} s, loss {float(metrics['loss']):.5f}; "
+    print(f"{name}: warm-up step {warm_s:.3f} s, loss {float(metrics['loss']):.5f}; "
           f"{report['checked']} trainable tensors checked, {len(report['bad'])} "
           f"with a missing, non-finite or zero gradient {report['bad'][:5]}")
-    check(not report["bad"], "a trainable parameter got no finite, non-zero gradient")
+    check(not report["bad"], f"{name}: a trainable parameter got no finite, non-zero "
+          "gradient")
 
     t0 = time.perf_counter()
     prepare_batch(raw)
     torch.cuda.synchronize()
-    prep_s = time.perf_counter() - t0
-
-    reset_launch_counts()
-    losses = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        metrics = train_step(state, prepare_batch(raw))
-        losses.append(metrics["loss"])
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / 5
-    counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    losses = [float(x) for x in losses]
-    check(all(np.isfinite(losses)), f"loss not finite: {losses}")
-    check(all(n > 0 for n in counts.values()),
-          f"a kernel was not launched in the timed steps: {counts}")
-    # CONFIG_2_1's UNet attends at ds 2, 4 and 8 in 3 input and 4 output
-    # blocks a level, and in the middle block: 22 attention backwards a step
-    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        check(counts[name] == 22 * 5, f"{name} launched {counts[name]} times in 5 steps")
+    print(f"{name}: prepare_batch {time.perf_counter() - t0:.4f} s (in every step)")
+    # a step: the UNet's 95 GroupNorms and 22 attentions forward, the MoVQ
+    # encoder's 24 and 3 in prepare_batch, and 22 attention backwards (the
+    # UNet attends at ds 2, 4 and 8 in 3 input and 4 output blocks a level,
+    # and in the middle block)
+    norms = UNET_LAUNCHES[0] + ENCODER_LAUNCHES[0]
+    attns = UNET_LAUNCHES[1] + ENCODER_LAUNCHES[1]
+    result = timed_steps(
+        torch, np, name, lambda: train_step(state, prepare_batch(raw))["loss"], 5, smi,
+        {"group_norm_stats": norms, "group_norm_apply": norms,
+         "flash_attention_fwd": attns, "flash_attention_bwd_dq": 22,
+         "flash_attention_bwd_dkv": 22}, reset_peak=False)
     frozen_same = all(torch.equal(p, before[n]) for n, p in unet.named_parameters()
                       if not mask[n])
     moved = [n for n, p in unet.named_parameters() if mask[n] and not torch.equal(p, before[n])]
-    check(frozen_same, "a frozen parameter changed")
-    check(len(moved) == sum(mask.values()), "a trained parameter did not move")
+    print(f"{name}: trained tensors moved {len(moved)}, frozen unchanged {frozen_same}; "
+          "768², batch 1, fp32 parameters, bf16 compute, Adafactor, EMA")
+    check(frozen_same, f"{name}: a frozen parameter changed")
+    check(len(moved) == sum(mask.values()), f"{name}: a trained parameter did not move")
+    return result
 
-    # one more step under the profiler: kernel time against wall time
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_step(state, prepare_batch(raw))
-        torch.cuda.synchronize()
-    # kernels, copies and sets are the events on the device; their self time
-    # is device time.  A record_function range (Optimizer.step) also shows on
-    # the device timeline, spanning kernels already counted: left out.
-    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
-              and not e.is_user_annotation]
-    dev_us = lambda e: e.self_device_time_total
-    kernel_ms = sum(dev_us(e) for e in events) / 1e3
-    check(kernel_ms > 0, "the profiler saw no device time")
-    top = sorted(events, key=lambda e: -dev_us(e))[:8]
-    print("train full: profiled step, kernel time by name (ms, calls): " + "; ".join(
-        f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ({e.count})" for e in top))
+def acp_decoder22(np):
+    """The 2.2 decoder's base alphas_cumprod (linear betas 0.00085 to 0.012
+    over 1000 steps) in fp32, as its pipeline keeps it."""
+    from kandinsky2_tpu_torch.diffusion.schedules import named_betas
+
+    return np.cumprod(1.0 - named_betas("linear", 1000, 0.00085, 0.012)).astype(np.float32)
+
+
+COPY_FACTOR = 1.5
+
+
+def phase_train_new_small(torch, np):
+    """LoRA and distillation on the small UNet22 (64-wide heads), the prior
+    step and the inpainting decoder step: one step each on the card against
+    the CPU."""
+    from kandinsky2_tpu_torch.models.lora import init_lora
+    from kandinsky2_tpu_torch.models.prior import PriorTransformer
+    from kandinsky2_tpu_torch.models.unet22 import UNet22
+    from kandinsky2_tpu_torch.pipelines.base import init_random_
+    from kandinsky2_tpu_torch.pipelines.kandinsky2_2 import Kandinsky2_2
+    from kandinsky2_tpu_torch.train.distill import init_distill_state, make_distill_step
+    from kandinsky2_tpu_torch.train.precision import cast_params
+    from kandinsky2_tpu_torch.train.train_lora import (
+        init_lora_train_state,
+        make_lora_train_step,
+        unet22_eps_fn,
+    )
+    from kandinsky2_tpu_torch.train.train_prior import make_prior_train_step
+
+    rng = np.random.RandomState(13)
+    arr = lambda *shape: torch.tensor(rng.randn(*shape).astype(np.float32))
+    cpu_unet = UNet22(**SMALL22["unet"])
+    init_random_(cpu_unet, torch.Generator().manual_seed(14), Kandinsky2_2.residual_outputs)
+    gpu_unet = UNet22(**SMALL22["unet"], dtype=torch.bfloat16, device="cuda")
+    gpu_unet.load_state_dict(cpu_unet.state_dict())
+    gpu_unet.to(torch.bfloat16)  # the bf16 base of phase 14
+    unets = {"cuda": gpu_unet, "cpu": cpu_unet}
+    x0, cond = 0.5 * arr(2, 8, 8, 4), arr(2, SMALL22["unet"]["encoder_hid_dim"])
+    noise = arr(2, 8, 8, 4)
+    loras = init_lora(cpu_unet, torch.Generator().manual_seed(15), rank=4)
+    for f in loras.values():  # non-zero up, so that down gets a gradient too
+        f["up"] = 0.05 * arr(*f["up"].shape)
+
+    def grads_of(opt, tensors):
+        out = []
+        opt.register_step_pre_hook(lambda o, a, kw: out.append(torch.cat(
+            [t.grad.float().cpu().flatten() for t in tensors])))
+        return out
+
+    def lora(dev):
+        state = init_lora_train_state(
+            {n: {k: v.to(dev) for k, v in f.items()} for n, f in loras.items()},
+            lambda ps: torch.optim.Adam(ps, lr=1e-3))
+        g = grads_of(state.optimizer, list(state.params.values()))
+        step = make_lora_train_step(unet22_eps_fn(unets[dev]), unets[dev],
+                                    acp_decoder22(np))
+        m = step(state, x0.to(dev), cond.to(dev), t=torch.tensor([30, 870]),
+                 noise=noise.to(dev))
+        return float(m["loss"]), g[0]
+
+    # The student of a first round is the teacher's copy, and its loss is
+    # the residual of one step against two, which bf16's rounding of three
+    # UNet calls rivals: against the CPU in fp32 the plain versions in bf16
+    # on the CPU miss by 3.535e-1 (loss) and 4.970e-1 (gradient), the card
+    # by 3.340e-1 and 4.990e-1 (H100 80GB HBM3, 700 W).  So phase 7's
+    # limits hold a student from another seed (as after training), and the
+    # copy's distances on the card stay within COPY_FACTOR of that bf16
+    # control's.
+    other = UNet22(**SMALL22["unet"])
+    init_random_(other, torch.Generator().manual_seed(17), Kandinsky2_2.residual_outputs)
+    cpu_bf16 = UNet22(**SMALL22["unet"], dtype=torch.bfloat16)
+    cpu_bf16.load_state_dict(cpu_unet.state_dict())
+    cpu_bf16.to(torch.bfloat16)
+
+    def distill(dev, unet, student=None):
+        teacher = {n: p.detach() for n, p in unet.named_parameters()}
+        src = teacher if student is None else {
+            n: p.detach().to(dev) for n, p in student.named_parameters()}
+        state = init_distill_state(cast_params(src, torch.float32),
+                                   lambda ps: torch.optim.Adam(ps, lr=1e-4))
+        g = grads_of(state.optimizer, list(state.params.values()))
+        step = make_distill_step(unet22_eps_fn(unet), teacher, acp_decoder22(np),
+                                 num_student_steps=500)
+        m = step(state, x0.to(dev), cond.to(dev), i=torch.tensor([20, 430]),
+                 noise=noise.to(dev))
+        return float(m["loss"]), g[0]
+
+    hp = dict(text_ctx=8, xf_width=64, xf_layers=2, xf_heads=2, xf_final_ln=True,
+              clip_dim=32, clip_xf_width=32)
+    cpu_prior = PriorTransformer(**hp)
+    init_random_(cpu_prior, torch.Generator().manual_seed(16))
+    pmask = torch.ones(2, hp["text_ctx"], dtype=torch.bool)
+    pmask[1, 5:] = False
+    pbatch = {"image_emb": arr(2, 32), "txt_feat": arr(2, 32),
+              "txt_feat_seq": arr(2, hp["text_ctx"], 32), "mask": pmask}
+    pnoise = arr(2, 32)
+
+    def prior(dev):
+        model = cpu_prior
+        if dev == "cuda":
+            model = PriorTransformer(**hp, dtype=torch.bfloat16, device=dev)
+            model.load_state_dict(cpu_prior.state_dict())
+        init_state, step = make_prior_train_step(
+            model, PRIOR_YAML["model_config"]["diffusion"], ema_decay=0.9999)
+        state = init_state()
+        g = grads_of(state.optimizer, list(model.parameters()))
+        m = step(state, {k: v.to(dev) for k, v in pbatch.items()},
+                 t=torch.tensor([40, 910]), noise=pnoise.to(dev))
+        return float(m["loss"]), g[0]
+
+    card_against_cpu(torch, "train small: LoRA step (UNet22)", lora)
+    card_against_cpu(torch, "train small: distillation step (UNet22, a student "
+                     "from another seed)", lambda dev: distill(dev, unets[dev], other))
+    copy = {"card": distill("cuda", gpu_unet), "cpu bf16": distill("cpu", cpu_bf16)}
+    ref_loss, ref_g = distill("cpu", cpu_unet)
+    dist = {k: (abs(loss - ref_loss) / ref_loss, ((g - ref_g).norm() / ref_g.norm()).item())
+            for k, (loss, g) in copy.items()}
+    ratio = [c / b for c, b in zip(dist["card"], dist["cpu bf16"])]
+    print("train small: distillation step, the student the teacher's copy, against "
+          f"cpu/fp32 (loss {ref_loss:.6f}): " + "; ".join(
+              f"{k} loss {copy[k][0]:.6f} rel {dl:.3e}, gradient rel_l2 {dg:.3e}"
+              for k, (dl, dg) in dist.items()) + f"; card over cpu bf16 loss "
+          f"{ratio[0]:.3f}, gradient {ratio[1]:.3f} (tol {COPY_FACTOR})")
+    check(bool(torch.isfinite(copy["card"][1]).all()),
+          "distillation copy: card gradients not finite")
+    check(max(ratio) <= COPY_FACTOR, "distillation copy: the card is further from the "
+          "CPU than bf16 rounding on the CPU is")
+    card_against_cpu(torch, "train small: prior step", prior, kernels=False)
+    card_against_cpu(torch, "train small: inpainting decoder step",
+                     _small_unclip_step(torch, np, inpainting=True))
+
+
+def timed_steps(torch, np, name: str, step, n: int, smi: str, per_step: dict,
+                reset_peak: bool = True):
+    """One warm-up call of ``step`` (returning the loss), then ``n`` timed
+    ones (host clock ending in a synchronize): every loss finite, the
+    kernels launched exactly ``n`` times ``per_step`` and no attention call
+    on the card by the plain route; then one call under the profiler.
+    Prints s/step, the peak memory of every step before the profiled one
+    (from the warm-up on, or from the caller's own reset where
+    ``reset_peak`` is false: its first step is where the optimizer
+    allocates its state) and the device idle share; returns the launches
+    of the timed steps and s/step."""
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+
+    if reset_peak:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = float(step())
+    torch.cuda.synchronize()
+    print(f"{name}: warm-up step {time.perf_counter() - t0:.3f} s, loss {first:.5f}")
+    reset_path_counts()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(n)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n
+    counts = launch_counts()
+    plain = qkv_attention.plain_on_card
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [first] + [float(x) for x in losses]
+    want = {k: n * v for k, v in per_step.items()}
+    ops, dev_ms, events = device_profile(torch, step)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"{name}: profiled step, device time by name (ms, calls): " + "; ".join(
+        f"{e.key[:50]} {e.self_device_time_total / 1e3:.2f} ({e.count})" for e in top))
     bwd = {k: [e for e in events if k in e.key] for k in ("flash_bwd_dq", "flash_bwd_dkv")}
-    print("train full: profiled step, flash backward kernels (ms, calls): " + "; ".join(
-        f"{k} {sum(dev_us(e) for e in v) / 1e3:.3f} ({sum(e.count for e in v)})"
-        for k, v in bwd.items()))
-    print(f"train full: losses {losses}; launches in the 5 timed steps "
-          f"{json.dumps(counts)}; trained tensors moved {len(moved)}, frozen unchanged")
-    print(f"train full: {step_s:.4f} s/step (prepare_batch {prep_s:.4f} s of it) at "
-          f"768², batch 1, fp32 parameters, bf16 compute, Adafactor, EMA; kernel "
-          f"time of a profiled step {kernel_ms:.1f} ms, device idle share "
-          f"{1 - kernel_ms / 1e3 / step_s:.3f}; peak device memory {peak:.2f} GiB "
-          f"on {smi}")
+    print(f"{name}: profiled step, flash backward kernels (ms, calls): " + "; ".join(
+        f"{k} {sum(e.self_device_time_total for e in v) / 1e3:.3f} "
+        f"({sum(e.count for e in v)})" for k, v in bwd.items()))
+    print(f"{name}: losses {losses}; launches in the {n} timed steps {json.dumps(counts)}"
+          f" (pinned at {json.dumps(per_step)} a step); attention calls on the card by "
+          f"the plain route {plain}")
+    print(f"{name}: {step_s:.4f} s/step, batch 1; a profiled step {ops} device ops, "
+          f"{dev_ms:.1f} ms of device time, device idle share "
+          f"{1 - dev_ms / 1e3 / step_s:.3f}; peak device memory {peak:.2f} GiB on {smi}")
+    check(all(np.isfinite(losses)), f"{name}: loss not finite: {losses}")
+    check(counts == want, f"{name}: launches {counts} != {want}")
+    check(plain == 0, f"{name}: {plain} attention calls on the card missed K3")
+    check(dev_ms > 0, f"{name}: the profiler saw no device time")
     return counts, step_s
+
+
+def phase_train22_full(torch, np, smi: str) -> dict:
+    """lora22-768 and distill22-768: the published 2.2 decoder UNet22 with a
+    bf16 base, at 768² (latents [1, 96, 96, 4]), batch 1."""
+    from kandinsky2_tpu_torch.models.lora import init_lora, merge_lora, unmerge_lora
+    from kandinsky2_tpu_torch.models.unet22 import UNet22
+    from kandinsky2_tpu_torch.pipelines.base import init_random_
+    from kandinsky2_tpu_torch.pipelines.kandinsky2_2 import Kandinsky2_2
+    from kandinsky2_tpu_torch.train.distill import init_distill_state, make_distill_step
+    from kandinsky2_tpu_torch.train.precision import cast_params
+    from kandinsky2_tpu_torch.train.train_lora import (
+        init_lora_train_state,
+        make_lora_train_step,
+        nest_loras,
+        unet22_eps_fn,
+    )
+    from kandinsky2_tpu_torch.weights.configs22 import pipeline_overrides
+
+    t0 = time.perf_counter()
+    unet = UNet22(**pipeline_overrides("text2img")["unet"], dtype=torch.bfloat16,
+                  device="cuda")
+    init_random_(unet, torch.Generator(device="cuda").manual_seed(20),
+                 Kandinsky2_2.residual_outputs)
+    unet.to(torch.bfloat16)
+    base = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x0 = torch.randn((1, 96, 96, 4), generator=g, device="cuda") * 0.5
+    cond = torch.randn((1, unet.encoder_hid_dim), generator=g, device="cuda")
+    eps_fn = unet22_eps_fn(unet)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in unet.parameters())
+    print(f"lora22-768: UNet22 {n_params} parameters in bf16, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    # a UNet22 call: 95 GroupNorms and 22 added-KV attentions
+    norms, attns = UNET_LAUNCHES
+    out = {}
+
+    # LoRA: rank-4 factors on default_target, Adam 1e-4, 5 timed steps
+    loras = init_lora(unet, torch.Generator(device="cuda").manual_seed(22), rank=4)
+    state = init_lora_train_state(loras, lambda ps: torch.optim.Adam(ps, lr=1e-4))
+    n_factors = sum(v.numel() for v in state.params.values())
+    print(f"lora22-768: {len(loras)} factored weights, {n_factors} factor values")
+    step = make_lora_train_step(eps_fn, unet, acp_decoder22(np))
+    out["lora"] = timed_steps(
+        torch, np, "lora22-768", lambda: step(state, x0, cond)["loss"], 5, smi,
+        {"group_norm_stats": norms, "group_norm_apply": norms,
+         "flash_attention_fwd": attns, "flash_attention_bwd_dq": attns,
+         "flash_attention_bwd_dkv": attns})
+    same = all(torch.equal(p, base[n]) for n, p in unet.named_parameters())
+    trained = nest_loras(state.params)
+    moved = all(bool(f["up"].any()) for f in trained.values())
+    with torch.no_grad():
+        merged = merge_lora(base, trained)
+        back = unmerge_lora(merged, trained)
+    # two roundings to bf16, each at most half an ulp (2^-8 of the value):
+    # of W + ΔW, then of W + that first error, together at most
+    # 2^-7 (1 + 2^-7) (|W| + |ΔW|)
+    worst = 0.0
+    for n, f in trained.items():
+        delta = (f["down"].detach() @ f["up"].detach()).t()
+        bound = 2.0 ** -7 * (1 + 2.0 ** -7) * (base[n].float().abs() + delta.abs()) + 1e-30
+        worst = max(worst, float(((back[n].float() - base[n].float()).abs() / bound).max()))
+    changed = sum(not torch.equal(merged[n], base[n]) for n in trained)
+    print(f"lora22-768: base bitwise unchanged {same}; every up factor moved {moved}; "
+          f"merged weights that differ from the base {changed} of {len(loras)}; "
+          f"unmerge(merge(W)) - W at most {worst:.3f} of the bf16 rounding bound")
+    check(same, "lora22-768: the base changed")
+    check(moved, "lora22-768: an up factor did not move")
+    check(changed > 0, "lora22-768: the trained factors change no merged weight")
+    check(worst <= 1.0, "lora22-768: merge then unmerge does not return the base")
+    del state, trained, merged, back, loras
+
+    # distillation: the bf16 teacher is the base, the student fp32 copies
+    # computing in bf16, Adam 1e-4, num_student_steps 500, 3 timed steps
+    torch.cuda.empty_cache()
+    teacher = {n: p.detach() for n, p in unet.named_parameters()}
+    dstate = init_distill_state(cast_params(teacher, torch.float32),
+                                lambda ps: torch.optim.Adam(ps, lr=1e-4))
+    dstep = make_distill_step(eps_fn, teacher, acp_decoder22(np), num_student_steps=500)
+    out["distill"] = timed_steps(
+        torch, np, "distill22-768", lambda: dstep(dstate, x0, cond)["loss"], 3, smi,
+        {"group_norm_stats": 3 * norms, "group_norm_apply": 3 * norms,
+         "flash_attention_fwd": 3 * attns, "flash_attention_bwd_dq": attns,
+         "flash_attention_bwd_dkv": attns})
+    same = all(torch.equal(p, base[n]) for n, p in unet.named_parameters())
+    moved = sum(not torch.equal(p.detach(), base[n].float())
+                for n, p in dstate.params.items())
+    print(f"distill22-768: teacher bitwise unchanged {same}; student tensors moved "
+          f"{moved} of {len(dstate.params)}")
+    check(same, "distill22-768: the teacher changed")
+    check(moved > 0, "distill22-768: the student did not move")
+    return out
+
+
+def phase_prior_train_full(torch, np, smi: str):
+    """prior-train: the prior CLI's run on config_prior.yaml (CONFIG_2_1's
+    prior, 2048 wide, 20 layers; the CLIP text tower and ViT-L/14 frozen;
+    Adafactor 5e-6, EMA) over a seeded CSV of five pictures, then five timed
+    steps on the CLI's own model, batch and optimizer."""
+    import copy
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    from kandinsky2_tpu_torch.ops import launch_counts
+    from kandinsky2_tpu_torch.train import train_prior_cli as cli
+    from kandinsky2_tpu_torch.train.checkpoint import latest_checkpoint
+    from kandinsky2_tpu_torch.train.optim import adafactor_from_config
+    from kandinsky2_tpu_torch.train.train_prior import make_prior_train_step
+
+    cfg = copy.deepcopy(PRIOR_YAML)
+    rng = np.random.RandomState(23)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rows = ["image_name,caption"]
+        for i in range(5):
+            Image.fromarray(rng.randint(0, 256, (256, 320, 3), np.uint8)).save(
+                tmp / f"{i}.png")
+            rows.append(f"{tmp / f'{i}.png'},a seeded picture number {i}")
+        (tmp / "data.csv").write_text("\n".join(rows) + "\n")
+        cfg.update(num_epochs=1, save_path=str(tmp / "ckpt"))
+        cfg["data"]["train"]["df_path"] = str(tmp / "data.csv")
+        reset_path_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = cli.run(cfg, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = launch_counts()
+        _, exported = latest_checkpoint(cfg["save_path"])
+        finite = all(bool(torch.isfinite(p).all()) for p in state.model.parameters()) \
+            and all(bool(torch.isfinite(e).all()) for e in state.ema_params.values())
+        n_params = sum(p.numel() for p in state.model.parameters())
+        print(f"prior-train: the CLI's run, 5 steps with the build, the loader, the "
+              f"whole-state save and the export, {run_s:.2f} s; prior {n_params} "
+              f"parameters; step "
+              f"{state.step}, exported at {exported}; parameters and EMA finite "
+              f"{finite}; launches {json.dumps(counts)}")
+        check(state.step == 5 and exported == 5,
+              "prior-train: the run did not take 5 steps")
+        check(finite, "prior-train: parameters or EMA not finite")
+        check(not any(counts.values()), f"prior-train: a kernel was launched: {counts}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        prior = cli.build_prior(cfg, "cuda")
+        prepare_batch = cli.make_prepare_batch(cfg, "cuda")
+        raw = next(iter(cli.make_loader(cfg)))
+        init_state, step = make_prior_train_step(
+            prior, cfg["model_config"]["diffusion"],
+            adafactor_from_config(cfg["optim_params"]), ema_decay=0.9999)
+        pstate = init_state()
+        zero = {k: 0 for k in counts}
+        return timed_steps(torch, np, "prior-train", lambda: step(
+            pstate, prepare_batch(raw))["loss"], 5, smi, zero)
 
 
 def phase_clock():
@@ -1939,7 +2341,28 @@ def main() -> int:
     # 12. full-width 2.0 text2img, this slice's main path, then img2img and
     # inpainting
     t2i20_counts, t2i20_s, tasks20 = phase_t2i20(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("phase 12")
+
+    # 13. LoRA, distillation, the prior step and the inpainting decoder step
+    # at a small width against the CPU
+    phase_train_new_small(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 13")
+
+    # 14. the same trainers at full width: lora22-768 and distill22-768,
+    # prior-train, inpaint-train-768
+    new_train = phase_train22_full(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    new_train["prior_train"] = phase_prior_train_full(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    new_train["inpaint_train"] = phase_train_full(torch, np, smi, "inpaint-train-768",
+                                                  "inpainting")
+    lap("phase 14")
 
     meta = {
         "group_norm_stats": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
@@ -1968,6 +2391,7 @@ def main() -> int:
             "t2i22_launches": t2i22_counts[name],
             "t20_launches": t2i20_counts[name],
             **{f"{task}_launches": tasks20[task][0][name] for task in tasks20},
+            **{f"{path}_launches": new_train[path][0][name] for path in new_train},
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1978,7 +2402,9 @@ def main() -> int:
         f"{task}: {sec:.4f} s/image" for task, (_, sec) in tasks.items())
         + f"; train: {step_s:.4f} s/step; 2.2 text2img: {t2i22_s:.4f} s/image"
         + f"; 2.0 text2img: {t2i20_s:.4f} s/image; " + "; ".join(
-            f"{task}: {sec:.4f} s/image" for task, (_, sec) in tasks20.items()))
+            f"{task}: {sec:.4f} s/image" for task, (_, sec) in tasks20.items())
+        + "; " + "; ".join(f"{path}: {sec:.4f} s/step"
+                           for path, (_, sec) in new_train.items()))
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
-"""Gaussian diffusion math on tensors: the subset of
-``kandinsky2_tpu/diffusion/gaussian.py`` that 2.1 inference and the 2.1
-decoder fine-tuning run (sampling with the dynamic threshold, and the
-hybrid MSE + VLB training loss).
+"""Gaussian diffusion math on tensors: the counterpart of
+``kandinsky2_tpu/diffusion/gaussian.py``: sampling with the dynamic
+threshold, the hybrid MSE + VLB training loss, and the bits-per-dim
+evaluation (``prior_bpd``, ``calc_bpd_loop``).
 
 Tables are built in float64 numpy (``schedules.py``) and stored as float32
 tensors on the caller's device, as the JAX package stores them.
@@ -329,6 +329,48 @@ def vb_terms_bpd(sched: Schedule, model_output, x_start, x_t, t, *,
         x_start, means=out["mean"], log_scales=0.5 * out["log_variance"]
     )) / math.log(2.0)
     return torch.where(t == 0, decoder_nll, kl), out["pred_xstart"]
+
+
+def prior_bpd(sched: Schedule, x_start):
+    """The prior KL term of the VLB in bits per dimension
+    (gaussian_diffusion.py:744-758): KL(q(x_T | x_0) || N(0, I))."""
+    t = torch.full((x_start.shape[0],), sched.num_timesteps - 1, dtype=torch.long,
+                   device=x_start.device)
+    qt_mean, _, qt_logvar = q_mean_variance(sched, x_start, t)
+    zero = torch.zeros((), device=x_start.device)
+    return mean_flat(normal_kl(qt_mean, qt_logvar, zero, zero)) / math.log(2.0)
+
+
+def calc_bpd_loop(sched: Schedule, model_fn: Callable, x_start,
+                  generator: Optional[torch.Generator] = None, *, noise=None,
+                  mean_type: MeanType = MeanType.EPSILON,
+                  var_type: VarType = VarType.LEARNED_RANGE,
+                  channel_axis: int = -1) -> dict:
+    """The whole VLB (gaussian_diffusion.py:760-813), one model call per
+    timestep from T − 1 down to 0.  The noise of timestep t is ``noise[t]``
+    ([T, *x_start.shape]) where given, else drawn from ``generator`` in
+    that order.  Returns dict(total_bpd [B], prior_bpd [B], and vb,
+    xstart_mse, mse [B, T] with column j for timestep T − 1 − j)."""
+    B = x_start.shape[0]
+    vb, xstart_mse, mse = [], [], []
+    for t_scalar in range(sched.num_timesteps - 1, -1, -1):
+        t = torch.full((B,), t_scalar, dtype=torch.long, device=x_start.device)
+        eps = (torch.as_tensor(noise[t_scalar], device=x_start.device).float()
+               if noise is not None else
+               torch.randn(x_start.shape, generator=generator, device=x_start.device))
+        x_t = q_sample(sched, x_start, t, eps)
+        model_output = model_fn(x_t, sched.model_timesteps(t)).float()
+        v, pred_xstart = vb_terms_bpd(sched, model_output, x_start, x_t, t,
+                                      mean_type=mean_type, var_type=var_type,
+                                      channel_axis=channel_axis)
+        vb.append(v)
+        xstart_mse.append(mean_flat((pred_xstart - x_start) ** 2))
+        pred_eps = predict_eps_from_xstart(sched, x_t, t, pred_xstart)
+        mse.append(mean_flat((pred_eps - eps) ** 2))
+    vb, xstart_mse, mse = (torch.stack(v, dim=1) for v in (vb, xstart_mse, mse))
+    pb = prior_bpd(sched, x_start)
+    return {"total_bpd": vb.sum(dim=1) + pb, "prior_bpd": pb, "vb": vb,
+            "xstart_mse": xstart_mse, "mse": mse}
 
 
 def training_losses(sched: Schedule, model_fn: Callable, x_start, t, noise, *,

@@ -1,1 +1,1 @@
-"""PyTorch modules of the 2.1 text2img path."""
+"""PyTorch modules of the port (UNets, prior, text towers, codecs, LoRA)."""

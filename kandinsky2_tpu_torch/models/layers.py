@@ -146,6 +146,17 @@ def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
     return x[:, h_idx][:, :, w_idx]
 
 
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """Bilinear resize to (H, W), NHWC (half-pixel centres, the edge pixel
+    repeated: ``F.interpolate`` with align_corners=False).  It equals the
+    JAX package's ``jax.image.resize`` "linear" when it upsamples, the only
+    way the super-resolution UNets call it; ``jax.image.resize``
+    antialiases when it shrinks and this does not."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1)
+
+
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
     """2x2 average pool, stride 2, NHWC."""
     B, H, W, C = x.shape

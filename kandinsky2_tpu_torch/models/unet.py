@@ -2,7 +2,9 @@
 ``kandinsky2_tpu/models/unet.py``: ``ResBlock``, ``AttentionBlock``,
 ``Downsample``, ``Upsample``, the ``UNetModel`` torso, the 2.1 text+image
 conditioned ``Text2ImUNet21`` with its ``encode_conditioning`` / ``denoise``
-split, its inpainting variant ``InpaintText2ImUNet21``, and the turbo
+split, its inpainting variant ``InpaintText2ImUNet21``, the super-resolution
+UNets (``SuperResUNetModel``, ``SuperResInpaintUNetModel``,
+``SuperResText2ImUNet21``), and the turbo
 deep cache (``deep_cache_spec``, ``run_torso_cached``, ``denoise_cached``);
 the 2.0 dual-text ``Text2ImUNet20`` (XLM-R and mT5 tokens as cross-attention
 K/V, an ``AttentionPooling`` of the mT5 sequence in the time embedding) and
@@ -30,6 +32,7 @@ from .layers import (
     LayerNormF32,
     Linear,
     avg_pool_2x,
+    resize_bilinear,
     timestep_embedding,
     upsample_nearest_2x,
 )
@@ -86,31 +89,35 @@ class ResBlock(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Spatial self-attention with the encoder K/V concatenated before the
-    spatial K/V (unet.py:223-340); per-head [q|k|v] channel layout."""
+    """Spatial self-attention with the encoder K/V, where the block has an
+    ``encoder_kv`` projection (``encoder_channels`` not None), concatenated
+    before the spatial K/V (unet.py:223-340); per-head [q|k|v] channel
+    layout."""
 
-    def __init__(self, channels, num_heads, encoder_channels,
+    def __init__(self, channels, num_heads, encoder_channels=None,
                  dtype=torch.float32, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.norm = GroupNorm32(channels, device=device)
         self.qkv = Linear(channels, 3 * channels, dtype=dtype, device=device)
-        self.encoder_kv = Linear(encoder_channels, 2 * channels, dtype=dtype,
-                                 device=device)
+        self.encoder_kv = (None if encoder_channels is None else
+                           Linear(encoder_channels, 2 * channels, dtype=dtype,
+                                  device=device))
         self.proj_out = Linear(channels, channels, dtype=dtype, device=device)
 
-    def forward(self, x, encoder_out):
+    def forward(self, x, encoder_out=None):
         B, H, W, C = x.shape
         heads = self.num_heads
         ch = C // heads
         h = self.norm(x).reshape(B, H * W, C)
         q, k, v = self.qkv(h).reshape(B, H * W, heads, 3 * ch).split(ch, dim=-1)
-        ekv = self.encoder_kv(encoder_out).reshape(
-            B, encoder_out.shape[1], heads, 2 * ch
-        )
-        ek, ev = ekv.split(ch, dim=-1)
-        k = torch.cat([ek, k], dim=1)
-        v = torch.cat([ev, v], dim=1)
+        if self.encoder_kv is not None:
+            ekv = self.encoder_kv(encoder_out).reshape(
+                B, encoder_out.shape[1], heads, 2 * ch
+            )
+            ek, ev = ekv.split(ch, dim=-1)
+            k = torch.cat([ek, k], dim=1)
+            v = torch.cat([ev, v], dim=1)
         a = qkv_attention(q, k, v).reshape(B, H * W, C)
         return x + self.proj_out(a).reshape(B, H, W, C)
 
@@ -204,7 +211,7 @@ class UNetModel(nn.Module):
                  num_res_blocks=3, attention_resolutions=(2, 4, 8),
                  channel_mult=(1, 2, 3, 4), num_heads=1, num_head_channels=64,
                  num_heads_upsample=-1, use_scale_shift_norm=True,
-                 resblock_updown=True, encoder_channels=768,
+                 resblock_updown=True, encoder_channels=None,
                  dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
@@ -325,6 +332,9 @@ class UNetModel(nn.Module):
         temb = timestep_embedding(timesteps, self.model_channels)
         return self.time_embed[2](F.silu(self.time_embed[0](temb)))
 
+    def forward(self, x, timesteps, encoder_out=None):
+        return self.run_torso(x, self.time_embedding(timesteps), encoder_out)
+
 
 class Text2ImUNet21(UNetModel):
     """Kandinsky 2.1 conditioned UNet (text2im_model2_1.py:13-129): the CLIP
@@ -407,6 +417,41 @@ class InpaintText2ImUNet21(Text2ImUNet21):
         xf_proj, xf_out = self.encode_conditioning(full_emb, pooled_emb, image_emb)
         return self.denoise(x, timesteps, xf_proj, xf_out, inpaint_image,
                             inpaint_mask)
+
+
+class SuperResUNetModel(UNetModel):
+    """Super-resolution UNet (unet.py:614-635): the input is x ⊕ the
+    bilinear upsampled low-resolution image, so ``in_channels`` is 2C."""
+
+    def forward(self, x, timesteps, low_res=None, encoder_out=None):
+        up = resize_bilinear(low_res, x.shape[1:3]).to(x.dtype)
+        return super().forward(torch.cat([x, up], dim=-1), timesteps, encoder_out)
+
+
+class SuperResInpaintUNetModel(UNetModel):
+    """Joint super-resolution and inpainting UNet (unet.py:665-701): the
+    input is x ⊕ image·mask ⊕ mask ⊕ the upsampled low-resolution image,
+    3C + 1 channels."""
+
+    def forward(self, x, timesteps, inpaint_image=None, inpaint_mask=None,
+                low_res=None, encoder_out=None):
+        up = resize_bilinear(low_res, x.shape[1:3]).to(x.dtype)
+        x = torch.cat([inpaint_input(x, inpaint_image, inpaint_mask), up], dim=-1)
+        return super().forward(x, timesteps, encoder_out)
+
+
+class SuperResText2ImUNet21(Text2ImUNet21):
+    """The 2.1 text-conditioned super-resolution UNet
+    (text2im_model2_1.py:106-129): ``Text2ImUNet21`` on x ⊕ the upsampled
+    low-resolution image."""
+
+    def denoise(self, x, timesteps, xf_proj, xf_out, low_res=None):
+        up = resize_bilinear(low_res, x.shape[1:3]).to(x.dtype)
+        return super().denoise(torch.cat([x, up], dim=-1), timesteps, xf_proj, xf_out)
+
+    def forward(self, x, timesteps, full_emb, pooled_emb, image_emb, low_res=None):
+        xf_proj, xf_out = self.encode_conditioning(full_emb, pooled_emb, image_emb)
+        return self.denoise(x, timesteps, xf_proj, xf_out, low_res)
 
 
 T5_DIM = 512  # the mT5-small width that Text2ImUNet20's projections take

@@ -1,11 +1,10 @@
-"""Host data pipeline: the decoder's CSV image/caption dataset with CFG
-drop augmentation, a copy of the decoder half of
-``kandinsky2_tpu/train/data.py`` (numpy and PIL only; the JAX package's
-module imports its JAX pipeline).  The prior's BPE mode waits for the
-prior's trainer.
+"""Host data pipeline: the CSV image/caption dataset with CFG drop
+augmentation, a copy of ``kandinsky2_tpu/train/data.py`` (numpy and PIL
+only; the JAX package's module imports its JAX pipeline).
 
-Reference: kandinsky2/train_utils/data/dataset_unclip_2_1.py (image in
-[-1, 1], XLM-R tokens/mask, CLIP image, independent text/image drop).  The
+Reference: kandinsky2/train_utils/data/dataset_unclip_2_1.py (decoder:
+image in [-1, 1], XLM-R tokens/mask, CLIP image, independent text/image
+drop) and dataset_prior.py (prior: CLIP image, BPE tokens/mask).  The
 loader is a thread-prefetched numpy batch iterator, with the same
 ``RandomState`` draws (drops, shuffles) as the JAX package's, so both see
 the same batches.
@@ -38,7 +37,9 @@ def _load_image(path, size):
 
 class TextImageDataset:
     """CSV(image_name, caption) -> per-sample dicts
-    (dataset_unclip_2_1.py:58-123)."""
+    (dataset_unclip_2_1.py:58-123).  ``mode`` "decoder" gives the image and
+    the tokenizer's HF-style ids and mask; "prior" gives BPE tokens and a
+    bool mask from ``tokenizer.padded_tokens_and_mask``."""
 
     def __init__(
         self,
@@ -51,7 +52,10 @@ class TextImageDataset:
         drop_image_prob: float = 0.1,
         seq_len: int = 77,
         seed: int = 0,
+        mode: str = "decoder",
     ):
+        if mode not in ("decoder", "prior"):
+            raise ValueError(f"unknown mode {mode!r}")
         with open(csv_path) as f:
             rows = list(csv.DictReader(f))
         self.names = [r["image_name"] for r in rows]
@@ -64,6 +68,7 @@ class TextImageDataset:
         self.drop_image_prob = drop_image_prob
         self.seq_len = seq_len
         self.rng = np.random.RandomState(seed)
+        self.mode = mode
 
     def __len__(self):
         return len(self.names)
@@ -82,18 +87,22 @@ class TextImageDataset:
         )[0]
         if self.rng.rand() < self.drop_image_prob:
             clip_image = np.zeros_like(clip_image)
+        out = {"clip_image": clip_image.astype(np.float32)}
+        if self.mode == "prior":
+            toks, mask = self.tokenizer.padded_tokens_and_mask([caption], self.seq_len)
+            out["tokens"] = toks[0].astype(np.int32)
+            out["mask"] = mask[0]
+            return out
         img = pil.resize((self.image_size, self.image_size), Image.BICUBIC)
         enc = self.tokenizer(
             caption, max_length=self.seq_len, padding="max_length",
             truncation=True, return_attention_mask=True,
             add_special_tokens=True, return_tensors="np",
         )
-        return {
-            "clip_image": clip_image.astype(np.float32),
-            "image": np.asarray(img, np.float32) / 127.5 - 1,
-            "tokens": enc["input_ids"][0].astype(np.int32),
-            "mask": enc["attention_mask"][0].astype(np.int32),
-        }
+        out["image"] = np.asarray(img, np.float32) / 127.5 - 1
+        out["tokens"] = enc["input_ids"][0].astype(np.int32)
+        out["mask"] = enc["attention_mask"][0].astype(np.int32)
+        return out
 
 
 class _Loader:

@@ -137,3 +137,18 @@ class Adafactor(torch.optim.Optimizer):
         state["step"] += 1
         u = u / torch.clamp(_rms(u), min=1.0)  # clipping threshold 1
         return u * learning_rate * torch.clamp(_rms(p), min=1e-3)
+
+
+def adafactor_from_config(optim_params: dict):
+    """The optimizer factory a training YAML's ``optim_params`` names: only
+    ``optax.adafactor`` with only ``learning_rate`` (optax's other defaults
+    are constants here); anything else raises NotImplementedError."""
+    if optim_params["name"] != "optax.adafactor":
+        raise NotImplementedError(
+            f"optimizer {optim_params['name']}: the port has Adafactor only")
+    opt_kw = optim_params["params"]
+    if set(opt_kw) != {"learning_rate"}:
+        raise NotImplementedError(
+            f"Adafactor options {sorted(opt_kw)}: the port takes learning_rate "
+            "only, with optax's other defaults")
+    return lambda params: Adafactor(params, opt_kw["learning_rate"])

@@ -11,13 +11,18 @@ The frozen encoders (MoVQ, XLM-R + MultilingualCLIP, CLIP ViT) run in
 keeps fp32 parameters and computes in bf16, as the JAX CLI does.  Weights
 are random unless ``params_path`` names a weight export of
 ``train/checkpoint.py``; without ``tokenizer_name`` the stub of
-``utils.stub_tokenizers`` stands in for XLM-R's tokenizer.
+``utils.stub_tokenizers`` stands in for XLM-R's tokenizer.  With
+``inpainting: true`` the UNet is the 9-channel inpainting one and each
+batch carries random masks of ``train/masks.py`` at the latents' size
+(drawn from the global ``np.random``, as the JAX CLI draws them) and the
+latents times the mask.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from ..configs import CONFIG_2_1, deep_copy_config, small_config
@@ -25,7 +30,8 @@ from ..pipelines.kandinsky2_1 import Kandinsky2_1
 from ..utils import stub_tokenizers
 from .checkpoint import load_checkpoint
 from .data import TextImageDataset, create_loader
-from .optim import Adafactor
+from .masks import get_image_mask
+from .optim import adafactor_from_config
 from .train_unclip import train_unclip
 
 
@@ -77,8 +83,10 @@ def small_train_config(df_path: str, image_dir: str, save_path: str,
 def make_prepare_batch(pipe: Kandinsky2_1):
     """``prepare_batch(raw)``: the loader's numpy batch -> the train step's
     batch on the pipeline's device (scaled MoVQ latents, XLM-R full and
-    pooled embeddings, CLIP image embedding)."""
+    pooled embeddings, CLIP image embedding; for an inpainting pipeline a
+    random mask [B, h, w, 1] per latent and the masked latents)."""
     dev = pipe.device
+    inpainting = pipe.task_type == "inpainting"
 
     @torch.no_grad()
     def prepare_batch(raw: dict) -> dict:
@@ -87,15 +95,22 @@ def make_prepare_batch(pipe: Kandinsky2_1):
             torch.as_tensor(raw["tokens"], device=dev).long(),
             torch.as_tensor(raw["mask"], device=dev))
         image_emb = pipe.encode_images(raw["clip_image"])
-        return {"image_latents": latents, "full_emb": full,
-                "pooled_emb": pooled, "image_emb": image_emb}
+        batch = {"image_latents": latents, "full_emb": full,
+                 "pooled_emb": pooled, "image_emb": image_emb}
+        if inpainting:
+            B, h, w = latents.shape[:3]
+            mask = torch.from_numpy(get_image_mask(B, (h, w))[..., None].astype(np.float32))
+            batch["inpaint_mask"] = mask.to(dev)
+            batch["inpaint_image"] = latents * batch["inpaint_mask"]
+        return batch
 
     return prepare_batch
 
 
 def build_pipeline(cfg: dict, device="cuda") -> Kandinsky2_1:
     """The five-model pipeline with random fp32 parameters from seed 0 (and
-    ``params_path`` loaded into the UNet), computing in bf16."""
+    ``params_path`` loaded into the UNet), computing in bf16; its UNet is
+    the inpainting one where ``cfg["inpainting"]``."""
     tok_name = cfg["data"]["train"].get("tokenizer_name")
     if tok_name:
         from transformers import AutoTokenizer
@@ -105,6 +120,7 @@ def build_pipeline(cfg: dict, device="cuda") -> Kandinsky2_1:
         tokenizer1 = stub_tokenizers(
             cfg["text_enc_params"].get("vocab_size", 250002))[0]
     pipe = Kandinsky2_1(config=pipeline_config(cfg), tokenizer1=tokenizer1,
+                        task_type="inpainting" if cfg.get("inpainting") else "text2img",
                         dtype=torch.bfloat16, device=device)
     pipe.init_random_params(torch.Generator(device=device).manual_seed(0),
                             dtype=torch.float32)
@@ -115,18 +131,9 @@ def build_pipeline(cfg: dict, device="cuda") -> Kandinsky2_1:
 
 def run(cfg: dict, device="cuda"):
     """Train as the YAML ``cfg`` says; returns the final ``TrainState``."""
-    if cfg.get("inpainting"):
-        raise NotImplementedError("the PyTorch port trains text2img only")
     if cfg.get("parallel"):
         raise NotImplementedError("the PyTorch port trains on one device")
-    if cfg["optim_params"]["name"] != "optax.adafactor":
-        raise NotImplementedError(
-            f"optimizer {cfg['optim_params']['name']}: the port has Adafactor only")
-    opt_kw = cfg["optim_params"]["params"]
-    if set(opt_kw) != {"learning_rate"}:
-        raise NotImplementedError(
-            f"Adafactor options {sorted(opt_kw)}: the port takes learning_rate "
-            "only, with optax's other defaults")
+    optimizer_factory = adafactor_from_config(cfg["optim_params"])
     pipe = build_pipeline(cfg, device)
     dtr = cfg["data"]["train"]
     dataset = TextImageDataset(
@@ -143,7 +150,7 @@ def run(cfg: dict, device="cuda"):
     return train_unclip(
         unet=pipe.unet, diffusion_config=cfg["diffusion_config"], loader=loader,
         prepare_batch=make_prepare_batch(pipe),
-        optimizer_factory=lambda params: Adafactor(params, opt_kw["learning_rate"]),
+        optimizer_factory=optimizer_factory,
         num_epochs=cfg.get("num_epochs", 1),
         save_every=cfg.get("save_every", 1000),
         save_path=cfg.get("save_path", "checkpoints/unclip"),

@@ -19,8 +19,11 @@ frozen parameters, and the optimizer holds only the trainable ones.  The
 frozen encoders (MoVQ, XLM-R, CLIP ViT) run in the caller's
 ``prepare_batch``, ahead of the step (trainer_2_1_uclip.py:14-37).
 
+A batch that holds ``inpaint_image`` and ``inpaint_mask`` trains the
+inpainting UNet (``InpaintText2ImUNet21``) on them.
+
 Not in this module yet: the spatial x data parallel and FSDP train
-functions, and inpainting training.
+functions.
 """
 
 from __future__ import annotations
@@ -55,9 +58,10 @@ def default_optimizer(params) -> torch.optim.Optimizer:
 
 @dataclasses.dataclass
 class TrainState:
-    """Everything a bitwise resume needs.  The parameters live in ``unet``."""
+    """Everything a bitwise resume needs.  The parameters live in ``model``
+    (the UNet here, the prior in ``train_prior``)."""
 
-    unet: nn.Module
+    model: nn.Module
     optimizer: torch.optim.Optimizer
     ema_params: Optional[dict]
     generator: torch.Generator
@@ -66,7 +70,7 @@ class TrainState:
 
     def state_dict(self) -> dict:
         return {
-            "params": self.unet.state_dict(),
+            "params": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "ema": self.ema_params,
             "sampler": None if self.sampler is None else self.sampler.state_dict(),
@@ -87,7 +91,7 @@ class TrainState:
         if drift:
             raise ValueError(f"the saved train state's {drift} do not match "
                              "this TrainState: the structure changed since it was saved")
-        self.unet.load_state_dict(saved["params"])
+        self.model.load_state_dict(saved["params"])
         self.optimizer.load_state_dict(saved["optimizer"])
         if self.ema_params is not None:
             with torch.no_grad():
@@ -104,13 +108,15 @@ def unclip_loss(unet: nn.Module, sched: Schedule, batch: dict, t, noise, weights
                 remat: bool = False):
     """(mean of the importance-weighted per-sample loss, per-sample terms)
     of the UNet on ``batch`` (image_latents [B, h, w, 4] NHWC, full_emb,
-    pooled_emb, image_emb) at timesteps ``t`` with ``noise``."""
+    pooled_emb, image_emb, and for the inpainting UNet inpaint_image and
+    inpaint_mask) at timesteps ``t`` with ``noise``."""
     cond = (batch["full_emb"], batch["pooled_emb"], batch["image_emb"])
+    inpaint = {k: batch[k] for k in ("inpaint_image", "inpaint_mask") if k in batch}
 
     def model_fn(x_t, t_model):
         if remat:
-            return checkpoint(unet, x_t, t_model, *cond, use_reentrant=False)
-        return unet(x_t, t_model, *cond)
+            return checkpoint(unet, x_t, t_model, *cond, use_reentrant=False, **inpaint)
+        return unet(x_t, t_model, *cond, **inpaint)
 
     terms = training_losses(
         sched, model_fn, batch["image_latents"].float(), t, noise,
@@ -158,7 +164,7 @@ def make_unclip_train_step(
             trainable = {name: True for name, _ in unet.named_parameters()}
         params = apply_freeze_mask(unet, trainable)
         return TrainState(
-            unet=unet,
+            model=unet,
             optimizer=optimizer_factory(params),
             ema_params=(
                 {n: p.detach().clone() for n, p in unet.named_parameters()}
@@ -218,6 +224,30 @@ def make_unclip_train_step(
     return init_state, train_step
 
 
+def fit(state: TrainState, train_step: Callable, loader, prepare_batch: Callable, *,
+        num_epochs: int, save_every: int, save_path: str, log_every: int) -> TrainState:
+    """The single-device loop of ``train_unclip`` and ``train_prior``: resume
+    from the newest whole state under ``save_path``, run ``train_step`` on
+    ``prepare_batch(raw)`` for every batch of ``num_epochs`` epochs, save the
+    whole state every ``save_every`` steps and at the end, then export the
+    model's weights for inference.  Given the same batches, a resumed run
+    is bitwise identical to an uninterrupted one."""
+    fname, _ = latest_train_state(save_path)
+    if fname:
+        restore_train_state(fname, state)
+    for _ in range(num_epochs):
+        for raw in loader:
+            metrics = train_step(state, prepare_batch(raw))
+            if state.step % log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                print(f"step {state.step}: {m}", flush=True)
+            if state.step % save_every == 0:
+                save_train_state(save_path, state)
+    save_train_state(save_path, state)
+    save_checkpoint(save_path, state.model.state_dict(), state.step)
+    return state
+
+
 def train_unclip(
     *,
     unet: nn.Module,
@@ -239,10 +269,7 @@ def train_unclip(
 ) -> TrainState:
     """Single-device training loop (trainer_2_1_uclip.py:39-81).
     ``prepare_batch(raw)`` runs the frozen encoders and returns the step's
-    batch.  The whole state is saved every ``save_every`` steps and at the
-    end, and the run resumes from the newest one under ``save_path``: given
-    the same batches, a resumed run is bitwise identical to an uninterrupted
-    one.  The parameters are exported for inference at the end."""
+    batch; ``fit`` saves, resumes and exports."""
     init_state, train_step = make_unclip_train_step(
         unet, diffusion_config, optimizer_factory,
         schedule_sampler=schedule_sampler, ema_decay=ema_decay, remat=remat,
@@ -250,17 +277,5 @@ def train_unclip(
     )
     state = init_state(decoder_freeze_mask(unet, freeze_resblocks, freeze_attention),
                        seed)
-    fname, _ = latest_train_state(save_path)
-    if fname:
-        restore_train_state(fname, state)
-    for _ in range(num_epochs):
-        for raw in loader:
-            metrics = train_step(state, prepare_batch(raw))
-            if state.step % log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                print(f"step {state.step}: {m}", flush=True)
-            if state.step % save_every == 0:
-                save_train_state(save_path, state)
-    save_train_state(save_path, state)
-    save_checkpoint(save_path, unet.state_dict(), state.step)
-    return state
+    return fit(state, train_step, loader, prepare_batch, num_epochs=num_epochs,
+               save_every=save_every, save_path=save_path, log_every=log_every)

@@ -118,6 +118,18 @@ def jax_to_state_dict(jax_tree: Mapping, module: torch.nn.Module) -> dict:
     }
 
 
+def lora_from_jax(jax_loras: Mapping) -> dict:
+    """The JAX package's LoRA factors ({path tuple: {"down", "up"}}) on the
+    port's keys ({weight name: {"down", "up"}}), as float32 CPU tensors in
+    the same [in, r] and [r, out] layouts (``models/lora.py``)."""
+    return {
+        torch_key_for(tuple(path)): {
+            k: torch.from_numpy(np.array(f[k], dtype=np.float32)) for k in ("down", "up")
+        }
+        for path, f in jax_loras.items()
+    }
+
+
 def load_jax_params(module: torch.nn.Module, jax_tree: Mapping) -> torch.nn.Module:
     """Copy ``jax_tree`` into ``module`` in place, keeping each parameter's
     device and dtype."""

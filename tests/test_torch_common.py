@@ -17,6 +17,14 @@ from kandinsky2_tpu_torch.configs import small_config  # noqa: F401  (re-exporte
 
 MODULE_TOL = 1e-4  # per module, fp32 (PARITY.md)
 E2E_TOL = 3e-3  # seeded end-to-end image, fp32 (PARITY.md)
+# the tiny 2.1 UNet of tests/test_checkpoint_resume.py (32 channels, mult
+# 1,2, 16-wide heads), over CONFIG_2_1's model_config
+TINY_UNET = dict(
+    num_channels=32, num_res_blocks=1, channel_mult="1,2",
+    attention_resolutions="32", num_head_channels=16, model_dim=32,
+    text_encoder_in_dim1=16, text_encoder_in_dim2=32, image_encoder_in_dim=32,
+    num_image_embs=2,
+)
 
 
 def numpy_params(jax_tree, seed: int):

@@ -1,6 +1,7 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 the card, at the shapes of the 768² 2.1 and 2.2 text2img paths, of the
-512² 2.0 path and of the decoder training step, in bf16; GroupNorm against fp64 far from zero mean;
+512² 2.0 path and of the training steps (the 2.1 decoder's, and the 2.2
+UNet's in LoRA and distillation), in bf16; GroupNorm against fp64 far from zero mean;
 and the autograd Functions that carry gradients through them.
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
@@ -231,12 +232,15 @@ def _kernels_backward(q, k, v, o, lse, do):
 
 @pytest.mark.parametrize("B,T,S,H", [
     (1, 2304, 2391, 12), (1, 576, 663, 18), (1, 144, 231, 24), (2, 37, 50, 1),
+    (1, 2304, 2314, 12), (1, 576, 586, 20), (1, 144, 154, 24),
 ])
 def test_flash_backward_kernels_match_plain(gen, B, T, S, H):
-    """K5 (dq) and K4 (dk, dv) at the training path's UNet shapes (d = 64,
-    S = T + 87 encoder tokens) and a ragged toy shape, against the fp32 plain
-    backward from the same saved O and LSE.  P and dS are rounded to bf16
-    before their MMAs: 2e-2 of the largest reference gradient."""
+    """K5 (dq) and K4 (dk, dv) at the 2.1 decoder training step's UNet
+    shapes (d = 64, S = T + 87 encoder tokens), at the 2.2 UNet22's added-KV
+    attention in LoRA and distillation at 768², batch 1 (S = T + 10 image
+    tokens), and a ragged toy shape, against the fp32 plain backward from
+    the same saved O and LSE.  P and dS are rounded to bf16 before their
+    MMAs: 2e-2 of the largest reference gradient."""
     q, k, v, o, lse, do = _backward_inputs(gen, B, T, S, H)
     dq, dk, dv, _ = _kernels_backward(q, k, v, o, lse, do)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do)

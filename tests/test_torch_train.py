@@ -38,18 +38,12 @@ from kandinsky2_tpu_torch.weights.from_jax import (
     load_jax_params,
     torch_key_for,
 )
-from test_torch_common import MODULE_TOL, assert_close, numpy_params
+from test_torch_common import MODULE_TOL, TINY_UNET, assert_close, numpy_params
 
 T = torch.from_numpy
 DCFG = jcfg.CONFIG_2_1["diffusion_config"]
 SCHED_KW = dict(steps=1000, noise_schedule="linear", linear_start=0.00085,
                 linear_end=0.012, rescale_timesteps=True)
-TINY_UNET = dict(
-    num_channels=32, num_res_blocks=1, channel_mult="1,2",
-    attention_resolutions="32", num_head_channels=16, model_dim=32,
-    text_encoder_in_dim1=16, text_encoder_in_dim2=32, image_encoder_in_dim=32,
-    num_image_embs=2,
-)
 B, LAT = 2, 16
 
 
@@ -432,10 +426,12 @@ def test_restore_rejects_structure_drift(jax_ref, tmp_path):
     tckpt.restore_train_state(fname, state)  # a faithful template restores
 
 
-def test_cli_on_a_tiny_yaml(tmp_path):
+@pytest.mark.parametrize("inpainting", [False, True])
+def test_cli_on_a_tiny_yaml(tmp_path, inpainting):
     """``python -m kandinsky2_tpu_torch.train.train_2_1_unclip --config``
     on a YAML of the small widths, seeded 64² PNGs and a CSV: two steps of
-    batch 2, the whole state and the weights saved at step 2."""
+    batch 2, the whole state and the weights saved at step 2; with
+    ``inpainting: true`` the 9-channel UNet trains on masked latents."""
     import yaml
     from PIL import Image
 
@@ -449,26 +445,99 @@ def test_cli_on_a_tiny_yaml(tmp_path):
     (tmp_path / "data.csv").write_text("\n".join(rows) + "\n")
     cfg = tcli.small_train_config(str(tmp_path / "data.csv"), str(tmp_path / "img"),
                                   str(tmp_path / "ckpt"))
+    cfg["inpainting"] = inpainting
     (tmp_path / "tiny.yaml").write_text(yaml.safe_dump(cfg))
+    np.random.seed(3)  # the masks' draws
     tcli.main(["--config", str(tmp_path / "tiny.yaml"), "--device", "cpu"])
     assert tckpt.latest_train_state(str(tmp_path / "ckpt"))[1] == 2
     fname, step = tckpt.latest_checkpoint(str(tmp_path / "ckpt"))
     assert step == 2
     weights = tckpt.load_checkpoint(fname)
+    assert weights["input_blocks.0.0.weight"].shape[1] == (9 if inpainting else 4)
     assert all(torch.isfinite(v).all() for v in weights.values())
 
 
+def test_inpainting_batch_and_step_match_jax(tmp_path):
+    """The masks of the inpainting CLI's batches (``get_image_mask`` at the
+    latents' size from the global generator) as the JAX package draws
+    them, and one inpainting step of the tiny 9-channel UNet with JAX's t,
+    noise and masks: the loss, its terms and every gradient against
+    JAX's (1e-4)."""
+    from kandinsky2_tpu.train.masks import get_image_mask as jax_masks
+    from kandinsky2_tpu_torch.train.masks import get_image_mask
+
+    np.random.seed(21)
+    masks = jax_masks(B, (LAT, LAT))[..., None].astype(np.float32)
+    np.random.seed(21)
+    assert (get_image_mask(B, (LAT, LAT))[..., None] == masks).mean() >= 0.99
+    assert 0 < masks.mean() < 1
+
+    mc = dict(jcfg.CONFIG_2_1["model_config"], **TINY_UNET, inpainting=True)
+    jm = jcfg.create_model(**mc, dtype=jnp.float32)
+    batch = _tiny_batch(15)
+    batch["inpaint_mask"] = masks
+    batch["inpaint_image"] = batch["image_latents"] * masks
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    kw = {k: jb[k] for k in ("full_emb", "pooled_emb", "image_emb", "inpaint_image",
+                             "inpaint_mask")}
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jb["image_latents"],
+                            jnp.zeros((B,)), **kw)
+    params = numpy_params(shapes["params"], 16)
+    t, noise = _jax_draws(0, 0, (B, LAT, LAT, 4))
+    skw = jcfg.schedule_kwargs(DCFG, "")
+
+    def loss_fn(p):
+        terms = jg.training_losses(
+            jg.make_schedule(**skw["make_schedule"]),
+            lambda x, tm: jm.apply({"params": p}, x, tm, **kw), jb["image_latents"],
+            jnp.asarray(t), jnp.asarray(noise), mean_type=skw["mean_type"],
+            var_type=skw["var_type"], loss_type=skw["loss_type"], channel_axis=-1)
+        return jnp.mean(terms["loss"]), terms
+
+    (loss, terms), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    init_state, step = jax_make_step(jm, DCFG, optax.sgd(LR), inpainting=True,
+                                     ema_decay=None)
+    _, jmetrics = jax.jit(step)(init_state(params), jb, jax.random.PRNGKey(0))
+
+    tm = load_jax_params(tcfg.create_model(**mc, dtype=torch.float32), params)
+    tskw = tcfg.schedule_kwargs(DCFG, "")
+    tsched = tg.make_schedule(**tskw["make_schedule"])
+    got, got_terms = ttrain.unclip_loss(
+        tm, tsched, _torch_batch(batch), torch.tensor(t), torch.tensor(noise),
+        torch.ones(B), mean_type=tskw["mean_type"], var_type=tskw["var_type"],
+        loss_type=tskw["loss_type"])
+    got.backward()
+    assert_close(got, loss, MODULE_TOL, "loss")
+    assert_close(got, jmetrics["loss"], MODULE_TOL, "the JAX step's loss")
+    for k in ("mse", "vb"):
+        assert_close(got_terms[k], terms[k], MODULE_TOL, k)
+    want = jax_to_state_dict(grads, tm)
+    top = max(float(g.abs().max()) for g in want.values())
+    for name, p in tm.named_parameters():
+        w = want[name].numpy()
+        scale = max(float(np.abs(w).max()), 1e-3 * top)
+        err = float(np.abs(p.grad.numpy() - w).max())
+        assert err <= 1e-4 * scale, f"{name}: {err:.3e} > {1e-4 * scale:.3e}"
+    # the inpainting inputs reach the UNet: another mask, another loss
+    other = dict(_torch_batch(batch), inpaint_mask=torch.ones(B, LAT, LAT, 1))
+    with torch.no_grad():
+        moved, _ = ttrain.unclip_loss(
+            tm, tsched, other, torch.tensor(t), torch.tensor(noise), torch.ones(B),
+            mean_type=tskw["mean_type"], var_type=tskw["var_type"],
+            loss_type=tskw["loss_type"])
+    assert abs(float(moved) - float(got.detach())) > 1e-6
+
+
 @pytest.mark.parametrize("change", [
-    {"inpainting": True},
     {"parallel": "fsdp"},
     {"optim_params": {"name": "optax.adamw", "params": {"learning_rate": 1e-4}}},
     {"optim_params": {"name": "optax.adafactor",
                       "params": {"learning_rate": 1e-4, "decay_rate": 0.9}}},
 ])
 def test_run_rejects_what_the_port_lacks(change):
-    """``run`` refuses, before building anything, a YAML that asks for
-    inpainting, a parallel mode, another optimizer or an Adafactor option
-    other than the learning rate."""
+    """``run`` refuses, before building anything, a YAML that asks for a
+    parallel mode, another optimizer or an Adafactor option other than the
+    learning rate."""
     cfg = dict(tcli.small_train_config("", "", ""), **change)
     with pytest.raises(NotImplementedError):
         tcli.run(cfg, device="cpu")
