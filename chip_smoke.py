@@ -33,7 +33,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    also timed on one x, which stays in L2 as it does after K1 on the path.
    Then the GroupNorm (K1 + K2) and its plain version against fp64 where
    each group's mean lies up to 1000 standard deviations from zero: both
-   within 1e-4 relative L2 (K1's shifted sums).
+   within 1e-4 relative L2 (K1's shifted sums).  The "batch 2" and "batch
+   4" rows are the served 2.1 path's shapes at those buckets (phase 15):
+   K1 and K2 at the UNet's [2B, 9216, 384] and [2B, 144, 1536] and the
+   MoVQ's [B, 589824, 128], K3 at B·H = 2B·12 (2304, 2391), 2B·24 (144,
+   231) and B (9216, 9216, d 512); the kernels line keeps the batch-1
+   rows.
 4. reference: the whole path at a small width on the card (kernels, bf16)
    against the same weights and injected noise on the CPU (plain
    versions, fp32), beside the plain versions in bf16 on the CPU as the
@@ -149,6 +154,42 @@ Phases, in order; any failure raises and the script exits non-zero:
    (phase 8 on a task_type="inpainting" pipeline, masks from
    train/masks.py).
 
+15. serve21-768 (run after phase 5b's img2img, on phase 5's pipeline):
+   ``serving.GenerationServer(pipe, max_batch=4)``; its warmup runs
+   buckets 1, 2 and 4; each bucket's call, as the server makes it, with
+   K1 = K2 = 4,783 and K3 = 1,104 pinned a call (batch lives in the
+   grids) and no attention call on the card by the plain route, s/call,
+   s/image, peak memory and one profiled call's device time and idle
+   share; 9 requests queued before ``start()`` (buckets 4, 4, 1, no
+   padding) with their requests/s and launches, then 3 more after a
+   restart (one bucket 4, one padded row); rows 0 and 3 of a batch-4 call
+   against those prompts alone with the same injected noise: in an fp32
+   copy of the pipeline (no rounding to hide a row that took another's
+   work) latents and images within 5e-2 relative L2; in bf16 the latents
+   within 5e-2 and the images within ROW_FACTOR times the row's own bf16
+   drift from fp32 (the random MoVQ decoder magnifies latent drift about
+   tenfold).
+17. http-validate21-768 (run after phase 15, on its server and pipeline):
+   ``serving_http.serve_http(server, port=0, start=False)`` on a thread:
+   /healthz 200, a 768² text2img and a base64 PNG img2img 200 with
+   768² PNGs back, an undecodable image 400, an unknown path 404; then
+   the pipeline re-drawn at torch-default weight scales
+   (``weights.realistic.torch_init_stats``) and ``validate.validate``
+   twice at 768², 50 DDIM steps: the bootstrap and the seeded repeat
+   against it (LPIPS weights from ``lpips.init_random_lpips`` written and
+   read by the port's own file code), both ok with PSNR >= 30 dB; the bf16
+   image finite and not constant; without a builder the report stops at
+   fetch.
+16. lora-swap22-768 (run after phase 10, on its pipeline): two rank-4
+   adapters on the UNet22's 132 targeted weights (``up`` drawn non-zero),
+   requests a, a, None, b, a served one at a time after one
+   ``set_seed``: after each, every targeted weight equals ``merge_lora``
+   of its pristine snapshot bitwise (the snapshot itself under None) and
+   every other weight is unchanged; 4 swaps; a's two images agree, a's
+   differs from None's; then each swap timed alone (synchronized) with
+   its peak-memory rise, and the snapshot's bytes.
+Phases 15-17 time their stages with ``observability.StageReport``.
+
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' results as JSON, and the line before that the card's name and
 power limit.  Bounds are the larger of the bytes a call must move over
@@ -187,20 +228,6 @@ FULL_TASK = dict(num_steps=50, guidance_scale=4, h=768, w=768, sampler="ddim_sam
 # steps, CFG 4 and 4, batch 1
 T2I22 = dict(decoder_steps=50, prior_steps=25, decoder_guidance_scale=4,
              prior_guidance_scale=4, h=768, w=768, output="float")
-# phase 9's small 2.2 pipelines: tests/test_pipeline22.py's TINY towers, the
-# UNet with 64-wide heads (the width K3 takes); the MoVQ attends at d = 64
-SMALL22 = dict(
-    image_encoder=dict(image_size=28, patch_size=14, hidden=32, layers=2, heads=4,
-                       intermediate=64, projection_dim=32),
-    text_encoder=dict(vocab_size=64, context_length=8, hidden=32, layers=2, heads=4,
-                      intermediate=64, projection_dim=32, eot_token_id=63),
-    prior=dict(num_attention_heads=4, attention_head_dim=16, num_layers=2,
-               embedding_dim=32, num_embeddings=8),
-    unet=dict(block_out_channels=(64, 128), layers_per_block=1, attention_head_dim=64,
-              cross_attention_dim=32, encoder_hid_dim=32, num_image_tokens=2),
-    movq=dict(z_channels=4, embed_dim=4, n_embed=32, ch=32, ch_mult=(1, 1, 1, 2),
-              num_res_blocks=1, attn_resolutions=(8,), resolution=64),
-)
 # train_configs/config_prior.yaml as a dict (the card's machine has no
 # PyYAML; tests/test_torch_train_prior.py holds the two equal)
 PRIOR_YAML = {
@@ -296,13 +323,16 @@ def bound(ops: float, nbytes: float, peak: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, cpu=True):
     """Run ``fn`` once under torch.profiler; returns (device ops, device
     ms, the device events by name).  record_function ranges also show on the device timeline,
-    spanning kernels already counted: left out."""
+    spanning kernels already counted: left out.  ``cpu=False`` traces the
+    card alone, which a whole image's tens of thousands of host ops make
+    far cheaper to summarise."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")
@@ -465,6 +495,14 @@ def phase_kernels(torch, results):
         # 128² (img2img and inpainting encode the 512² image)
         ("kl-vae enc [65536, 128]", (1, 65536, 128), torch.bfloat16),
         ("kl-vae enc [16384, 256]", (1, 16384, 256), torch.bfloat16),
+        # the served 2.1 path at buckets 2 and 4 (phase 15): the UNet's
+        # CFG-doubled rows and the MoVQ decoder's batch
+        *((f"batch {b}: unet ds1", (2 * b, 96 * 96, 384), torch.bfloat16)
+          for b in (2, 4)),
+        *((f"batch {b}: unet ds8", (2 * b, 12 * 12, 1536), torch.bfloat16)
+          for b in (2, 4)),
+        *((f"batch {b}: movq 768^2", (b, 768 * 768, 128), torch.bfloat16)
+          for b in (2, 4)),
     ]
     for label, shape, dtype in norm_shapes:
         B, N, C = shape
@@ -595,6 +633,10 @@ def phase_kernels(torch, results):
         ("unet20 ds4", (2, 256, 410, 18, 64)),
         ("unet20 ds8/middle", (2, 64, 218, 24, 64)),
         ("kl-vae attn", (1, 4096, 4096, 1, 512)),
+        # the served 2.1 path at buckets 2 and 4 (phase 15)
+        *((f"batch {b}: unet ds2", (2 * b, 2304, 2391, 12, 64)) for b in (2, 4)),
+        *((f"batch {b}: unet ds8/middle", (2 * b, 144, 231, 24, 64)) for b in (2, 4)),
+        *((f"batch {b}: movq attn", (b, 9216, 9216, 1, 512)) for b in (2, 4)),
     ]
     for label, (B, T, S, H, d) in attn_shapes:
         q, k, v = randn((B, T, H, d)), randn((B, S, H, d)), randn((B, S, H, d))
@@ -1100,15 +1142,17 @@ def inject_noise22(pipe, seed: int, np):
 
 
 def _small_pair22(torch, task_type, seed):
-    """The small 2.2 pipeline (``SMALL22``) on the card (bf16) and on the
-    CPU (fp32) with the same seeded weights.  The MoVQ's output conv is
+    """The small 2.2 pipeline (``configs.small_overrides22``) on the card
+    (bf16) and on the CPU (fp32) with the same seeded weights.  The MoVQ's output conv is
     scaled by 0.2, which puts the random weights' image at a standard
     deviation of about 0.3, where the 8-bit images that hires upsamples
     keep their detail."""
+    from kandinsky2_tpu_torch.configs import small_overrides22
     from kandinsky2_tpu_torch.pipelines import Kandinsky2_2
     from kandinsky2_tpu_torch.utils import stub_tokenizer22
 
-    kw = dict(task_type=task_type, tokenizer=stub_tokenizer22(64), overrides=SMALL22)
+    kw = dict(task_type=task_type, tokenizer=stub_tokenizer22(64),
+              overrides=small_overrides22())
     gpu = Kandinsky2_2(dtype=torch.bfloat16, device="cuda", **kw)
     gpu.init_random_params(torch.Generator(device="cuda").manual_seed(seed))
     with torch.no_grad():
@@ -1300,7 +1344,7 @@ def phase_t2i22(torch, np, smi: str):
           f"{dev_ms:.1f} ms of device time")
     check(sum(tally.values()) == UNET_LAUNCHES[0], "t2i22: GroupNorms per UNet22 call")
     profiled_image(torch, "t2i22", lambda: call(3), seconds, "k22.")
-    return counts, seconds
+    return counts, seconds, pipe
 
 
 def _small_pair20(torch, task_type, seed):
@@ -1894,6 +1938,7 @@ def phase_train_new_small(torch, np):
     """LoRA and distillation on the small UNet22 (64-wide heads), the prior
     step and the inpainting decoder step: one step each on the card against
     the CPU."""
+    from kandinsky2_tpu_torch.configs import small_overrides22
     from kandinsky2_tpu_torch.models.lora import init_lora
     from kandinsky2_tpu_torch.models.prior import PriorTransformer
     from kandinsky2_tpu_torch.models.unet22 import UNet22
@@ -1910,13 +1955,14 @@ def phase_train_new_small(torch, np):
 
     rng = np.random.RandomState(13)
     arr = lambda *shape: torch.tensor(rng.randn(*shape).astype(np.float32))
-    cpu_unet = UNet22(**SMALL22["unet"])
+    small_unet = small_overrides22()["unet"]
+    cpu_unet = UNet22(**small_unet)
     init_random_(cpu_unet, torch.Generator().manual_seed(14), Kandinsky2_2.residual_outputs)
-    gpu_unet = UNet22(**SMALL22["unet"], dtype=torch.bfloat16, device="cuda")
+    gpu_unet = UNet22(**small_unet, dtype=torch.bfloat16, device="cuda")
     gpu_unet.load_state_dict(cpu_unet.state_dict())
     gpu_unet.to(torch.bfloat16)  # the bf16 base of phase 14
     unets = {"cuda": gpu_unet, "cpu": cpu_unet}
-    x0, cond = 0.5 * arr(2, 8, 8, 4), arr(2, SMALL22["unet"]["encoder_hid_dim"])
+    x0, cond = 0.5 * arr(2, 8, 8, 4), arr(2, small_unet["encoder_hid_dim"])
     noise = arr(2, 8, 8, 4)
     loras = init_lora(cpu_unet, torch.Generator().manual_seed(15), rank=4)
     for f in loras.values():  # non-zero up, so that down gets a gradient too
@@ -1947,9 +1993,9 @@ def phase_train_new_small(torch, np):
     # limits hold a student from another seed (as after training), and the
     # copy's distances on the card stay within COPY_FACTOR of that bf16
     # control's.
-    other = UNet22(**SMALL22["unet"])
+    other = UNet22(**small_unet)
     init_random_(other, torch.Generator().manual_seed(17), Kandinsky2_2.residual_outputs)
-    cpu_bf16 = UNet22(**SMALL22["unet"], dtype=torch.bfloat16)
+    cpu_bf16 = UNet22(**small_unet, dtype=torch.bfloat16)
     cpu_bf16.load_state_dict(cpu_unet.state_dict())
     cpu_bf16.to(torch.bfloat16)
 
@@ -2219,6 +2265,388 @@ def phase_prior_train_full(torch, np, smi: str):
             pstate, prepare_batch(raw))["loss"], 5, smi, zero)
 
 
+# phases 15 and 17's 2.1 serving set: phase 5b's full-width task without
+# its output choice (the server hands back PIL images)
+SERVE21 = {k: v for k, v in FULL_TASK.items() if k != "output"}
+# phase 15: a bf16 row of a batch-4 call may stand as far from the same
+# prompt alone as bf16 stands from fp32 on that row, and half as far again
+# (1.02 and 1.04 times on an H100 80GB HBM3 at 700 W; a row that took
+# another's work reads about 1.26 against bf16 drifts of 0.09-0.11)
+ROW_FACTOR = 1.5
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| of two numpy arrays."""
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_serve21(torch, np, smi: str, pipe):
+    """serve21-768: ``GenerationServer(pipe, max_batch=4)`` on phase 5's
+    pipeline.  The warmup runs buckets 1, 2 and 4; then each bucket's
+    direct call (the call the server makes) with its launches pinned,
+    s/call, s/image, peak memory and one profiled call; 9 requests
+    submitted before ``start()`` (buckets 4, 4, 1), 3 more after a restart
+    (one bucket 4 with a padded row); rows of a batch-4 call against the
+    same prompts alone with the same injected noise, in bf16 and in an
+    fp32 copy.  Returns (the server,
+    the 9 requests' launches, their requests/s, s/image by bucket)."""
+    from kandinsky2_tpu_torch.observability import StageReport
+    from kandinsky2_tpu_torch.ops import launch_counts
+    from kandinsky2_tpu_torch.serving import GenerationServer
+
+    report = StageReport()
+    steps = SERVE21["num_steps"]
+    server = GenerationServer(pipe, max_batch=4)
+    with report.stage("warmup 1, 2, 4"):
+        server.warmup([SERVE21])
+        torch.cuda.synchronize()
+    per_image = {}
+    for b in server._buckets():
+        prompts = [f"{PROMPT}, view {i}" for i in range(b)]
+        call = lambda: pipe.generate_text2img(
+            prompts, batch_size=b, output="float",
+            generator=torch.Generator(device="cuda").manual_seed(b), **SERVE21)
+        torch.cuda.reset_peak_memory_stats()
+        reset_path_counts()
+        torch.cuda.synchronize()
+        with report.stage(f"bucket {b} call"):
+            t0 = time.perf_counter()
+            img = call()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(img.shape == (b, 768, 768, 3), f"serve21: bucket {b} image shape {img.shape}")
+        check(bool(np.isfinite(img).all()), f"serve21: bucket {b} image not finite")
+        check(all(float(img[i].std()) > 0 for i in range(b)), f"serve21: bucket {b} "
+              "has a constant image")
+        check(all(not np.array_equal(img[0], img[i]) for i in range(1, b)),
+              f"serve21: bucket {b} rows of distinct prompts are equal")
+        check_full_launches(f"serve21 bucket {b}", counts, steps, encoded=False)
+        per_image[b] = seconds / b
+        print(f"serve21: bucket {b}: {seconds:.4f} s/call, {seconds / b:.4f} s/image; "
+              f"peak device memory {peak:.2f} GiB; launches {json.dumps(counts)} on "
+              f"{smi}")
+        with report.stage(f"bucket {b} profiled call"):
+            if b == server.max_batch:  # where the time goes: kernels and spans
+                profiled_image(torch, f"serve21 bucket {b}", call, seconds, "k21.")
+            else:
+                ops, dev_ms, _ = device_profile(torch, call, cpu=False)
+                print(f"serve21 bucket {b}: profiled call (the card alone) {ops} "
+                      f"device ops, {dev_ms:.1f} ms of device time, device idle share "
+                      f"{1 - dev_ms / 1e3 / seconds:.3f} of the unprofiled "
+                      f"{seconds:.4f} s/call")
+                check(dev_ms > 0, f"serve21 bucket {b}: the profiler saw no device time")
+
+    # coalescing: every request queued before the worker starts
+    kw = SERVE21
+    futs = [server.submit(f"{PROMPT}, user {i}", **kw) for i in range(9)]
+    reset_path_counts()
+    try:
+        with report.stage("9 requests"):
+            t0 = time.perf_counter()
+            server.start()
+            served = [f.result(timeout=600) for f in futs]
+            rps = 9 / (time.perf_counter() - t0)
+        counts9 = launch_counts()
+        stats = server.stats()
+        print(f"serve21: 9 requests in buckets 4, 4, 1: {rps:.4f} requests/s; "
+              f"stats {json.dumps(stats)}; launches {json.dumps(counts9)}")
+        check((stats["requests"], stats["batches"], stats["padded"]) == (9, 3, 0),
+              f"serve21: 9 requests coalesced as {stats}")
+        check_full_launches("serve21 9 requests", counts9, 3 * steps, encoded=False,
+                            decoder=tuple(3 * n for n in DECODER_LAUNCHES))
+        check(all(len(r) == 1 and r[0].size == (768, 768) for r in served),
+              "serve21: a request did not get one 768^2 image")
+        server.stop()
+        futs = [server.submit(f"{PROMPT}, late user {i}", **kw) for i in range(3)]
+        with report.stage("3 requests"):
+            server.start()
+            late = [f.result(timeout=600) for f in futs]
+        stats = server.stats()
+        print(f"serve21: 3 more requests: stats {json.dumps(stats)}")
+        check((stats["requests"], stats["batches"], stats["padded"]) == (12, 4, 1),
+              f"serve21: 3 requests coalesced as {stats}")
+        check(all(len(r) == 1 for r in late), "serve21: a late request lost its image")
+    finally:
+        server.stop()
+
+    # rows do not mix: a batch-4 call against prompts 0 and 3 alone with the
+    # matching rows of the same injected noise, in bf16 (the served
+    # pipeline, kernels) and in fp32 (its weights in an fp32 copy, TF32
+    # off: the rounding is gone, so a row that took another row's work
+    # would show).  The decoder's latents are compared too: the random
+    # MoVQ decoder magnifies their bf16 drift about tenfold (1e-2 in the
+    # latents, 0.09-0.12 in the images on an H100 80GB HBM3 at 700 W)
+    rng = np.random.RandomState(15)
+    clip_dim = pipe.clip_mean.shape[-1]
+    noise = rng.randn(4, 96, 96, 4).astype(np.float32)
+    prior_noise = rng.randn(4, clip_dim).astype(np.float32)
+    prior_seq = rng.randn(int(SERVE21["prior_steps"]), 4, clip_dim).astype(np.float32)
+    prompts = [f"{PROMPT}, row {i}" for i in range(4)]
+
+    def rows(p, sl):
+        """(latents, images) of prompts[sl] with the rows sl of the noise."""
+        latents = []
+        decode = p._decode
+        p._decode = lambda lat: (latents.append(lat.float().cpu().numpy()), decode(lat))[1]
+        try:
+            img = p.generate_text2img(prompts[sl], batch_size=sl.stop - sl.start,
+                                      noise=noise[sl], prior_noise=prior_noise[sl],
+                                      prior_noise_seq=prior_seq[:, sl], output="float",
+                                      **SERVE21)
+        finally:
+            del p._decode
+        return latents[0], img
+
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
+
+    got = {}
+    with report.stage("rows: bf16 batch 4 + 2 x batch 1"):
+        got["bf16"] = {i: rows(pipe, sl) for i, sl in
+                       ((4, slice(0, 4)), (0, slice(0, 1)), (3, slice(3, 4)))}
+    with report.stage("rows: fp32 copy, batch 4 + 2 x batch 1"):
+        p32 = Kandinsky2_1(config=pipe.config, tokenizer1=pipe.tokenizer1,
+                           tokenizer2=pipe.tokenizer2, dtype=torch.float32,
+                           device="cuda")
+        for name, model in p32.models().items():
+            model.load_state_dict(pipe.models()[name].state_dict())
+        got["fp32"] = {i: rows(p32, sl) for i, sl in
+                       ((4, slice(0, 4)), (0, slice(0, 1)), (3, slice(3, 4)))}
+        del p32
+        gc.collect()
+        torch.cuda.empty_cache()
+    for i in (0, 3):
+        err = {dt: (rel_l2(got[dt][i][0][0], got[dt][4][0][i]),
+                    rel_l2(got[dt][i][1][0], got[dt][4][1][i])) for dt in got}
+        other = min(rel_l2(got["bf16"][i][1][0], got["bf16"][4][1][j])
+                    for j in range(4) if j != i)
+        drift = rel_l2(got["bf16"][i][1][0], got["fp32"][i][1][0])
+        print(f"serve21: row {i} alone against its batch-4 row, rel_l2: fp32 latent "
+              f"{err['fp32'][0]:.3e} image {err['fp32'][1]:.3e} (tol 5e-2); bf16 latent "
+              f"{err['bf16'][0]:.3e} (tol 5e-2) image {err['bf16'][1]:.3e} (tol "
+              f"{ROW_FACTOR} x the bf16 row's own drift from fp32, {drift:.3e}); bf16 "
+              f"against the nearest other row {other:.3e}")
+        check(max(err["fp32"]) <= 5e-2, f"serve21: fp32 row {i} differs from its batch row")
+        check(err["bf16"][0] <= 5e-2, f"serve21: bf16 row {i}'s latents differ")
+        check(err["bf16"][1] <= ROW_FACTOR * drift,
+              f"serve21: bf16 row {i} drifts beyond bf16's own rounding")
+    print("serve21: stages\n" + str(report))
+    return server, counts9, rps, per_image
+
+
+def phase_lora_swap22(torch, np, smi: str, pipe):
+    """lora-swap22-768: two rank-4 adapters on the 132 targeted weights of
+    phase 10's UNet22, ``up`` drawn non-zero; requests a, a, None, b, a
+    served one at a time after the same ``set_seed``; after each, every
+    targeted weight is ``merge_lora`` of its pristine snapshot bitwise (the
+    base itself under None) and every other weight untouched; then the
+    swaps timed alone.  Returns (the five requests' launches, the mean
+    swap ms)."""
+    from kandinsky2_tpu_torch.models.lora import init_lora, merge_lora
+    from kandinsky2_tpu_torch.observability import StageReport
+    from kandinsky2_tpu_torch.ops import launch_counts
+    from kandinsky2_tpu_torch.serving import GenerationServer
+
+    report = StageReport()
+    g = torch.Generator(device="cuda").manual_seed(16)
+    adapters = {}
+    for name in ("a", "b"):
+        loras = init_lora(pipe.unet, g, rank=4)
+        for f in loras.values():
+            f["up"] = 0.05 * torch.randn(f["up"].shape, generator=g, device="cuda")
+        adapters[name] = loras
+    check(len(adapters["a"]) == 132, f"lora22: {len(adapters['a'])} targeted weights")
+    weights = dict(pipe.unet.named_parameters())
+    others = {n: w.detach().clone() for n, w in weights.items() if n not in adapters["a"]}
+    server = GenerationServer(pipe, max_batch=4)
+    with report.stage("attach a, b"):
+        for name, loras in adapters.items():
+            server.attach_lora(name, loras)
+        torch.cuda.synchronize()
+    snap = sum(t.numel() * t.element_size() for t in server._pristine.values())
+    print(f"lora22: pristine snapshot of {len(server._pristine)} weights, {snap} bytes "
+          f"({snap / 2**20:.1f} MiB)")
+
+    def check_weights(active):
+        for n, w in weights.items():
+            if n in adapters["a"]:
+                base = server._pristine[("unet", n)]
+                want = base if active is None else merge_lora(
+                    {n: base}, {n: adapters[active][n]})[n]
+                check(torch.equal(w, want), f"lora22: {n} is not the {active} fold")
+            else:
+                check(torch.equal(w, others[n]), f"lora22: untargeted {n} changed")
+
+    kw = dict(T2I22)
+    images = []
+    reset_path_counts()
+    server.start()
+    try:
+        for i, active in enumerate(["a", "a", None, "b", "a"]):
+            pipe.set_seed(160)
+            with report.stage(f"request {i} ({active})"):
+                images.append(server.submit(PROMPT, lora=active, **kw)
+                              .result(timeout=600)[0])
+            check_weights(active)
+    finally:
+        server.stop()
+    counts = launch_counts()
+    stats = server.stats()
+    check_full_launches("lora22 5 requests", counts, 5 * T2I22["decoder_steps"],
+                        encoded=False, decoder=tuple(5 * n for n in DECODER_LAUNCHES))
+    check(stats["lora_swaps"] == 4, f"lora22: {stats['lora_swaps']} swaps, not 4")
+    same = rel_l2(images[1], images[0])
+    moved = rel_l2(images[0], images[2])
+    print(f"lora22: five requests, stats {json.dumps(stats)}; a's two images rel_l2 "
+          f"{same:.3e} (tol 1e-2); a against None {moved:.3e} (must exceed 1e-2); "
+          f"b against None {rel_l2(images[3], images[2]):.3e}")
+    check(all(np.isfinite(im).all() and im.std() > 0 for im in images),
+          "lora22: an image is not finite or constant")
+    check(same <= 1e-2, "lora22: a's two images disagree")
+    check(moved > 1e-2, "lora22: adapter a does not change the image")
+
+    swap_ms = []
+    for target in ("b", None, "a", None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        server._ensure_lora(target)
+        torch.cuda.synchronize()
+        swap_ms.append((time.perf_counter() - t0) * 1e3)
+        rise = torch.cuda.max_memory_allocated() - before
+        check_weights(target)
+        print(f"lora22: swap to {target}: {swap_ms[-1]:.2f} ms (synchronized), peak "
+              f"memory rise {rise} bytes ({rise / 2**20:.2f} MiB) on {smi}")
+    print("lora22: stages\n" + str(report))
+    return counts, sum(swap_ms) / len(swap_ms)
+
+
+def http_call(port, method, path, body=None, timeout=600):
+    """(status, JSON reply) of one request to the local front end."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase_http_validate21(torch, np, smi: str, pipe, server):
+    """http-validate21-768: phase 15's server behind ``serve_http`` (port
+    0, ``serve_forever`` on a thread): /healthz, a 768² text2img, an
+    img2img of a base64 PNG, an undecodable image (400), an unknown path
+    (404).  Then the pipeline's weights re-drawn at torch-default scales
+    (``torch_init_stats``), ``validate`` twice at 768² / 50 steps (the
+    bootstrap, then the seeded repeat against it with LPIPS weights written
+    and read by the port's own file code): both ok, PSNR >= 30 dB; the
+    image finite and not constant in bf16; and, without a builder, the
+    offline stop at fetch.  Returns the launches of the repeat."""
+    import base64
+    import io
+    import tempfile
+    import threading
+
+    from PIL import Image
+
+    from kandinsky2_tpu_torch.lpips import init_random_lpips, save_lpips_weights
+    from kandinsky2_tpu_torch.observability import StageReport
+    from kandinsky2_tpu_torch.ops import launch_counts
+    from kandinsky2_tpu_torch.serving_http import serve_http
+    from kandinsky2_tpu_torch.validate import VALIDATION_PROMPT, validate
+    from kandinsky2_tpu_torch.weights.realistic import torch_init_stats
+
+    report = StageReport()
+    png = io.BytesIO()
+    seeded_image(np, 17, 768).save(png, format="PNG")
+    init_b64 = base64.b64encode(png.getvalue()).decode("ascii")
+    httpd = serve_http(server, host="127.0.0.1", port=0, start=False)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    try:
+        for name, method, path, body, want in [
+            ("healthz", "GET", "/healthz", None, 200),
+            ("text2img", "POST", "/generate", dict(prompt=PROMPT, **SERVE21), 200),
+            ("img2img", "POST", "/generate", dict(prompt=PROMPT, task="img2img",
+                                                 image=init_b64, strength=0.7,
+                                                 **SERVE21), 200),
+            ("undecodable image", "POST", "/generate",
+             dict(prompt=PROMPT, task="img2img",
+                  image=base64.b64encode(b"not an image").decode(), **SERVE21), 400),
+            ("unknown path", "GET", "/nope", None, 404),
+        ]:
+            with report.stage(f"http {name}"):
+                code, reply = http_call(port, method, path, body)
+            shapes = [np.asarray(Image.open(io.BytesIO(base64.b64decode(b)))).shape
+                      for b in reply.get("images", [])]
+            print(f"http21: {method} {path} ({name}): {code} (want {want}); images "
+                  f"{shapes}; {reply if not shapes else ''}")
+            check(code == want, f"http21: {name} answered {code}")
+            if path == "/generate" and want == 200:
+                check(shapes == [(768, 768, 3)], f"http21: {name} images {shapes}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "http21: the HTTP thread did not stop")
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    with report.stage("torch_init_stats"):
+        for model in pipe.models().values():
+            torch_init_stats(model, g)
+        torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="k2_validate_")
+    lpips_path = f"{tmp}/lpips.safetensors"
+    save_lpips_weights(init_random_lpips(torch.Generator(device="cuda").manual_seed(17)),
+                       lpips_path)
+    kw = dict(version="2.1", pipe_builder=lambda: pipe, h=768, w=768,
+              num_steps=SERVE21["num_steps"])
+    with report.stage("validate bootstrap"):
+        rep1 = validate(out_dir=f"{tmp}/first", **kw)
+    reset_path_counts()
+    with report.stage("validate repeat"):
+        rep2 = validate(out_dir=f"{tmp}/second", reference_dir=f"{tmp}/first",
+                        lpips_weights=lpips_path, **kw)
+    counts = launch_counts()
+    for rep in (rep1, rep2):
+        check(rep["ok"], "validate21: report not ok: " + json.dumps(
+            {k: v.get("error") for k, v in rep["stages"].items()}))
+    m = rep2["metrics"][0]
+    print(f"validate21: seeded repeat at 768^2, {SERVE21['num_steps']} DDIM steps, "
+          f"torch-default weight "
+          f"scales: psnr_db {m['psnr_db']} ssim {m['ssim']} ms_ssim {m['ms_ssim']} "
+          f"lpips_alex {m['lpips_alex']} ({m['lpips_backend']}) clip_cosine_drift "
+          f"{m['clip_cosine_drift']}; stages (s) " + json.dumps(
+              {k: v["seconds"] for k, v in rep2["stages"].items()}))
+    check(m["psnr_db"] >= 30, f"validate21: PSNR {m['psnr_db']} dB < 30")
+    check(m["lpips_backend"] == "native-torch", "validate21: LPIPS not native")
+    check_full_launches("validate21 repeat", counts, SERVE21["num_steps"], encoded=False)
+    with report.stage("bf16 stress image"):
+        pipe.set_seed(0)
+        img = pipe.generate_text2img(VALIDATION_PROMPT, num_steps=SERVE21["num_steps"],
+                                     h=768, w=768, output="float")
+    print(f"validate21: torch-default scales in bf16: image min {img.min():.4f} max "
+          f"{img.max():.4f} std {img.std():.4f}")
+    check(bool(np.isfinite(img).all()), "validate21: non-finite image")
+    check(float(img.std()) > 0, "validate21: constant image")
+    offline = validate(version="2.1")
+    print(f"validate21: without a builder: stopped_at {offline.get('stopped_at')}: "
+          f"{offline['stages']['fetch'].get('error', '')[:160]}")
+    check(offline.get("stopped_at") == "fetch", "validate21: offline run did not stop at fetch")
+    print("http-validate21: stages\n" + str(report))
+    return counts
+
+
 def phase_clock():
     """A function that prints the seconds since its last call (the phase
     just run) and since the first, under a label."""
@@ -2293,16 +2721,31 @@ def main() -> int:
     counts, seconds, pipe = phase_slice(torch, np, smi)
     lap("phase 5")
 
-    # 5b. full-width img2img on the slice's pipeline, then, that pipeline
-    # freed, inpainting on its own
+    # 5b. full-width img2img on the slice's pipeline
     tasks = {"img2img": phase_img2img_full(torch, np, smi, pipe)}
-    del pipe
+    lap("phase 5b img2img")
+
+    # 15. serve21-768 on the slice's pipeline
+    server, serve_counts, serve_rps, serve_s = phase_serve21(torch, np, smi, pipe)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 15")
+
+    # 17. http-validate21-768: phase 15's server over HTTP, then validation
+    # with the pipeline's weights re-drawn (so after every other use of it)
+    validate_counts = phase_http_validate21(torch, np, smi, pipe, server)
+    del pipe, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 17")
+
+    # 5b. inpainting on its own pipeline
     gc.collect()
     torch.cuda.empty_cache()
     tasks["inpainting"] = phase_inpainting_full(torch, np, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    lap("phase 5b")
+    lap("phase 5b inpainting")
 
     # 6. backward kernels against their plain versions
     phase_kernels_backward(torch, results)
@@ -2327,10 +2770,15 @@ def main() -> int:
     lap("phase 9")
 
     # 10. full-width 2.2 text2img
-    t2i22_counts, t2i22_s = phase_t2i22(torch, np, smi)
+    t2i22_counts, t2i22_s, pipe22 = phase_t2i22(torch, np, smi)
+    lap("phase 10")
+
+    # 16. lora-swap22-768 on phase 10's pipeline
+    lora_counts, swap_ms = phase_lora_swap22(torch, np, smi, pipe22)
+    del pipe22
     gc.collect()
     torch.cuda.empty_cache()
-    lap("phase 10")
+    lap("phase 16")
 
     # 11. every 2.0 entry point at a small width against the CPU
     phase_tasks20_small(torch, np)
@@ -2379,7 +2827,9 @@ def main() -> int:
     kernels = []
     for name, rows in results.items():
         route, source, replaces = meta[name]
-        main_row = max(rows, key=lambda r: r["plain_ms"])  # the heaviest path shape
+        # the heaviest shape of the batch-1 paths
+        main_row = max((r for r in rows if not r["label"].startswith("batch ")),
+                       key=lambda r: r["plain_ms"])
         # the forward kernels' main path is the slice (phase 5), the backward
         # kernels' the full-width train steps (phase 8)
         launches = train_counts[name] if name.startswith("flash_attention_bwd") \
@@ -2392,6 +2842,9 @@ def main() -> int:
             "t20_launches": t2i20_counts[name],
             **{f"{task}_launches": tasks20[task][0][name] for task in tasks20},
             **{f"{path}_launches": new_train[path][0][name] for path in new_train},
+            "serve21_9_requests_launches": serve_counts[name],
+            "lora_swap22_5_requests_launches": lora_counts[name],
+            "validate21_launches": validate_counts[name],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2404,7 +2857,10 @@ def main() -> int:
         + f"; 2.0 text2img: {t2i20_s:.4f} s/image; " + "; ".join(
             f"{task}: {sec:.4f} s/image" for task, (_, sec) in tasks20.items())
         + "; " + "; ".join(f"{path}: {sec:.4f} s/step"
-                           for path, (_, sec) in new_train.items()))
+                           for path, (_, sec) in new_train.items())
+        + "; serve21: " + ", ".join(f"bucket {b} {sec:.4f} s/image"
+                                    for b, sec in serve_s.items())
+        + f", {serve_rps:.4f} requests/s; lora22 swap {swap_ms:.2f} ms")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -356,3 +356,25 @@ def small_config20(head_channels: int = 16) -> dict:
         ch=32, ch_mult=[1, 1, 1, 2], num_res_blocks=1, attn_resolutions=[],
         resolution=64)
     return cfg
+
+
+def small_overrides22(head_channels: int = 64) -> dict:
+    """The per-model overrides of a small ``Kandinsky2_2``:
+    ``tests/test_pipeline22.py``'s TINY towers, prior and MoVQ (whose
+    attention is 64 wide) with a UNet of 64-wide heads, the width the flash
+    kernel takes; ``head_channels=32`` is TINY's own UNet.  Its stand-in
+    tokenizer is ``utils.stub_tokenizer22(64)``."""
+    wide = head_channels == 64
+    return dict(
+        image_encoder=dict(image_size=28, patch_size=14, hidden=32, layers=2, heads=4,
+                           intermediate=64, projection_dim=32),
+        text_encoder=dict(vocab_size=64, context_length=8, hidden=32, layers=2,
+                          heads=4, intermediate=64, projection_dim=32, eot_token_id=63),
+        prior=dict(num_attention_heads=4, attention_head_dim=16, num_layers=2,
+                   embedding_dim=32, num_embeddings=8),
+        unet=dict(block_out_channels=(64, 128) if wide else (32, 64),
+                  layers_per_block=1, attention_head_dim=head_channels,
+                  cross_attention_dim=32, encoder_hid_dim=32, num_image_tokens=2),
+        movq=dict(z_channels=4, embed_dim=4, n_embed=32, ch=32, ch_mult=(1, 1, 1, 2),
+                  num_res_blocks=1, attn_resolutions=(8,), resolution=64),
+    )

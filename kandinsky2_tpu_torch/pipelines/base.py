@@ -80,6 +80,10 @@ class Pipeline:
     lists its models in :meth:`models`."""
 
     residual_outputs = RESIDUAL_OUTPUTS
+    # the seed of the pipeline's own generator until ``set_seed`` is called
+    # (the JAX pipelines' default PRNGKey(0))
+    _seed = 0
+    _generator: Optional[torch.Generator] = None
 
     def models(self) -> dict:
         """The models under the names of the JAX pipeline's params."""
@@ -102,6 +106,20 @@ class Pipeline:
         self._draw_extra_(generator)
         for model in self.models().values():
             model.to(dtype or self.dtype)
+
+    def set_seed(self, seed: int) -> None:
+        """Reset the pipeline's own generator, which the entry points draw
+        from when given no ``generator``."""
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _gen(self, generator: Optional[torch.Generator]) -> torch.Generator:
+        """``generator``, or the pipeline's own (seeded with ``_seed`` at
+        first use): never torch's global generator."""
+        if generator is not None:
+            return generator
+        if self._generator is None:
+            self.set_seed(self._seed)
+        return self._generator
 
     def load_jax_params(self, params: dict):
         """Load the JAX pipeline's params (one nested dict of arrays per

@@ -87,7 +87,7 @@ class Kandinsky2(Pipeline):
             in_channels=dd.get("in_channels", 3), out_ch=dd.get("out_ch", 3), **kw)
         self.tokenizer1 = tokenizer1
         self.tokenizer2 = tokenizer2
-        self._seed, self._generator = seed, None
+        self._seed = seed
         self._diff_cfg = self.config["diffusion_config"]
         # img2img re-noises on the default linear(1e-4, 2e-2) schedule
         # (utils.py:42-47); 2.0's decoder schedule happens to be the same
@@ -98,18 +98,6 @@ class Kandinsky2(Pipeline):
         """The four models under the names of the JAX pipeline's params."""
         return {"text_encoder1": self.text_encoder1, "text_encoder2": self.text_encoder2,
                 "unet": self.unet, "image_encoder": self.image_encoder}
-
-    def set_seed(self, seed: int) -> None:
-        """Reset the pipeline's own generator, which the entry points draw
-        from when given no ``generator``."""
-        self._generator = torch.Generator(device=self.device).manual_seed(seed)
-
-    def _gen(self, generator: Optional[torch.Generator]) -> torch.Generator:
-        if generator is not None:
-            return generator
-        if self._generator is None:
-            self.set_seed(self._seed)
-        return self._generator
 
     def encode_text(self, prompt, batch_size: int):
         """(full1, pooled1, full2) of [prompt] * B + [""] * B

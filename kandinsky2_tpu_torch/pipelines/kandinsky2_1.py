@@ -14,7 +14,8 @@ UNet conditioning -> the sampler's loop over the CFG-doubled UNet -> MoVQ
 decode.  Public arguments and outputs keep the JAX package's layouts:
 ``noise`` [B, h/8, w/8, 4] NHWC, ``noise_seq`` [S, B, h/8, w/8, 4],
 prior noise [B, clip_dim] and [S, B, clip_dim], images NHWC.  Whatever is
-not injected is drawn from ``generator``.  Every image entry point takes
+not injected is drawn from ``generator``, or from the pipeline's own
+(``set_seed``), never from torch's global one.  Every image entry point takes
 ``output="float"`` for the float NHWC images in [-1, 1] (a numpy array)
 instead of PIL images.
 """
@@ -178,6 +179,7 @@ class Kandinsky2_1(Pipeline):
                 "ladder; ddim/dpmpp prior trajectories are deterministic "
                 "given noise=")
         dev = self.device
+        generator = self._gen(generator)
         ctx = self.prior.text_ctx
         clip_dim = self.clip_mean.shape[-1]
         tok, mask = self.tokenizer2.padded_tokens_and_mask(
@@ -306,6 +308,7 @@ class Kandinsky2_1(Pipeline):
             raise ValueError("noise_seq only applies to the ancestral p_sampler; "
                              f"{sampler} is deterministic given noise=")
         dev = self.device
+        generator = self._gen(generator)
         new_h, new_w = get_new_h_w(h, w)
         C = self.config["model_config"]["in_channels"]
         full_emb, pooled_emb = self.encode_text(prompt, batch_size)
@@ -450,6 +453,7 @@ class Kandinsky2_1(Pipeline):
                              "(1 would fully re-noise, 0 runs no steps)")
         batch_size = resolve_batch(prompt, batch_size)
         dev = self.device
+        generator = self._gen(generator)
         if image_emb is None:
             image_emb = self.generate_clip_emb(
                 prompt, batch_size=batch_size, prior_cf_scale=prior_cf_scale,

@@ -16,7 +16,8 @@ batches are [negative; positive], the variance taken from the positive
 half.  Public arguments and outputs keep the JAX package's layouts:
 ``noise`` [B, h/8, w/8, 4] NHWC, ``noise_seq`` [S, B, h/8, w/8, 4], prior
 noise [B, 1280] and [S, B, 1280], images NHWC.  Whatever is not injected
-is drawn from ``generator``.  Every image entry point takes
+is drawn from ``generator``, or from the pipeline's own (``set_seed``),
+never from torch's global one.  Every image entry point takes
 ``output="float"`` for the float NHWC images in [-1, 1] (a numpy array)
 instead of PIL images.  Profiler ranges: ``k22.clip_text``, ``k22.prior``,
 ``k22.clip_vision``, ``k22.movq_encode``, ``k22.unet_<sampler>`` and
@@ -132,7 +133,7 @@ class Kandinsky2_2(Pipeline):
                                               device=generator.device))
 
     def _randn(self, shape, generator):
-        return torch.randn(shape, generator=generator, device=self.device)
+        return torch.randn(shape, generator=self._gen(generator), device=self.device)
 
     # ------------------------------------------------------------------
     # prior
@@ -185,7 +186,7 @@ class Kandinsky2_2(Pipeline):
                                     denoised_fn=lambda v: torch.clamp(v, -10.0, 10.0))
             else:
                 lat = paired_ancestral_loop(
-                    model_fn, self._prior_acp, ladder, x_T, generator,
+                    model_fn, self._prior_acp, ladder, x_T, self._gen(generator),
                     prediction="sample", variance="fixed_small_log", clip_range=10.0,
                     noise_seq=noise_seq)
             return lat * self.prior.clip_std.float() + self.prior.clip_mean.float()
@@ -315,7 +316,7 @@ class Kandinsky2_2(Pipeline):
                 active_fn = model_fn_turbo
             if sampler == "ddpm":
                 lat = paired_ancestral_loop(
-                    active_fn, self._decoder_acp, ladder, x_T, generator,
+                    active_fn, self._decoder_acp, ladder, x_T, self._gen(generator),
                     prediction="epsilon", variance="learned_range", clip_range=2.0,
                     model_state=state, noise_seq=nseq)
             else:

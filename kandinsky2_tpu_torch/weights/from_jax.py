@@ -130,6 +130,18 @@ def lora_from_jax(jax_loras: Mapping) -> dict:
     }
 
 
+def lpips_from_jax(jax_params: Mapping) -> dict:
+    """The JAX package's LPIPS parameters ({"features.K": {"kernel" HWIO,
+    "bias"}, "lin{i}": {"weight"}}) as the port's ({"features.K.weight"
+    OIHW, "features.K.bias", "lin{i}.weight"}), float32 CPU tensors."""
+    return {
+        torch_key_for(path): torch.from_numpy(np.ascontiguousarray(
+            _apply("hwio" if path[-1] == "kernel" else "id",
+                   np.array(arr, dtype=np.float32))))
+        for path, arr in flatten(jax_params).items()
+    }
+
+
 def load_jax_params(module: torch.nn.Module, jax_tree: Mapping) -> torch.nn.Module:
     """Copy ``jax_tree`` into ``module`` in place, keeping each parameter's
     device and dtype."""

@@ -4,6 +4,7 @@ package: the ``bench.py --small`` configuration (the port's
 seed (every leaf non-zero, including the leaves flax initialises to zero),
 and conversions between the two frameworks."""
 
+import functools
 import math
 
 import jax
@@ -395,3 +396,16 @@ def capture_jax_floats20(monkeypatch):
         return out
 
     monkeypatch.setattr(jpipe20, "process_images", process_images)
+
+
+# --- pairs built once a process ------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def shared_pair(version: str):
+    """``parity_pipelines()``, ``parity_pipelines22()`` or
+    ``parity_pipelines20()`` at their defaults by ``version``, built once a
+    process, for tests that leave the pipelines and their params as they
+    found them (or restore them)."""
+    return {"2.1": parity_pipelines, "2.2": parity_pipelines22,
+            "2.0": parity_pipelines20}[version]()

@@ -41,6 +41,11 @@ def gen():
     ((2, 64 * 64, 384), 1e-5), ((2, 8 * 8, 3072), 1e-5),
     ((1, 256 * 256, 512), 1e-6), ((1, 512 * 512, 256), 1e-6),
     ((1, 256 * 256, 128), 1e-6), ((1, 128 * 128, 256), 1e-6),
+    # the served 2.1 path at buckets 2 and 4: the UNet's CFG-doubled rows,
+    # the MoVQ decoder's batch
+    ((4, 96 * 96, 384), 1e-5), ((8, 96 * 96, 384), 1e-5),
+    ((4, 12 * 12, 1536), 1e-5), ((8, 12 * 12, 1536), 1e-5),
+    ((2, 768 * 768, 128), 1e-6), ((4, 768 * 768, 128), 1e-6),
 ])
 def test_group_norm_kernels_match_plain(gen, shape, eps):
     x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -139,6 +144,9 @@ def test_group_norm_launches_two_kernels(gen):
     # the 2.0 UNet at 512² (154 text tokens before the spatial K/V), the
     # KL-VAE's mid attention
     (2, 1024, 1178, 12, 64), (2, 64, 218, 24, 64), (1, 4096, 4096, 1, 512),
+    # the served 2.1 path at buckets 2 and 4
+    (4, 2304, 2391, 12, 64), (8, 2304, 2391, 12, 64), (4, 144, 231, 24, 64),
+    (8, 144, 231, 24, 64), (2, 9216, 9216, 1, 512), (4, 9216, 9216, 1, 512),
 ])
 def test_flash_kernel_matches_plain(gen, B, T, S, H, d):
     q, k, v = (torch.randn((B, L, H, d), generator=gen, device="cuda")

@@ -3,7 +3,8 @@ importing every submodule of ``kandinsky2_tpu_torch`` in a fresh
 interpreter leaves none of them in ``sys.modules``, and the scripts that
 run on the card import none of them.  Its kernels are CUDA C++, so no
 module of it imports Triton either, at any depth of its code.  The card's
-machine has neither cv2 nor PyYAML: no module imports cv2, and PyYAML is
+machine has none of cv2, PyYAML, safetensors, lpips and torchvision: no
+module imports cv2, safetensors, lpips or torchvision, and PyYAML is
 imported only inside a CLI's ``main``."""
 
 import ast
@@ -21,7 +22,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "kandinsky2_tpu",
-                                    "triton", "cv2", "yaml"))
+                                    "triton", "cv2", "yaml", "safetensors", "lpips",
+                                    "torchvision"))
 print(len(names), bad, " ".join(names))
 sys.exit(1 if bad else 0)
 """
@@ -44,7 +46,9 @@ def test_port_imports_no_jax():
                  "pipelines.kandinsky2_0", "pipelines.base", "models.lora",
                  "train.precision", "train.train_lora", "train.distill",
                  "train.train_prior", "train.train_prior_cli", "train.masks",
-                 "train.train_2_1_unclip"):
+                 "train.train_2_1_unclip", "observability", "eval", "lpips",
+                 "weights.realistic", "weights.safetensors_file", "serving",
+                 "serving_http", "validate"):
         assert f"kandinsky2_tpu_torch.{name}" in proc.stdout.split(), name
 
 
@@ -56,7 +60,7 @@ def test_scripts_import_no_jax(script):
     names = _imported(os.path.join(root, script))
     assert "kandinsky2_tpu_torch" in names
     assert not names & {"jax", "jaxlib", "flax", "optax", "kandinsky2_tpu", "triton",
-                        "cv2", "yaml"}, names
+                        "cv2", "yaml", "safetensors", "lpips", "torchvision"}, names
 
 
 def _imported(path):
@@ -74,8 +78,9 @@ def _imported(path):
 
 
 def test_port_modules_import_no_triton():
-    """No module of the port imports Triton or JAX, not even inside a
-    function, where importing the module would not show it."""
+    """No module of the port imports Triton, JAX or a package the card's
+    machine lacks, not even inside a function, where importing the module
+    would not show it."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(root, "kandinsky2_tpu_torch")
     paths = [os.path.join(d, f) for d, _, files in os.walk(pkg) for f in files
@@ -84,7 +89,8 @@ def test_port_modules_import_no_triton():
     for path in paths:
         names = _imported(path)
         assert not names & {"triton", "jax", "jaxlib", "flax", "optax",
-                            "kandinsky2_tpu", "cv2"}, (path, names)
+                            "kandinsky2_tpu", "cv2", "safetensors", "lpips",
+                            "torchvision"}, (path, names)
 
 
 def test_yaml_only_inside_a_cli_main():
