@@ -38,7 +38,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    K1 and K2 at the UNet's [2B, 9216, 384] and [2B, 144, 1536] and the
    MoVQ's [B, 589824, 128], K3 at B·H = 2B·12 (2304, 2391), 2B·24 (144,
    231) and B (9216, 9216, d 512); the kernels line keeps the batch-1
-   rows.
+   rows.  Rows "dpt-hybrid bit" hold K1 and K2 at the BiT stem's
+   layouts on a 384² image (Intel/dpt-hybrid-midas' widths, 32 groups),
+   "dpt-large 384^2" K3 at DPT-Large's ViT attention (B·H 16, T = S =
+   577, d 64).
 4. reference: the whole path at a small width on the card (kernels, bf16)
    against the same weights and injected noise on the CPU (plain
    versions, fp32), beside the plain versions in bf16 on the CPU as the
@@ -142,7 +145,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. training, full width, batch 1, one warm-up and timed steps, each with
    s/step, peak memory, a profiled step's device idle share and its
    launches pinned: lora22-768 (UNet22 of
-   weights.configs22.pipeline_overrides("text2img") with a bf16 base,
+   weights.configs22.pipeline_overrides(task_type="text2img") with a bf16 base,
    rank-4 factors on default_target, Adam 1e-4, latents [1, 96, 96, 4], 5
    steps: K1 = K2 = 95, K3 = K4 = K5 = 22 a step; the base bitwise
    unchanged, the factors moved, merge then unmerge back to the base
@@ -188,6 +191,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    every other weight is unchanged; 4 swaps; a's two images agree, a's
    differs from None's; then each swap timed alone (synchronized) with
    its peak-memory rise, and the snapshot's bytes.
+18. checkpoints (18a after phase 16 on phase 10's pipeline, 18b after
+   phase 17 on phase 5's, 18c-d last), each version's files in a
+   ``tempfile.mkdtemp()`` directory removed in ``finally``: 18a writes the
+   2.2 pipeline as a diffusers snapshot cache (the vendored config.json
+   files, BF16 safetensors by ``weights.safetensors_file``, the MoVQ under
+   ``movq22_rename``'s names, a byte-level CLIP tokenizer directory) and
+   loads it with ``get_kandinsky2(model_version="2.2", cache_dir=...)``;
+   18b writes the 2.1 pipeline as the reference's files (``torch.save``d
+   UNet, prior under ``model.``, MoVQ, XLM-R ``pytorch_model.bin``, a
+   ``torch.jit.save``d CLIP archive with ``visual.`` and fused
+   ``attn.in_proj_weight`` keys, the CLIP stats) and loads it with the
+   stand-in tokenizers, then ``task_type="inpainting"`` from an
+   ``inpainting_fp16.ckpt`` cache at ``small_config(64)``; 18c does the
+   same for 2.0 at CONFIG_2_0.  Each: bytes, write s, load s (the
+   ``get_kandinsky2`` call, synchronized) and GB/s; every tensor of the
+   loaded pipeline on the card and bitwise equal to the source's; one image
+   from each with the same seed bitwise equal (the 2.2 source given the
+   loaded tokenizer), its launches pinned (2.2 and 2.1 K1 = K2 = 4,783, K3
+   = 1,104; 2.0 9,530 and 2,201).  18d: DPT-Large at full width (the
+   ``DPTDepth()`` defaults as config.json, F32 safetensors of a seeded
+   model) through ``depth.dpt_estimator`` in bf16 and fp32 on a 768²
+   image: a finite, non-constant depth, K3 24 launches in bf16 and none in
+   fp32 (24 attention calls by the plain route), bf16 within 3 % relative
+   L2 of fp32, ms an estimate; the small hybrid (``tests/test_dpt_parity.py``'s
+   TINY_HYBRID with 64-wide heads) pinned at K1 = K2 = 16 and K3 = 4 and
+   held to fp32 the same way; then a full-width 2.2 ControlNet pipeline's
+   ``generate_controlnet`` on the hint ``depth.make_hint`` made with the
+   DPT-Large estimator.
 Phases 15-17 time their stages with ``observability.StageReport``.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
@@ -503,6 +534,11 @@ def phase_kernels(torch, results):
           for b in (2, 4)),
         *((f"batch {b}: movq 768^2", (b, 768 * 768, 128), torch.bfloat16)
           for b in (2, 4)),
+        # the DPT hybrid's BiT stem (Intel/dpt-hybrid-midas: 64, then
+        # 256/512/1024 wide, 32 groups) on a 384² image
+        *((f"dpt-hybrid bit [{n}, {c}]", (1, n, c), torch.bfloat16) for n, c in (
+            (36864, 64), (9216, 64), (9216, 256), (9216, 128), (2304, 128),
+            (2304, 512), (2304, 256), (576, 256), (576, 1024))),
     ]
     for label, shape, dtype in norm_shapes:
         B, N, C = shape
@@ -637,6 +673,8 @@ def phase_kernels(torch, results):
         *((f"batch {b}: unet ds2", (2 * b, 2304, 2391, 12, 64)) for b in (2, 4)),
         *((f"batch {b}: unet ds8/middle", (2 * b, 144, 231, 24, 64)) for b in (2, 4)),
         *((f"batch {b}: movq attn", (b, 9216, 9216, 1, 512)) for b in (2, 4)),
+        # DPT-Large's ViT layer on a 384² image: 576 patches and the cls token
+        ("dpt-large 384^2", (1, 577, 577, 16, 64)),
     ]
     for label, (B, T, S, H, d) in attn_shapes:
         q, k, v = randn((B, T, H, d)), randn((B, S, H, d)), randn((B, S, H, d))
@@ -1294,7 +1332,7 @@ def phase_t2i22(torch, np, smi: str):
 
     t0 = time.perf_counter()
     pipe = Kandinsky2_2(tokenizer=stub_tokenizer22(), dtype=torch.bfloat16,
-                        overrides=pipeline_overrides("text2img"),
+                        overrides=pipeline_overrides(task_type="text2img"),
                         device="cuda")
     pipe.init_random_params(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -2125,7 +2163,8 @@ def phase_train22_full(torch, np, smi: str) -> dict:
     from kandinsky2_tpu_torch.weights.configs22 import pipeline_overrides
 
     t0 = time.perf_counter()
-    unet = UNet22(**pipeline_overrides("text2img")["unet"], dtype=torch.bfloat16,
+    unet = UNet22(**pipeline_overrides(task_type="text2img")["unet"],
+                  dtype=torch.bfloat16,
                   device="cuda")
     init_random_(unet, torch.Generator(device="cuda").manual_seed(20),
                  Kandinsky2_2.residual_outputs)
@@ -2639,12 +2678,438 @@ def phase_http_validate21(torch, np, smi: str, pipe, server):
           f"{img.max():.4f} std {img.std():.4f}")
     check(bool(np.isfinite(img).all()), "validate21: non-finite image")
     check(float(img.std()) > 0, "validate21: constant image")
-    offline = validate(version="2.1")
+    offline = validate(version="2.1", cache_dir=f"{tmp}/empty_cache")
     print(f"validate21: without a builder: stopped_at {offline.get('stopped_at')}: "
           f"{offline['stages']['fetch'].get('error', '')[:160]}")
     check(offline.get("stopped_at") == "fetch", "validate21: offline run did not stop at fetch")
     print("http-validate21: stages\n" + str(report))
     return counts
+
+
+# --- phase 18: checkpoints --------------------------------------------------
+
+# the published DPT-Large config.json, as far as ``models.dpt.dpt_overrides``
+# reads it: the ``DPTDepth()`` defaults
+DPT_LARGE_CONFIG = {
+    "model_type": "dpt", "hidden_size": 1024, "num_hidden_layers": 24,
+    "num_attention_heads": 16, "intermediate_size": 4096, "patch_size": 16,
+    "image_size": 384, "backbone_out_indices": [5, 11, 17, 23],
+    "neck_hidden_sizes": [256, 512, 1024, 1024], "reassemble_factors": [4, 2, 1, 0.5],
+    "fusion_hidden_size": 256, "layer_norm_eps": 1e-12, "readout_type": "project",
+    "is_hybrid": False}
+# tests/test_dpt_parity.py's TINY_HYBRID (its TINY_BIT stem) with 128-wide,
+# 2-head ViT layers: 64-wide heads, the width K3 takes
+DPT_HYBRID_SMALL = {
+    "model_type": "dpt", "hidden_size": 128, "num_hidden_layers": 4,
+    "num_attention_heads": 2, "intermediate_size": 256, "image_size": 64,
+    "patch_size": 16, "is_hybrid": True, "backbone_out_indices": [0, 1, 2, 3],
+    "neck_hidden_sizes": [16, 32, 24, 24], "reassemble_factors": [1, 1, 1, 0.5],
+    "neck_ignore_stages": [0, 1], "fusion_hidden_size": 24, "num_channels": 3,
+    "backbone_featmap_shape": [1, 64, 4, 4],
+    "backbone_config": {
+        "model_type": "bit", "embedding_size": 8, "hidden_sizes": [16, 32, 64],
+        "depths": [1, 1, 2], "layer_type": "bottleneck", "global_padding": "same",
+        "out_features": ["stage1", "stage2", "stage3"],
+        "embedding_dynamic_padding": True, "num_groups": 4}}
+DPT_HYBRID_NORMS = 16  # the stem's GroupNorm and 3 a bottleneck, 1 more a stage
+
+
+def write_json(path, obj) -> None:
+    import os
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+               for f in fs)
+
+
+def write_tokenizer22(tok_dir) -> None:
+    """An HF CLIPTokenizer directory over CLIP's byte alphabet: no merges,
+    each byte and its end-of-word form, <|startoftext|> 49406 and
+    <|endoftext|> 49407 (CLIP's ids, where the text tower pools)."""
+    from kandinsky2_tpu_torch.tokenizers.clip_bpe import _bytes_to_unicode
+
+    chars = list(_bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars + [c + "</w>" for c in chars])}
+    vocab.update({"<|startoftext|>": 49406, "<|endoftext|>": 49407})
+    write_json(f"{tok_dir}/vocab.json", vocab)
+    with open(f"{tok_dir}/merges.txt", "w") as f:
+        f.write("#version: 0.2\n")
+    write_json(f"{tok_dir}/tokenizer_config.json", {"model_max_length": 77})
+    write_json(f"{tok_dir}/special_tokens_map.json", {"eos_token": "<|endoftext|>"})
+
+
+def save_jit_archive(torch, sd: dict, path) -> None:
+    """A TorchScript archive whose state dict is ``sd``, as OpenAI's CLIP
+    files are (``visual.`` keys, fused ``attn.in_proj_weight``)."""
+
+    class Holder(torch.nn.Module):
+        def forward(self):
+            return 0
+
+    root = Holder()
+    for key, value in sd.items():
+        *names, leaf = key.split(".")
+        mod = root
+        for name in names:
+            if not hasattr(mod, name):
+                mod.add_module(name, Holder())
+            mod = getattr(mod, name)
+        mod.register_buffer(leaf, value)
+    torch.jit.save(torch.jit.script(root), path)
+
+
+def cpu_sd(model, prefix="", rename=None) -> dict:
+    return {prefix + (rename(k) if rename else k): v.detach().cpu()
+            for k, v in model.state_dict().items()}
+
+
+def check_same_weights(torch, name, src, loaded) -> int:
+    """Every tensor of ``loaded``'s models bitwise equal to ``src``'s, on the
+    card; returns the parameter count."""
+    n = 0
+    for key, model in src.models().items():
+        a, b = model.state_dict(), loaded.models()[key].state_dict()
+        check(set(a) == set(b), f"{name}: {key} keys differ")
+        for k, v in a.items():
+            check(b[k].is_cuda and b[k].dtype == v.dtype and torch.equal(b[k], v),
+                  f"{name}: {key}.{k} differs from the source")
+            n += v.numel()
+    return n
+
+
+def timed_load(torch, name, write, load, cache, smi):
+    """``write()`` then ``load()`` (synchronized), with the bytes, seconds
+    and GB/s of each."""
+    t0 = time.perf_counter()
+    write()
+    write_s = time.perf_counter() - t0
+    nbytes = dir_bytes(cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = load()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    print(f"{name}: wrote {nbytes} bytes in {write_s:.3f} s "
+          f"({nbytes / write_s / 1e9:.3f} GB/s); get_kandinsky2 loaded them in "
+          f"{load_s:.3f} s ({nbytes / load_s / 1e9:.3f} GB/s) on {smi}")
+    return pipe, {"bytes": nbytes, "write_s": write_s, "load_s": load_s}
+
+
+def same_image(torch, np, name, src, loaded, call, unet_calls):
+    """One image from ``src`` and one from ``loaded`` with the same seed:
+    bitwise equal, the loaded one's launches pinned."""
+    want = call(src)
+    reset_path_counts()
+    got = call(loaded)
+    torch.cuda.synchronize()
+    from kandinsky2_tpu_torch.ops import launch_counts
+
+    counts = launch_counts()
+    check(got.shape == want.shape and bool(np.isfinite(got).all()), f"{name}: image")
+    check(float(got.std()) > 0, f"{name}: image is constant")
+    check(np.array_equal(got, want), f"{name}: image differs from the source's by "
+          f"{float(np.abs(got - want).max()):.3e}")
+    print(f"{name}: image {got.shape} bitwise equal to the source pipeline's; "
+          f"launches {json.dumps(counts)}")
+    if unet_calls:
+        check_full_launches(name, counts, unet_calls, encoded=False)
+    return counts
+
+
+def phase_checkpoints22(torch, np, smi, src):
+    """18a: phase 10's 2.2 pipeline as a diffusers snapshot cache (the
+    vendored configs, BF16 safetensors, the MoVQ under diffusers names, a
+    tokenizer directory), loaded by ``get_kandinsky2(model_version="2.2")``."""
+    import os
+    import shutil
+    import tempfile
+
+    from kandinsky2_tpu_torch import get_kandinsky2
+    from kandinsky2_tpu_torch.weights.configs22 import load_fixture
+    from kandinsky2_tpu_torch.weights.load_kandinsky22 import movq22_rename
+    from kandinsky2_tpu_torch.weights.safetensors_file import save_file
+
+    tmp = tempfile.mkdtemp()
+    try:
+        prior_dir, decoder_dir = f"{tmp}/2_2/prior", f"{tmp}/2_2/decoder"
+
+        def write():
+            for d, sub, fixture, model, stem, rename in [
+                    (prior_dir, "prior", "prior__prior", src.prior,
+                     "diffusion_pytorch_model", None),
+                    (prior_dir, "text_encoder", "prior__text_encoder", src.text_encoder,
+                     "model", None),
+                    (prior_dir, "image_encoder", "prior__image_encoder",
+                     src.image_encoder, "model", None),
+                    (decoder_dir, "unet", "decoder__unet", src.unet,
+                     "diffusion_pytorch_model", None),
+                    (decoder_dir, "movq", "decoder__movq", src.movq,
+                     "diffusion_pytorch_model", movq22_rename)]:
+                write_json(f"{d}/{sub}/config.json", load_fixture(fixture))
+                save_file(cpu_sd(model, rename=rename), f"{d}/{sub}/{stem}.safetensors")
+            write_tokenizer22(f"{prior_dir}/tokenizer")
+
+        loaded, io = timed_load(torch, "ckpt22", write, lambda: get_kandinsky2(
+            model_version="2.2", cache_dir=tmp, task_type="text2img"), tmp, smi)
+        n = check_same_weights(torch, "ckpt22", src, loaded)
+        print(f"ckpt22: all {n} parameters bitwise equal to phase 10's pipeline "
+              f"({io['bytes'] / n:.4f} bytes a parameter)")
+        tok = src.tokenizer
+        src.tokenizer = loaded.tokenizer  # the loaded BPE's ids on both
+        try:
+            counts = same_image(torch, np, "ckpt22", src, loaded, lambda p: p.generate_text2img(
+                PROMPT, generator=torch.Generator(device="cuda").manual_seed(4), **T2I22),
+                T2I22["decoder_steps"])
+        finally:
+            src.tokenizer = tok
+        del loaded
+    finally:
+        shutil.rmtree(tmp)
+    return counts, io
+
+
+def write_cache21(torch, src, cd, decoder):
+    """The files ``fetch_2_1`` looks for, from ``src``'s weights in the
+    reference's key layout."""
+    import os
+
+    from kandinsky2_tpu_torch.weights.convert import clip_rename
+
+    os.makedirs(f"{cd}/text_encoder", exist_ok=True)
+    torch.save(cpu_sd(src.unet), f"{cd}/{decoder}")
+    torch.save(cpu_sd(src.prior, prefix="model."), f"{cd}/prior_fp16.ckpt")
+    torch.save(cpu_sd(src.movq), f"{cd}/movq_final.ckpt")
+    torch.save({k[len("model."):]: v for k, v in cpu_sd(src.text_encoder).items()},
+               f"{cd}/text_encoder/pytorch_model.bin")
+    clip = cpu_sd(src.clip_text, rename=clip_rename)
+    clip.update(cpu_sd(src.clip_vision, prefix="visual.", rename=clip_rename))
+    save_jit_archive(torch, clip, f"{cd}/ViT-L-14.pt")
+    torch.save((src.clip_mean[0].cpu(), src.clip_std[0].cpu()), f"{cd}/ViT-L-14_stats.th")
+
+
+def phase_checkpoints21(torch, np, smi, src):
+    """18b: phase 5's 2.1 pipeline as the reference's 2.1 files (torch.save,
+    a TorchScript CLIP archive), loaded by ``get_kandinsky2(model_version=
+    "2.1")``; then an inpainting cache at a small width, from which
+    ``task_type="inpainting"`` reads ``inpainting_fp16.ckpt``."""
+    import shutil
+    import tempfile
+
+    from kandinsky2_tpu_torch import get_kandinsky2
+    from kandinsky2_tpu_torch.configs import small_config
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
+    from kandinsky2_tpu_torch.pipelines import kandinsky2_1 as pipe21
+
+    toks = (src.tokenizer1, src.tokenizer2)
+    tmp = tempfile.mkdtemp()
+    try:
+        loaded, io = timed_load(
+            torch, "ckpt21", lambda: write_cache21(torch, src, f"{tmp}/2_1",
+                                                   "decoder_fp16.ckpt"),
+            lambda: get_kandinsky2(model_version="2.1", cache_dir=tmp, tokenizers=toks),
+            tmp, smi)
+        n = check_same_weights(torch, "ckpt21", src, loaded)
+        check(torch.equal(loaded.clip_mean, src.clip_mean)
+              and torch.equal(loaded.clip_std, src.clip_std), "ckpt21: clip stats")
+        print(f"ckpt21: all {n} parameters bitwise equal to phase 5's pipeline")
+        counts = same_image(torch, np, "ckpt21", src, loaded, lambda p: p.generate_text2img(
+            PROMPT, generator=torch.Generator(device="cuda").manual_seed(4), **FULL_TASK),
+            FULL_TASK["num_steps"])
+        del loaded
+    finally:
+        shutil.rmtree(tmp)
+
+    tmp = tempfile.mkdtemp()
+    default = pipe21.CONFIG_2_1
+    pipe21.CONFIG_2_1 = small_config(64)  # build_kandinsky21's default config
+    try:
+        small = Kandinsky2_1(config=small_config(64), tokenizer1=toks[0],
+                             tokenizer2=toks[1], task_type="inpainting")
+        small.init_random_params(torch.Generator(device="cuda").manual_seed(18))
+        write_cache21(torch, small, f"{tmp}/2_1", "inpainting_fp16.ckpt")
+        loaded = get_kandinsky2(model_version="2.1", cache_dir=tmp, task_type="inpainting",
+                                tokenizers=toks)
+        check(loaded.unet.input_blocks[0][0].weight.shape[1] == 9, "ckpt21: inpainting UNet")
+        check_same_weights(torch, "ckpt21 inpainting", small, loaded)
+        print("ckpt21: task_type='inpainting' read inpainting_fp16.ckpt (a 9-channel "
+              "UNet at small_config(64)), every tensor bitwise equal")
+    finally:
+        pipe21.CONFIG_2_1 = default
+        shutil.rmtree(tmp)
+    return counts, io
+
+
+def phase_checkpoints20(torch, np, smi):
+    """18c: a 2.0 pipeline at CONFIG_2_0 with seeded bf16 weights as the
+    reference's 2.0 files, loaded by ``get_kandinsky2(model_version="2.0")``;
+    one image at ``generate_text2img``'s own defaults from each."""
+    import os
+    import shutil
+    import tempfile
+
+    from kandinsky2_tpu_torch import get_kandinsky2
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2
+    from kandinsky2_tpu_torch.utils import stub_tokenizers
+
+    tok, _ = stub_tokenizers()
+    tmp = tempfile.mkdtemp()
+    try:
+        src = Kandinsky2(tokenizer1=tok, tokenizer2=tok)
+        src.init_random_params(torch.Generator(device="cuda").manual_seed(19))
+        cd = f"{tmp}/2_0"
+
+        def write():
+            for sub in ("text_encoder1", "text_encoder2"):
+                os.makedirs(f"{cd}/{sub}")
+            torch.save({"state_dict": cpu_sd(src.unet)}, f"{cd}/Kandinsky-2-0.pt")
+            torch.save(cpu_sd(src.image_encoder), f"{cd}/vae.ckpt")
+            torch.save({k[len("model."):]: v for k, v in cpu_sd(src.text_encoder1).items()},
+                       f"{cd}/text_encoder1/pytorch_model.bin")
+            torch.save(cpu_sd(src.text_encoder2), f"{cd}/text_encoder2/pytorch_model.bin")
+
+        loaded, io = timed_load(torch, "ckpt20", write, lambda: get_kandinsky2(
+            model_version="2.0", cache_dir=tmp, tokenizers=(tok, tok)), tmp, smi)
+        n = check_same_weights(torch, "ckpt20", src, loaded)
+        print(f"ckpt20: all {n} parameters bitwise equal to the source pipeline's")
+        counts = same_image(torch, np, "ckpt20", src, loaded, lambda p: p.generate_text2img(
+            PROMPT, generator=torch.Generator(device="cuda").manual_seed(4), **T2I20), 0)
+        check_full_launches("ckpt20", counts, T2I20_STEPS, encoded=False,
+                            decoder=KL_DECODER_LAUNCHES)
+        del loaded, src
+    finally:
+        shutil.rmtree(tmp)
+    return counts, io
+
+
+def _dpt_snapshot(torch, repo, cfg, seed):
+    """``repo`` with ``cfg`` as config.json and the F32 weights of a seeded
+    ``DPTDepth`` of it; returns that model."""
+    from kandinsky2_tpu_torch.models.dpt import DPTDepth, dpt_overrides
+    from kandinsky2_tpu_torch.pipelines.base import init_random_
+    from kandinsky2_tpu_torch.weights.safetensors_file import save_file
+
+    src = DPTDepth(device="cuda", **dpt_overrides(cfg))
+    init_random_(src, torch.Generator(device="cuda").manual_seed(seed))
+    write_json(f"{repo}/config.json", cfg)
+    save_file(cpu_sd(src), f"{repo}/model.safetensors")
+    return src
+
+
+def _dpt_run(torch, np, name, est, image):
+    """One estimate with the launches of its forward, and its ms (host
+    clock, synchronized, the mean of 5 after a warm-up)."""
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+
+    est(image)
+    torch.cuda.synchronize()
+    reset_path_counts()
+    depth = est(image)
+    counts, plain = launch_counts(), qkv_attention.plain_on_card
+    t0 = time.perf_counter()
+    for _ in range(5):
+        est(image)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    check(bool(np.isfinite(depth).all()) and float(depth.std()) > 0,
+          f"{name}: depth not finite or constant")
+    print(f"{name}: depth {depth.shape} min {depth.min():.4f} max {depth.max():.4f}; "
+          f"{ms:.3f} ms an estimate; launches {json.dumps(counts)}, attention calls "
+          f"on the card by the plain route {plain}")
+    return depth, counts, plain, ms
+
+
+def phase_dpt(torch, np, smi):
+    """18d: DPT-Large at full width from a snapshot through ``dpt_estimator``
+    in bf16 (K3) against fp32; the small hybrid (K1, K2, K3); one ControlNet
+    call on a hint the DPT-Large estimator made."""
+    import shutil
+    import tempfile
+
+    import inspect
+
+    from kandinsky2_tpu_torch import depth
+    from kandinsky2_tpu_torch.models.dpt import DPTDepth, dpt_overrides
+
+    tmp = tempfile.mkdtemp()
+    out = {}
+    try:
+        defaults = inspect.signature(DPTDepth).parameters
+        check(all(tuple(v) == tuple(defaults[k].default) if isinstance(v, tuple)
+                  else v == defaults[k].default
+                  for k, v in dpt_overrides(DPT_LARGE_CONFIG).items()),
+              "dpt-large: the config is not DPTDepth()'s defaults")
+        src = _dpt_snapshot(torch, f"{tmp}/large", DPT_LARGE_CONFIG, 21)
+        n = sum(p.numel() for p in src.parameters())
+        t0 = time.perf_counter()
+        est = depth.dpt_estimator(f"{tmp}/large", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        nbytes = dir_bytes(f"{tmp}/large")
+        print(f"dpt-large: {n} parameters, {nbytes} bytes F32 loaded in {load_s:.3f} s "
+              f"({nbytes / load_s / 1e9:.3f} GB/s) on {smi}")
+        for k, v in src.state_dict().items():
+            check(torch.equal(est.model.state_dict()[k], v), f"dpt-large: {k} differs")
+        est32 = depth.dpt_estimator(f"{tmp}/large")
+        image = seeded_image(np, 22, 768)
+        d16, counts, plain, ms = _dpt_run(torch, np, "dpt-large bf16", est, image)
+        check(counts["flash_attention_fwd"] == 24 and plain == 0,
+              "dpt-large: bf16 must run K3 once a layer")
+        d32, c32, plain32, ms32 = _dpt_run(torch, np, "dpt-large fp32", est32, image)
+        check(c32["flash_attention_fwd"] == 0 and plain32 == 24,
+              "dpt-large: fp32 must take the plain route")
+        rel = float(np.linalg.norm(d16 - d32) / np.linalg.norm(d32))
+        print(f"dpt-large: bf16 (K3) against fp32 on the card: rel_l2 {rel:.4e} "
+              f"(limit 3e-2); {ms:.3f} against {ms32:.3f} ms an estimate")
+        check(rel <= 3e-2, f"dpt-large: bf16 drifts {rel:.3e} from fp32")
+        out["large"] = (counts, ms, rel)
+
+        hint = depth.make_hint(image, h=768, w=768, estimator=est)
+        del est, est32, src
+        _dpt_snapshot(torch, f"{tmp}/hybrid", DPT_HYBRID_SMALL, 23)
+        hyb = depth.dpt_estimator(f"{tmp}/hybrid", dtype=torch.bfloat16)
+        h16, hc, hplain, hms = _dpt_run(torch, np, "dpt-hybrid small bf16", hyb,
+                                        seeded_image(np, 24, 256))
+        check(hc["group_norm_stats"] == hc["group_norm_apply"] == DPT_HYBRID_NORMS
+              and hc["flash_attention_fwd"] == 4 and hplain == 0,
+              f"dpt-hybrid: launches {hc}")
+        h32 = depth.dpt_estimator(f"{tmp}/hybrid")(seeded_image(np, 24, 256))
+        hrel = float(np.linalg.norm(h16 - h32) / np.linalg.norm(h32))
+        print(f"dpt-hybrid small: bf16 against fp32 rel_l2 {hrel:.4e} (limit 3e-2)")
+        check(hrel <= 3e-2, f"dpt-hybrid: bf16 drifts {hrel:.3e} from fp32")
+        out["hybrid"] = (hc, hms, hrel)
+    finally:
+        shutil.rmtree(tmp)
+
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_2
+    from kandinsky2_tpu_torch.utils import stub_tokenizer22
+    from kandinsky2_tpu_torch.weights.configs22 import pipeline_overrides
+
+    pipe = Kandinsky2_2(task_type="controlnet", tokenizer=stub_tokenizer22(),
+                        overrides=pipeline_overrides(task_type="controlnet"))
+    pipe.init_random_params(torch.Generator(device="cuda").manual_seed(25))
+    reset_path_counts()
+    img = pipe.generate_controlnet(PROMPT, hint=hint, generator=torch.Generator(
+        device="cuda").manual_seed(26), **T2I22)
+    torch.cuda.synchronize()
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+
+    counts = launch_counts()
+    check(img.shape == (1, 768, 768, 3) and bool(np.isfinite(img).all())
+          and float(img.std()) > 0, "controlnet: image")
+    plain = qkv_attention.plain_on_card
+    check(all(counts[k] > 0 for k in FORWARD_KERNELS) and plain == 0,
+          f"controlnet: launches {counts}, {plain} attention calls by the plain route")
+    print(f"controlnet: 768² image from the DPT-Large hint (hint mean "
+          f"{hint.mean():.4f}, std {hint.std():.4f}); launches {json.dumps(counts)}")
+    out["controlnet"] = counts
+    return out
 
 
 def phase_clock():
@@ -2734,10 +3199,15 @@ def main() -> int:
     # 17. http-validate21-768: phase 15's server over HTTP, then validation
     # with the pipeline's weights re-drawn (so after every other use of it)
     validate_counts = phase_http_validate21(torch, np, smi, pipe, server)
-    del pipe, server
+    del server
+    lap("phase 17")
+
+    # 18b. phase 5's pipeline through the reference's 2.1 files
+    ckpt21 = phase_checkpoints21(torch, np, smi, pipe)
+    del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    lap("phase 17")
+    lap("phase 18b")
 
     # 5b. inpainting on its own pipeline
     gc.collect()
@@ -2775,10 +3245,14 @@ def main() -> int:
 
     # 16. lora-swap22-768 on phase 10's pipeline
     lora_counts, swap_ms = phase_lora_swap22(torch, np, smi, pipe22)
+    lap("phase 16")
+
+    # 18a. phase 10's pipeline through a diffusers snapshot cache
+    ckpt = {"ckpt22": phase_checkpoints22(torch, np, smi, pipe22)}
     del pipe22
     gc.collect()
     torch.cuda.empty_cache()
-    lap("phase 16")
+    lap("phase 18a")
 
     # 11. every 2.0 entry point at a small width against the CPU
     phase_tasks20_small(torch, np)
@@ -2810,7 +3284,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     new_train["inpaint_train"] = phase_train_full(torch, np, smi, "inpaint-train-768",
                                                   "inpainting")
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("phase 14")
+
+    # 18c-d. the 2.0 files at a small width; DPT-Large, the small hybrid and
+    # a ControlNet call on a DPT hint
+    ckpt["ckpt21"] = ckpt21
+    ckpt["ckpt20"] = phase_checkpoints20(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dpt = phase_dpt(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 18c-d")
 
     meta = {
         "group_norm_stats": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
@@ -2845,6 +3332,10 @@ def main() -> int:
             "serve21_9_requests_launches": serve_counts[name],
             "lora_swap22_5_requests_launches": lora_counts[name],
             "validate21_launches": validate_counts[name],
+            **{f"{path}_launches": ckpt[path][0][name] for path in ckpt},
+            "dpt_large_launches": dpt["large"][0][name],
+            "dpt_hybrid_small_launches": dpt["hybrid"][0][name],
+            "controlnet_dpt_hint_launches": dpt["controlnet"][name],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2860,7 +3351,12 @@ def main() -> int:
                            for path, (_, sec) in new_train.items())
         + "; serve21: " + ", ".join(f"bucket {b} {sec:.4f} s/image"
                                     for b, sec in serve_s.items())
-        + f", {serve_rps:.4f} requests/s; lora22 swap {swap_ms:.2f} ms")
+        + f", {serve_rps:.4f} requests/s; lora22 swap {swap_ms:.2f} ms; " + "; ".join(
+            f"{path}: {io['bytes']} bytes written in {io['write_s']:.3f} s, loaded in "
+            f"{io['load_s']:.3f} s ({io['bytes'] / io['load_s'] / 1e9:.3f} GB/s)"
+            for path, (_, io) in ckpt.items())
+        + f"; dpt-large bf16 {dpt['large'][1]:.3f} ms an estimate (rel_l2 "
+          f"{dpt['large'][2]:.4e} from fp32)")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

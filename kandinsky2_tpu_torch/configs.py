@@ -252,11 +252,9 @@ def create_model(
         return cls(pooling_type=pooling_type, **common)
     if version != "2.1":
         raise ValueError(f"unknown version {version}")
-    if pooling_type != "from_model":
-        raise NotImplementedError("the 2.1 UNet takes pooling_type 'from_model'")
     cls = unet.InpaintText2ImUNet21 if inpainting else unet.Text2ImUNet21
     return cls(image_encoder_in_dim=image_encoder_in_dim,
-               num_image_embs=num_image_embs, **common)
+               num_image_embs=num_image_embs, pooling_type=pooling_type, **common)
 
 
 def schedule_kwargs(diffusion_config: dict, timestep_respacing=None) -> dict:

@@ -1,29 +1,31 @@
-"""Host-side depth hints for the 2.2 ControlNet-depth decoder, a copy of the
-numpy half of ``kandinsky2_tpu/depth.py`` (that module imports nothing of
-JAX at the top, but its DPT estimator runs on JAX):
+"""Host-side depth hints for the 2.2 ControlNet-depth decoder, the
+counterpart of ``kandinsky2_tpu/depth.py``:
 
 * :func:`make_hint` — any depth map -> the float32 [H, W, 3] hint in
   [0, 1] (channels replicated), resized to the target;
+* :func:`dpt_estimator` — the trained estimator: a ``models.dpt.DPTDepth``
+  loaded from a local HF DPT snapshot (``weights.hub.fetch_dpt``), on the
+  card; the image is preprocessed on the host (PIL bicubic resize to the
+  model's square size, (x/255 - 0.5)/0.5);
 * :func:`heuristic_depth` — the documented, deterministic NON-PARITY
   estimator from monocular cues (ground-plane vertical prior, local
   sharpness, luma).  It is not MiDaS and makes no quality claim against it;
-* :func:`default_estimator` — the heuristic.  The port has no DPT network
-  yet (``kandinsky2_tpu/models/dpt.py``): where ``$KANDINSKY2_DPT_DIR`` names a
-  DPT snapshot it raises rather than fall back
-  quietly to the heuristic.
+* :func:`default_estimator` — the DPT when ``repo_dir`` or
+  ``$KANDINSKY2_DPT_DIR`` holds a snapshot, else the heuristic.
 
-Everything here is numpy on the host; the pipeline sees only the finished
-hint.
+Apart from the DPT forward, everything here is numpy on the host; the
+pipeline sees only the finished hint.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Callable, Optional
 
 import numpy as np
 
-__all__ = ["heuristic_depth", "make_hint", "default_estimator"]
+__all__ = ["heuristic_depth", "make_hint", "dpt_estimator", "default_estimator"]
 
 
 def _box_blur(x: np.ndarray, radius: int) -> np.ndarray:
@@ -87,16 +89,55 @@ def _resize_bilinear(x: np.ndarray, h: int, w: int) -> np.ndarray:
     return top * (1 - wy) + bot * wy
 
 
-def default_estimator() -> Callable:
-    """The heuristic, as the JAX package's ``default_estimator`` picks it
-    when no DPT snapshot is configured.  A snapshot in
-    ``$KANDINSKY2_DPT_DIR`` raises: the DPT network is not ported."""
-    repo_dir = os.environ.get("KANDINSKY2_DPT_DIR")
+def dpt_estimator(repo_dir: str, dtype=None, device=None) -> Callable:
+    """A depth estimator from a local HF DPT snapshot (config.json and
+    model.safetensors or pytorch_model.bin), hybrid (Intel/dpt-hybrid-midas,
+    the reference notebook's MiDaS) or pure ViT (Intel/dpt-large), on
+    ``device`` (the card by default), computing in ``dtype`` (fp32 by
+    default).  Returns ``image -> [S, S] float32`` relative inverse depth at
+    the model's square size S, the ``estimator=`` of :func:`make_hint`."""
+    import torch
+
+    from .models.dpt import DPTDepth, dpt_overrides
+    from .weights.convert import load_state_dict
+    from .weights.safetensors_file import load_torch
+
+    with open(os.path.join(repo_dir, "config.json")) as f:
+        cfg = json.load(f)
+    device = torch.device(device or "cuda")
+    model = DPTDepth(dtype=dtype or torch.float32, device=device, **dpt_overrides(cfg))
+    st = os.path.join(repo_dir, "model.safetensors")
+    sd = load_torch(st) if os.path.exists(st) else torch.load(
+        os.path.join(repo_dir, "pytorch_model.bin"), map_location="cpu",
+        weights_only=False)
+    load_state_dict(model, sd, strict=True)
+    size = model.image_size
+
+    def estimate(image) -> np.ndarray:
+        from PIL import Image
+
+        if not isinstance(image, Image.Image):
+            arr = np.asarray(image)
+            if arr.dtype != np.uint8:
+                arr = np.clip(arr * (255.0 if arr.max() <= 1.5 else 1.0),
+                              0, 255).astype(np.uint8)
+            image = Image.fromarray(arr)
+        im = image.convert("RGB").resize((size, size), Image.BICUBIC)
+        x = (np.asarray(im, np.float32)[None] / 255.0 - 0.5) / 0.5
+        with torch.inference_mode():
+            depth = model(torch.from_numpy(x).to(device))[0]
+        return depth.float().cpu().numpy()
+
+    estimate.model = model
+    return estimate
+
+
+def default_estimator(repo_dir: Optional[str] = None) -> Callable:
+    """The best estimator at hand: the DPT where ``repo_dir`` (or
+    ``$KANDINSKY2_DPT_DIR``) holds a snapshot, else the heuristic."""
+    repo_dir = repo_dir or os.environ.get("KANDINSKY2_DPT_DIR")
     if repo_dir and os.path.exists(os.path.join(repo_dir, "config.json")):
-        raise NotImplementedError(
-            f"a DPT depth snapshot is configured ({repo_dir}), but the DPT model "
-            "(kandinsky2_tpu/models/dpt.py) is not ported to PyTorch yet; unset "
-            "KANDINSKY2_DPT_DIR for the heuristic estimator, or pass hint=")
+        return dpt_estimator(repo_dir)
     return heuristic_depth
 
 

@@ -18,7 +18,7 @@ sends it (bf16, d = 64).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -183,16 +183,19 @@ def _build_plan(model_channels: int, num_res_blocks: int,
     return input_plan, middle_ch, output_plan
 
 
-def deep_cache_spec(unet):
+def deep_cache_spec(unet, split: Optional[int] = None):
     """(spatial divisor, channels) of the deep-branch cache that
-    ``run_torso_cached`` keeps for ``unet``: all of level 0, num_res_blocks
-    + 1 input blocks, stays hot (unet.py:261-283 at its default split)."""
-    split = unet.num_res_blocks + 1
+    ``run_torso_cached`` keeps for ``unet`` at ``split`` (unet.py:261-283):
+    the first ``split`` input blocks stay hot, by default all of level 0
+    (num_res_blocks + 1)."""
+    split = unet.num_res_blocks + 1 if split is None else split
     input_plan, middle_ch, output_plan = _build_plan(
         unet.model_channels, unet.num_res_blocks, unet.channel_mult,
         unet.attention_resolutions, unet.resblock_updown,
     )
     L = len(input_plan)
+    if not 1 <= split < L:
+        raise ValueError(f"split must be in [1, {L}), got {split}")
     ds = 1
     for layers in input_plan[:split]:
         for kind, _, _ in layers:
@@ -291,14 +294,16 @@ class UNetModel(nn.Module):
     def run_torso(self, x, emb, encoder_out=None):
         return self.run_torso_cached(x, emb, None, True, encoder_out)[0]
 
-    def run_torso_cached(self, x, emb, cache, refresh: bool, encoder_out=None):
-        """The torso, with DeepCache (unet.py:440): the deep branch (input
-        blocks after level 0, the middle block and the matching deep output
-        blocks) runs only where ``refresh``; otherwise the cached deep
-        feature is used.  Returns ``(out, new_cache)``; ``cache`` has the
-        shape of ``deep_cache_spec``, and the first step must refresh.
+    def run_torso_cached(self, x, emb, cache, refresh: bool, encoder_out=None,
+                         split: Optional[int] = None):
+        """The torso, with DeepCache (unet.py:440): the deep branch (the
+        input blocks from ``split`` on, by default those after level 0, the
+        middle block and the matching deep output blocks) runs only where
+        ``refresh``; otherwise the cached deep feature is used.  Returns
+        ``(out, new_cache)``; ``cache`` has the shape of
+        ``deep_cache_spec(unet, split)``, and the first step must refresh.
         ``run_torso`` is the call that always refreshes."""
-        split = self.num_res_blocks + 1
+        split = self.num_res_blocks + 1 if split is None else split
         L = len(self.input_blocks)
         h = x.to(self.dtype)
         hs = []
@@ -339,22 +344,30 @@ class UNetModel(nn.Module):
 class Text2ImUNet21(UNetModel):
     """Kandinsky 2.1 conditioned UNet (text2im_model2_1.py:13-129): the CLIP
     image embedding becomes ``num_image_embs`` tokens prepended to the
-    projected XLM-R tokens as cross-attention K/V; the pooled text and image
-    embeddings add to the timestep embedding."""
+    projected XLM-R tokens as cross-attention K/V; the pooled text embedding
+    (or, with ``pooling_type`` other than "from_model", an
+    ``AttentionPooling`` of the XLM-R tokens) and the image embedding add
+    to the timestep embedding."""
 
     def __init__(self, model_dim=768, image_encoder_in_dim=768,
                  text_encoder_in_dim1=1024, text_encoder_in_dim2=768,
-                 num_image_embs=10, dtype=torch.float32, device=None, **kw):
+                 num_image_embs=10, pooling_type="from_model", dtype=torch.float32,
+                 device=None, **kw):
         super().__init__(encoder_channels=model_dim, dtype=dtype, device=device,
                          **kw)
         mc4 = self.model_channels * 4
         self.model_dim = model_dim
         self.num_image_embs = num_image_embs
+        self.pooling_type = pooling_type
         self.clip_to_seq = Linear(image_encoder_in_dim, model_dim * num_image_embs,
                                   dtype=dtype, device=device)
         self.to_model_dim_n = Linear(text_encoder_in_dim1, model_dim, dtype=dtype,
                                      device=device)
-        self.proj_n = Linear(text_encoder_in_dim2, mc4, dtype=dtype, device=device)
+        if pooling_type == "from_model":
+            self.proj_n = Linear(text_encoder_in_dim2, mc4, dtype=dtype, device=device)
+        else:
+            self.proj_n = AttentionPooling(8, text_encoder_in_dim1, mc4, dtype=dtype,
+                                           device=device)
         self.ln_model_n = LayerNormF32(mc4, device=device)
         self.img_layer = Linear(image_encoder_in_dim, mc4, dtype=dtype,
                                 device=device)
@@ -366,7 +379,8 @@ class Text2ImUNet21(UNetModel):
         clip_seq = self.clip_to_seq(image_emb).reshape(
             B, self.num_image_embs, self.model_dim
         )
-        xf_proj = self.ln_model_n(self.proj_n(pooled_emb))
+        xf_proj = self.ln_model_n(self.proj_n(
+            pooled_emb if self.pooling_type == "from_model" else full_emb))
         xf_proj = xf_proj + self.img_layer(image_emb)
         xf_out = torch.cat([clip_seq, self.to_model_dim_n(full_emb)], dim=1)
         return xf_proj, xf_out

@@ -104,8 +104,14 @@ class Pipeline:
         for model in self.models().values():
             init_random_(model, generator, self.residual_outputs)
         self._draw_extra_(generator)
+        self.cast_models_(dtype)
+
+    def cast_models_(self, dtype=None):
+        """Every model's parameters and buffers cast to ``dtype`` (the
+        activation dtype by default), in place."""
         for model in self.models().values():
             model.to(dtype or self.dtype)
+        return self
 
     def set_seed(self, seed: int) -> None:
         """Reset the pipeline's own generator, which the entry points draw

@@ -314,3 +314,16 @@ class Kandinsky2(Pipeline):
         images = self._decode(torch.as_tensor(latents, dtype=torch.float32,
                                               device=self.device))
         return self._output(images, output)
+
+
+def get_kandinsky2_0(device="cuda", task_type="text2img", cache_dir="/tmp/kandinsky2",
+                     use_auth_token=None, dtype=None, tokenizers=None):
+    """The 2.0 pipeline from the cached checkpoints (kandinsky2/__init__.py:
+    12-87); ``tokenizers`` is (XLM-R tokenizer, mT5 tokenizer)."""
+    from ..weights.hub import fetch_2_0
+    from ..weights.load_kandinsky import build_kandinsky20
+
+    tok1, tok2 = tokenizers or (None, None)
+    paths = fetch_2_0(cache_dir, task_type, use_auth_token)
+    return build_kandinsky20(paths, task_type=task_type, dtype=dtype, tokenizer1=tok1,
+                             tokenizer2=tok2, device=device)

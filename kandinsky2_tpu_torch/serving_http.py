@@ -15,9 +15,10 @@ the server's micro-batching queue.
 Run: ``python -m kandinsky2_tpu_torch.serving_http --small --port 8000``
 (a small random-weight pipeline on the card; ``--device cpu`` for the
 CPU) or embed ``serve_http(server, port=...)``.  Without ``--small`` it
-needs the published checkpoints, which the port cannot load yet (ROADMAP
-Queue 1, item 6c): it says so and stops, and never serves random weights
-in their place.
+loads the published checkpoints from the default cache
+(``get_kandinsky2``; nothing is downloaded, a missing file stops it, and
+2.1 and 2.0 stop for want of their sentencepiece tokenizers), and never
+serves random weights in their place.
 """
 
 from __future__ import annotations
@@ -179,11 +180,13 @@ def main(argv: Optional[list] = None) -> None:
                          '--warmup "h=512,w=512,task=img2img"')
     args = ap.parse_args(argv)
 
-    if not args.small:
-        from .weights import checkpoint_loaders_missing
+    if args.small:
+        pipe = build_small_pipeline(args.version, args.device)
+    else:
+        from . import get_kandinsky2
 
-        raise checkpoint_loaders_missing(args.version)
-    pipe = build_small_pipeline(args.version, args.device)
+        pipe = get_kandinsky2(args.device, task_type="text2img",
+                              model_version=args.version)
     server = GenerationServer(pipe, max_batch=args.max_batch)
     if args.warmup:
         import time

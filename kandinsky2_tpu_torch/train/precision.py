@@ -18,7 +18,7 @@ the 1-D ``weight``: every kernel and embedding is at least 2-D.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -44,10 +44,11 @@ def cast_params(params, dtype):
     return _cast(params, dtype, lambda name, t: False)
 
 
-def cast_torso(params, dtype):
-    """``cast_params`` except the norms' scales and every bias, which stay
-    fp32."""
-    return _cast(params, dtype, _keeps_fp32)
+def cast_torso(params, dtype, keep_fp32: Optional[Callable[[str], bool]] = None):
+    """``cast_params`` except the tensors whose name ``keep_fp32`` accepts,
+    which stay fp32: by default the norms' scales and every bias."""
+    keep = _keeps_fp32 if keep_fp32 is None else (lambda name, t: keep_fp32(name))
+    return _cast(params, dtype, keep)
 
 
 class FP32MasterOptimizer:

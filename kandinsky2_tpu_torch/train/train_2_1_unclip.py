@@ -10,8 +10,9 @@ The frozen encoders (MoVQ, XLM-R + MultilingualCLIP, CLIP ViT) run in
 ``prepare_batch`` under ``no_grad`` (trainer_2_1_uclip.py:14-37); the UNet
 keeps fp32 parameters and computes in bf16, as the JAX CLI does.  Weights
 are random unless ``params_path`` names a weight export of
-``train/checkpoint.py``; without ``tokenizer_name`` the stub of
-``utils.stub_tokenizers`` stands in for XLM-R's tokenizer.  With
+``train/checkpoint.py``; the stub of ``utils.stub_tokenizers`` stands
+in for XLM-R's tokenizer (a ``tokenizer_name`` raises: that sentencepiece
+file needs ``transformers``).  With
 ``inpainting: true`` the UNet is the 9-channel inpainting one and each
 batch carries random masks of ``train/masks.py`` at the latents' size
 (drawn from the global ``np.random``, as the JAX CLI draws them) and the
@@ -113,12 +114,11 @@ def build_pipeline(cfg: dict, device="cuda") -> Kandinsky2_1:
     the inpainting one where ``cfg["inpainting"]``."""
     tok_name = cfg["data"]["train"].get("tokenizer_name")
     if tok_name:
-        from transformers import AutoTokenizer
-
-        tokenizer1 = AutoTokenizer.from_pretrained(tok_name)
-    else:
-        tokenizer1 = stub_tokenizers(
-            cfg["text_enc_params"].get("vocab_size", 250002))[0]
+        raise ValueError(
+            f"tokenizer_name {tok_name!r}: the XLM-R tokenizer is a sentencepiece "
+            "file that only transformers reads, which the port does without; "
+            "leave tokenizer_name empty for the stand-in")
+    tokenizer1 = stub_tokenizers(cfg["text_enc_params"].get("vocab_size", 250002))[0]
     pipe = Kandinsky2_1(config=pipeline_config(cfg), tokenizer1=tokenizer1,
                         task_type="inpainting" if cfg.get("inpainting") else "text2img",
                         dtype=torch.bfloat16, device=device)

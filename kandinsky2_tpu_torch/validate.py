@@ -6,12 +6,14 @@
 Stages (each recorded in the JSON report; the harness runs as far as it
 can and reports exactly where it stopped):
 
-1. **fetch**    — the published checkpoints.  The port has no checkpoint
-                  loaders yet (ROADMAP Queue 1, item 6c), so without a
-                  ``pipe_builder`` this stage fails with that error and
-                  the report ends ``"stopped_at": "fetch"``, where the JAX
-                  package's offline run stops too.
-2. **build**    — the pipeline (``pipe_builder``).
+1. **fetch**    — the published checkpoints, from the local cache
+                  (``weights.hub``: nothing is downloaded, so with no
+                  cache the report ends ``"stopped_at": "fetch"``, where
+                  the JAX package's offline run stops too).
+2. **build**    — the pipeline, loaded from them (``weights.load_kandinsky*``;
+                  2.1 and 2.0 stop here, their sentencepiece tokenizers
+                  unreadable without ``transformers``) or made by
+                  ``pipe_builder``.
 3. **generate** — seeded generation (``set_seed``) at a fixed prompt, size
                   and step count.
 4. **metrics**  — PSNR / windowed SSIM / MS-SSIM / CLIP-cosine drift
@@ -179,23 +181,43 @@ def run_metrics(report: dict, images, reference_dir: Optional[str],
     report["metrics"] = metrics
 
 
-def _fetch(version: str):
-    from .weights import checkpoint_loaders_missing
+def _load(report: dict, version: str, task_type: str, cache_dir: str,
+          use_auth_token):
+    """Stages fetch and build: the pipeline of ``version`` from the cached
+    checkpoints (``weights.hub``, ``weights.load_kandinsky*``).  2.1 and
+    2.0 stop at build: their XLM-R and mT5 tokenizers need files only
+    ``transformers`` reads (pass ``pipe_builder`` instead)."""
+    from .weights import hub
 
-    raise checkpoint_loaders_missing(version)
+    if version == "2.2":
+        from .weights.load_kandinsky22 import build_kandinsky22
+
+        paths = _stage(report, "fetch", lambda: hub.fetch_2_2(
+            cache_dir, task_type, use_auth_token))
+        return _stage(report, "build", lambda: build_kandinsky22(
+            paths["prior_dir"], paths["decoder_dir"], task_type=task_type))
+    from .weights import load_kandinsky
+
+    fetch = hub.fetch_2_1 if version == "2.1" else hub.fetch_2_0
+    build = (load_kandinsky.build_kandinsky21 if version == "2.1"
+             else load_kandinsky.build_kandinsky20)
+    paths = _stage(report, "fetch", lambda: fetch(cache_dir, task_type, use_auth_token))
+    return _stage(report, "build", lambda: build(paths, task_type=task_type))
 
 
 def validate(version: str = "2.1", task_type: str = "text2img",
-             out_dir: Optional[str] = None, reference_dir: Optional[str] = None,
-             h: int = 256, w: int = 256, num_steps: int = 20,
-             sampler: Optional[str] = None,
+             cache_dir: str = "/tmp/kandinsky2", out_dir: Optional[str] = None,
+             reference_dir: Optional[str] = None, h: int = 256, w: int = 256,
+             num_steps: int = 20, sampler: Optional[str] = None,
+             use_auth_token=None,
              pipe_builder: Optional[Callable] = None,
              lpips_weights: Optional[str] = None) -> dict:
     """Run the validation ladder; returns the report dict.
 
     ``pipe_builder`` returns the pipeline to validate (stages 1-2); without
-    it the ladder stops at ``fetch`` (no checkpoint loaders yet).
-    ``out_dir`` defaults to ``k2_validate`` under the temporary directory.
+    it the pipeline is loaded from the checkpoints cached under
+    ``cache_dir`` (nothing is downloaded).  ``out_dir`` defaults to
+    ``k2_validate`` under the temporary directory.
     """
     if version not in ("2.0", "2.1", "2.2"):
         raise ValueError(f"unknown version {version!r}")
@@ -207,8 +229,9 @@ def validate(version: str = "2.1", task_type: str = "text2img",
     }
     try:
         if pipe_builder is None:
-            _stage(report, "fetch", lambda: _fetch(version))
-        pipe = _stage(report, "build", pipe_builder)
+            pipe = _load(report, version, task_type, cache_dir, use_auth_token)
+        else:
+            pipe = _stage(report, "build", pipe_builder)
 
         if version == "2.2":
             images = _stage(report, "generate", lambda: run_generation_22(
@@ -235,6 +258,8 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--version", default="2.1", choices=["2.0", "2.1", "2.2"])
     ap.add_argument("--task-type", default="text2img")
+    ap.add_argument("--cache-dir", default="/tmp/kandinsky2",
+                    help="the local cache of the published checkpoints")
     ap.add_argument("--out-dir", default=None,
                     help="where the images go (k2_validate under the "
                     "temporary directory by default)")
@@ -254,7 +279,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     report = validate(
-        version=args.version, task_type=args.task_type, out_dir=args.out_dir,
+        version=args.version, task_type=args.task_type, cache_dir=args.cache_dir,
+        out_dir=args.out_dir,
         reference_dir=args.reference_dir, h=args.h, w=args.w,
         num_steps=args.num_steps, sampler=args.sampler,
         lpips_weights=args.lpips_weights,

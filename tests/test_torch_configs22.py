@@ -33,7 +33,7 @@ def _comparable(ov):
 @pytest.mark.parametrize("task", ["text2img", "img2img", "inpainting", "controlnet"])
 def test_pipeline_overrides_equal_jax(task):
     want, want_act = _comparable(jcfg.pipeline_overrides(None, None, task))
-    got, got_act = _comparable(tcfg.pipeline_overrides(task))
+    got, got_act = _comparable(tcfg.pipeline_overrides(task_type=task))
     assert got == want
     assert got_act == want_act == "exact_gelu"
     assert got["unet"]["in_channels"] == {"inpainting": 9, "controlnet": 8}.get(task, 4)

@@ -1,7 +1,7 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 the card, at the shapes of the 768² 2.1 and 2.2 text2img paths, of the
-512² 2.0 path and of the training steps (the 2.1 decoder's, and the 2.2
-UNet's in LoRA and distillation), in bf16; GroupNorm against fp64 far from zero mean;
+512² 2.0 path, of DPT-Large's attention and of the training steps (the
+2.1 decoder's, and the 2.2 UNet's in LoRA and distillation), in bf16; GroupNorm against fp64 far from zero mean;
 and the autograd Functions that carry gradients through them.
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
@@ -186,6 +186,26 @@ def test_flash_kernel_on_the_added_kv_attention(gen, B, T, n_tokens, H):
     o_max = o_ref.float().abs().max().item()
     assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2 * o_max
     assert (o.float() - ref.float()).abs().max().item() <= 2e-2 * o_max
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_flash_kernel_on_the_dpt_attention(gen, B):
+    """K3 as DPT-Large's ViT layer calls it (``models/dpt.py``): a 384²
+    image's 576 patches and the cls token, T = S = 577 (ragged against the
+    64-row tiles), 16 heads of 64, through ``added_kv_attention``, against
+    the plain version."""
+    from kandinsky2_tpu_torch.ops.attention import added_kv_attention
+
+    q, k, v = (torch.randn((B, 577, 16, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    before = flash_attention_fwd.launches
+    with torch.inference_mode():
+        o = added_kv_attention(q, k, v)
+    assert flash_attention_fwd.launches == before + 1
+    o_ref, _ = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    o_max = o_ref.float().abs().max().item()
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2 * o_max
 
 
 def test_group_norm_far_from_zero_mean_against_fp64(gen):

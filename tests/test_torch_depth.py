@@ -1,8 +1,8 @@
 """The port's depth hints (``kandinsky2_tpu_torch/depth.py``) against the
 JAX package's ``depth.py`` at 1e-6 — the heuristic estimator and
 ``make_hint`` on PIL and array images, flat ones too — the estimator
-choice (the heuristic with no DPT snapshot, an error naming the DPT model
-with one), and the 2.2 ``generate_controlnet(image=...)`` without
+choice (the heuristic with no DPT snapshot, the DPT loader with one),
+and the 2.2 ``generate_controlnet(image=...)`` without
 ``hint=`` against the JAX pipeline's, both deriving the hint from the
 image, float images at the end-to-end tolerance."""
 
@@ -68,11 +68,16 @@ def test_default_estimator(monkeypatch, tmp_path):
     # a directory without a snapshot keeps the heuristic
     monkeypatch.setenv("KANDINSKY2_DPT_DIR", str(tmp_path))
     assert tdepth.default_estimator() is tdepth.heuristic_depth
+    # a snapshot is loaded as the DPT network (tests/test_torch_dpt.py), never
+    # replaced by the heuristic: this one's config lacks the widths
     (tmp_path / "config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="DPT"):
+    with pytest.raises(KeyError, match="hidden_size"):
         tdepth.default_estimator()
-    with pytest.raises(NotImplementedError, match="DPT"):
+    with pytest.raises(KeyError, match="hidden_size"):
         tdepth.make_hint(_photo())
+    monkeypatch.delenv("KANDINSKY2_DPT_DIR")
+    with pytest.raises(KeyError, match="hidden_size"):
+        tdepth.default_estimator(str(tmp_path))
     grad = lambda img: np.tile(np.linspace(1, 0, 32, dtype=np.float32)[:, None], (1, 32))
     hint = tdepth.make_hint(_photo(), h=32, w=32, estimator=grad)
     np.testing.assert_allclose(hint[0, :, 0], 1.0)

@@ -92,7 +92,7 @@ def pipes22():
     for task in ("text2img", "inpainting", "controlnet"):
         jp = J22(task_type=task, dtype=jnp.float32,
                  overrides=jcfg.pipeline_overrides(None, None, task))
-        tp = T22(task_type=task, overrides=tcfg.pipeline_overrides(task),
+        tp = T22(task_type=task, overrides=tcfg.pipeline_overrides(task_type=task),
                  device="meta")
         z = jnp.zeros
         hint = {"hint": z((1, 64, 64, 3))} if task == "controlnet" else {}

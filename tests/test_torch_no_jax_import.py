@@ -3,9 +3,11 @@ importing every submodule of ``kandinsky2_tpu_torch`` in a fresh
 interpreter leaves none of them in ``sys.modules``, and the scripts that
 run on the card import none of them.  Its kernels are CUDA C++, so no
 module of it imports Triton either, at any depth of its code.  The card's
-machine has none of cv2, PyYAML, safetensors, lpips and torchvision: no
-module imports cv2, safetensors, lpips or torchvision, and PyYAML is
-imported only inside a CLI's ``main``."""
+machine has none of cv2, PyYAML, safetensors, transformers, huggingface_hub,
+lpips and torchvision: no module imports cv2, safetensors, transformers,
+huggingface_hub, lpips or torchvision, and PyYAML is imported only inside a
+CLI's ``main``.  The port downloads nothing: no module imports
+``urllib.request``."""
 
 import ast
 import os
@@ -23,7 +25,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "kandinsky2_tpu",
                                     "triton", "cv2", "yaml", "safetensors", "lpips",
-                                    "torchvision"))
+                                    "torchvision", "transformers", "huggingface_hub"))
 print(len(names), bad, " ".join(names))
 sys.exit(1 if bad else 0)
 """
@@ -48,7 +50,8 @@ def test_port_imports_no_jax():
                  "train.train_prior", "train.train_prior_cli", "train.masks",
                  "train.train_2_1_unclip", "observability", "eval", "lpips",
                  "weights.realistic", "weights.safetensors_file", "serving",
-                 "serving_http", "validate"):
+                 "serving_http", "validate", "weights.convert", "weights.hub",
+                 "weights.load_kandinsky", "weights.load_kandinsky22", "models.dpt"):
         assert f"kandinsky2_tpu_torch.{name}" in proc.stdout.split(), name
 
 
@@ -60,20 +63,24 @@ def test_scripts_import_no_jax(script):
     names = _imported(os.path.join(root, script))
     assert "kandinsky2_tpu_torch" in names
     assert not names & {"jax", "jaxlib", "flax", "optax", "kandinsky2_tpu", "triton",
-                        "cv2", "yaml", "safetensors", "lpips", "torchvision"}, names
+                        "cv2", "yaml", "safetensors", "lpips", "torchvision",
+                        "transformers", "huggingface_hub"}, names
 
 
-def _imported(path):
-    """The top-level names of every import statement in a source file,
-    function bodies included."""
+def _imported(path, full=False):
+    """The top-level names (with ``full``, the whole dotted names) of every
+    import statement in a source file, function bodies included."""
     with open(path) as f:
         tree = ast.parse(f.read())
+    top = (lambda n: n) if full else (lambda n: n.split(".")[0])
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            names.update(a.name.split(".")[0] for a in node.names)
+            names.update(top(a.name) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
-            names.add(node.module.split(".")[0])
+            names.add(top(node.module))
+            if full:
+                names.update(f"{node.module}.{a.name}" for a in node.names)
     return names
 
 
@@ -90,7 +97,8 @@ def test_port_modules_import_no_triton():
         names = _imported(path)
         assert not names & {"triton", "jax", "jaxlib", "flax", "optax",
                             "kandinsky2_tpu", "cv2", "safetensors", "lpips",
-                            "torchvision"}, (path, names)
+                            "torchvision", "transformers", "huggingface_hub"}, (path, names)
+        assert "urllib.request" not in _imported(path, full=True), path
 
 
 def test_yaml_only_inside_a_cli_main():

@@ -170,8 +170,9 @@ def test_guard_errors_match_jax(pipes, call):
 
 def test_task_type_guard_and_controlnet_image_waits_for_depth(monkeypatch, tmp_path):
     """ControlNet with ``image`` and no ``hint`` makes its hint with the
-    heuristic estimator (held against JAX in ``test_torch_depth.py``); only
-    a configured DPT snapshot, whose network is not ported, raises."""
+    heuristic estimator (held against JAX in ``test_torch_depth.py``), or,
+    where ``$KANDINSKY2_DPT_DIR`` holds a snapshot, with the DPT estimator
+    built from it (``test_torch_dpt.py``)."""
     from PIL import Image
 
     from kandinsky2_tpu_torch.pipelines import Kandinsky2_2
@@ -189,5 +190,15 @@ def test_task_type_guard_and_controlnet_image_waits_for_depth(monkeypatch, tmp_p
     assert tp.generate_controlnet(PROMPT, **kw).shape == (1, 64, 64, 3)
     (tmp_path / "config.json").write_text("{}")
     monkeypatch.setenv("KANDINSKY2_DPT_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="DPT"):
-        tp.generate_controlnet(PROMPT, **kw)
+    from kandinsky2_tpu_torch import depth
+
+    built = []
+
+    def dpt_estimator(repo_dir):
+        built.append(repo_dir)
+        return lambda image: np.tile(np.linspace(1, 0, 64, dtype=np.float32)[:, None],
+                                     (1, 64))
+
+    monkeypatch.setattr(depth, "dpt_estimator", dpt_estimator)
+    assert tp.generate_controlnet(PROMPT, **kw).shape == (1, 64, 64, 3)
+    assert built == [str(tmp_path)]

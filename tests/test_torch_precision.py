@@ -104,3 +104,19 @@ def test_fp32_master_state_round_trips():
         p.grad = torch.full((3,), -0.25, dtype=torch.bfloat16)
         opt.step()
     assert torch.equal(a, b) and torch.equal(opt_a.masters[0], opt_b.masters[0])
+
+
+def test_cast_torso_custom_keep_fp32_matches_jax():
+    """A custom ``keep_fp32`` predicate (on the tensor's name) keeps the
+    same tensors fp32 as JAX's ``cast_torso`` with the same predicate."""
+    params, tm = _unet_pair()
+    keep = lambda name: "out_layers" in name or "time_embed" in name
+    want = {torch_key_for(p): str(v.dtype) for p, v in
+            flatten(jprec.cast_torso(params, jnp.bfloat16, keep)).items()}
+    kept = {k for k, v in want.items() if v == "float32"}
+    assert kept and all("out_layers" in k or "time_embed" in k for k in kept)
+    assert any(k.endswith("bias") for k, v in want.items() if v == "bfloat16")
+    as_dict = tprec.cast_torso(dict(tm.named_parameters()), torch.bfloat16, keep)
+    tprec.cast_torso(tm, torch.bfloat16, keep)
+    for got in (as_dict, dict(tm.named_parameters())):
+        assert {k: str(v.dtype).replace("torch.", "") for k, v in got.items()} == want

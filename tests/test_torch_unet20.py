@@ -100,12 +100,13 @@ def test_inpaint_text2im_unet20():
 
 def test_create_model_versions():
     """The factory's default version is 2.0, as the JAX package's; 2.1
-    keeps its 'from_model' rule; anything else raises."""
+    takes attention pooling as JAX's does; anything else raises."""
     mc = tiny_config20()["model_config"]
     assert "version" not in mc
     assert type(tcfg.create_model(**mc, device="meta")) is tunet.Text2ImUNet20
-    with pytest.raises(NotImplementedError):
-        tcfg.create_model(**dict(mc, version="2.1", pooling_type="attention"),
-                          device="meta")
+    m21 = tcfg.create_model(**dict(mc, version="2.1", pooling_type="attention"),
+                            device="meta")
+    assert type(m21) is tunet.Text2ImUNet21
+    assert isinstance(m21.proj_n, tunet.AttentionPooling)
     with pytest.raises(ValueError):
         tcfg.create_model(**dict(mc, version="3.0"), device="meta")

@@ -85,9 +85,10 @@ def test_ladder_22_and_unevaluated_lpips(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("version", ["2.0", "2.1", "2.2"])
-def test_stops_at_fetch_like_jax(version, monkeypatch):
-    """No builder: the fetch stage fails naming ROADMAP item 6c, with the
-    stage names and report keys of JAX's run stopped at fetch."""
+def test_stops_at_fetch_like_jax(version, monkeypatch, tmp_path):
+    """No pipe_builder and no cached checkpoints: the fetch stage fails naming
+    the missing file, with the stage names and report keys of JAX's run
+    stopped at fetch."""
     import kandinsky2_tpu.weights.hub as hub
 
     def no_network(*a, **k):
@@ -95,7 +96,8 @@ def test_stops_at_fetch_like_jax(version, monkeypatch):
 
     monkeypatch.setattr(hub, f"fetch_{version.replace('.', '_')}", no_network)
     want = jvalidate.validate(version=version, h=64, w=64, num_steps=4)
-    got = tvalidate.validate(version=version, h=64, w=64, num_steps=4)
+    got = tvalidate.validate(version=version, cache_dir=str(tmp_path), h=64, w=64,
+                             num_steps=4)
     assert got["stopped_at"] == want["stopped_at"] == "fetch"
     assert not got["ok"] and not want["ok"]
     assert set(got) == set(want)
@@ -105,14 +107,16 @@ def test_stops_at_fetch_like_jax(version, monkeypatch):
     stage = got["stages"]["fetch"]
     assert set(stage) == set(want["stages"]["fetch"])
     assert stage["status"] == "failed"
-    assert "NotImplementedError" in stage["error"] and "6c" in stage["error"]
+    assert stage["error"].startswith("FileNotFoundError") and str(tmp_path) in stage["error"]
+    assert "not in the cache" in stage["error"]
     with pytest.raises(ValueError):
         tvalidate.validate(version="3.0")
 
 
 def test_cli_stops_at_fetch(tmp_path, capsys):
     out = tmp_path / "report.json"
-    assert tvalidate.main(["--version", "2.1", "--out", str(out)]) == 1
+    assert tvalidate.main(["--version", "2.1", "--cache-dir", str(tmp_path),
+                           "--out", str(out)]) == 1
     rep = json.loads(out.read_text())
     assert rep["stopped_at"] == "fetch" and rep["version"] == "2.1"
 
