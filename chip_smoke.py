@@ -219,6 +219,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    held to fp32 the same way; then a full-width 2.2 ControlNet pipeline's
    ``generate_controlnet`` on the hint ``depth.make_hint`` made with the
    DPT-Large estimator.
+19. the optimizers and the examples (last): 19a every OPTIM_CASES option
+   set of ``train.optim.optimizer_from_config`` (optax.adafactor, adam,
+   adamw, sgd; tests/test_torch_optim.py's) through ``fp32_master_optimizer``
+   for 3 steps on the card against the CPU in fp32 on a factored matrix, a
+   conv kernel, a vector and a bf16 tensor: masters and fp32 state within
+   1e-5 relative L2, bf16 within 2^-8, a state_dict round trip bitwise;
+   19b train-adamw-768 (phase 8 with optax.adamw at 1e-4, its launches
+   pinned at K1 = K2 = 119, K3 = 25, K4 = K5 = 22 a step, the optimizer
+   state 8 B a trainable value) and prior-train-adamw (phase 14's prior
+   CLI run with optax.adamw); phases 8, 14's inpaint-train-768 and 19b also
+   profile one optimizer step alone; 19c every example of
+   ``kandinsky2_tpu_torch.examples`` with --small --device cuda in-process
+   (``examples.run_all``): finite images of the JAX script's size or its
+   steps, seconds and launches of each.
 Phases 15-17 time their stages with ``observability.StageReport``.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
@@ -278,6 +292,44 @@ PRIOR_YAML = {
     "data": {"train": {"df_path": None, "clip_image_size": 224, "drop_text_prob": 0.1,
                        "batch_size": 1, "shuffle": True}},
 }
+# phase 19a: the option sets of tests/test_torch_optim.py, which holds the two
+# equal; each a YAML's optim_params ("name", "params")
+OPTIM_CASES = {
+    "adafactor": ("optax.adafactor", {"learning_rate": 1e-2}),
+    "adafactor-unfactored": ("optax.adafactor", {"learning_rate": 1e-2, "factored": False}),
+    "adafactor-momentum": ("optax.adafactor", {"learning_rate": 1e-2, "momentum": 0.9}),
+    "adafactor-momentum-bf16": ("optax.adafactor", {
+        "learning_rate": 1e-2, "momentum": 0.9, "dtype_momentum": "bfloat16"}),
+    "adafactor-weight-decay": ("optax.adafactor", {
+        "learning_rate": 1e-2, "weight_decay_rate": 1e-2}),
+    "adafactor-no-clipping": ("optax.adafactor", {
+        "learning_rate": 1e-2, "clipping_threshold": None}),
+    "adafactor-clipping-2": ("optax.adafactor", {
+        "learning_rate": 1e-2, "clipping_threshold": 2.0}),
+    "adafactor-absolute-step": ("optax.adafactor", {
+        "learning_rate": 1e-2, "multiply_by_parameter_scale": False}),
+    "adafactor-decay": ("optax.adafactor", {
+        "learning_rate": 1e-2, "decay_rate": 0.7, "decay_offset": -3, "eps": 1e-20,
+        "min_dim_size_to_factor": 140}),
+    "adafactor-no-learning-rate": ("optax.adafactor", {}),
+    "adam": ("optax.adam", {"learning_rate": 1e-3}),
+    "adam-betas": ("optax.adam", {"learning_rate": 1e-3, "b1": 0.8, "b2": 0.99,
+                                  "eps": 1e-6}),
+    "adam-eps-root": ("optax.adam", {"learning_rate": 1e-3, "eps_root": 1e-4}),
+    "adam-nesterov": ("optax.adam", {"learning_rate": 1e-3, "nesterov": True}),
+    "adam-mu-bf16": ("optax.adam", {"learning_rate": 1e-3, "mu_dtype": "bfloat16"}),
+    "adamw": ("optax.adamw", {"learning_rate": 1e-3}),
+    "adamw-decay-nesterov": ("optax.adamw", {"learning_rate": 1e-3, "weight_decay": 0.1,
+                                             "nesterov": True}),
+    "sgd": ("optax.sgd", {"learning_rate": 1e-2}),
+    "sgd-momentum": ("optax.sgd", {"learning_rate": 1e-2, "momentum": 0.9}),
+    "sgd-nesterov": ("optax.sgd", {"learning_rate": 1e-2, "momentum": 0.9,
+                                   "nesterov": True}),
+    "sgd-momentum-bf16": ("optax.sgd", {"learning_rate": 1e-2, "momentum": 0.9,
+                                        "accumulator_dtype": "bfloat16"}),
+}
+# phase 19b's optimizer: optax.adamw at 1e-4 (optax's decay 1e-4)
+ADAMW = {"name": "optax.adamw", "params": {"learning_rate": 1e-4}}
 CUDA_SOURCES = ("flash_attention.cu", "group_norm.cu")
 PEAK_BF16 = 989e12   # dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12    # fp32 FLOP/s outside the tensor cores
@@ -1864,15 +1916,21 @@ def card_against_cpu(torch, name, run, kernels=True) -> dict:
     return counts
 
 
-def phase_train_full(torch, np, smi: str, name="train full", task_type="text2img"):
+def phase_train_full(torch, np, smi: str, name="train full", task_type="text2img",
+                     optim_params=None, state_bytes_per_param=None):
     """Decoder train steps at full width (``task_type`` "inpainting": the
-    9-channel UNet on the CLI's masked batches): a warm-up step with every
-    trainable gradient checked, then ``timed_steps``' warm-up, five timed
-    steps and a profiled one."""
+    9-channel UNet on the CLI's masked batches) with the optimizer that
+    ``optim_params`` names through ``optimizer_from_config`` (the YAML's
+    Adafactor at 5e-6 by default): a warm-up step with every trainable
+    gradient checked, then ``timed_steps``' warm-up, five timed steps and a
+    profiled one; then one optimizer step alone, profiled on the same
+    trainable tensors with seeded gradients, and the optimizer state's
+    bytes (required to be ``state_bytes_per_param`` a trainable value
+    where given)."""
     from kandinsky2_tpu_torch.configs import CONFIG_2_1
     from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
     from kandinsky2_tpu_torch.train import train_2_1_unclip as cli
-    from kandinsky2_tpu_torch.train.optim import decoder_freeze_mask
+    from kandinsky2_tpu_torch.train.optim import decoder_freeze_mask, optimizer_from_config
     from kandinsky2_tpu_torch.train.train_unclip import make_unclip_train_step
     from kandinsky2_tpu_torch.utils import stub_tokenizers
 
@@ -1884,9 +1942,12 @@ def phase_train_full(torch, np, smi: str, name="train full", task_type="text2img
                             dtype=torch.float32)
     unet = pipe.unet
     # train_configs/config_unclip_2_1.yaml: freeze_resblocks, Adafactor at
-    # 5e-6 (the default optimizer), EMA 0.9999, uniform sampler, no remat
+    # 5e-6, EMA 0.9999, uniform sampler, no remat
+    optim_params = optim_params or {"name": "optax.adafactor",
+                                    "params": {"learning_rate": 5e-6}}
     init_state, train_step = make_unclip_train_step(
-        unet, CONFIG_2_1["diffusion_config"], ema_decay=0.9999, remat=False)
+        unet, CONFIG_2_1["diffusion_config"], optimizer_from_config(optim_params),
+        ema_decay=0.9999, remat=False)
     mask = decoder_freeze_mask(unet, freeze_resblocks=True, freeze_attention=False)
     state = init_state(mask, seed=0)
     prepare_batch = cli.make_prepare_batch(pipe)
@@ -1954,10 +2015,35 @@ def phase_train_full(torch, np, smi: str, name="train full", task_type="text2img
     frozen_same = all(torch.equal(p, before[n]) for n, p in unet.named_parameters()
                       if not mask[n])
     moved = [n for n, p in unet.named_parameters() if mask[n] and not torch.equal(p, before[n])]
+    optimizer = f"{optim_params['name']} {json.dumps(optim_params['params'])}"
     print(f"{name}: trained tensors moved {len(moved)}, frozen unchanged {frozen_same}; "
-          "768², batch 1, fp32 parameters, bf16 compute, Adafactor, EMA")
+          f"768², batch 1, fp32 parameters, bf16 compute, {optimizer}, EMA")
     check(frozen_same, f"{name}: a frozen parameter changed")
     check(len(moved) == sum(mask.values()), f"{name}: a trained parameter did not move")
+
+    # the optimizer step alone, on seeded gradients of the trainable tensors
+    opt = state.optimizer
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for n, p in unet.named_parameters():
+        if mask[n]:
+            p.grad = torch.randn(p.shape, generator=g, device="cuda") * 1e-4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ops, dev_ms, _ = device_profile(torch, opt.step)
+    opt.zero_grad(set_to_none=True)
+    state_bytes = sum(t.numel() * t.element_size() for st in opt.state.values()
+                      for t in st.values() if torch.is_tensor(t))
+    print(f"{name}: the optimizer step alone ({optimizer}): {wall_ms:.2f} ms of wall "
+          f"time, a profiled one {ops} device ops, {dev_ms:.2f} ms of device time; "
+          f"its state {state_bytes} bytes over {n_train} trainable values, "
+          f"{state_bytes / n_train:.4f} B per trainable parameter, on {smi}")
+    if state_bytes_per_param is not None:
+        check(state_bytes == state_bytes_per_param * n_train,
+              f"{name}: optimizer state {state_bytes} bytes, not "
+              f"{state_bytes_per_param} a trainable value")
     return result
 
 
@@ -2239,10 +2325,11 @@ def phase_train22_full(torch, np, smi: str) -> dict:
     return out
 
 
-def phase_prior_train_full(torch, np, smi: str):
+def phase_prior_train_full(torch, np, smi: str, name="prior-train", optim_params=None):
     """prior-train: the prior CLI's run on config_prior.yaml (CONFIG_2_1's
     prior, 2048 wide, 20 layers; the CLIP text tower and ViT-L/14 frozen;
-    Adafactor 5e-6, EMA) over a seeded CSV of five pictures, then five timed
+    the YAML's Adafactor 5e-6 unless ``optim_params`` names another
+    optimizer; EMA) over a seeded CSV of five pictures, then five timed
     steps on the CLI's own model, batch and optimizer."""
     import copy
     import tempfile
@@ -2253,10 +2340,12 @@ def phase_prior_train_full(torch, np, smi: str):
     from kandinsky2_tpu_torch.ops import launch_counts
     from kandinsky2_tpu_torch.train import train_prior_cli as cli
     from kandinsky2_tpu_torch.train.checkpoint import latest_checkpoint
-    from kandinsky2_tpu_torch.train.optim import adafactor_from_config
+    from kandinsky2_tpu_torch.train.optim import optimizer_from_config
     from kandinsky2_tpu_torch.train.train_prior import make_prior_train_step
 
     cfg = copy.deepcopy(PRIOR_YAML)
+    if optim_params is not None:
+        cfg["optim_params"] = optim_params
     rng = np.random.RandomState(23)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -2279,15 +2368,15 @@ def phase_prior_train_full(torch, np, smi: str):
         finite = all(bool(torch.isfinite(p).all()) for p in state.model.parameters()) \
             and all(bool(torch.isfinite(e).all()) for e in state.ema_params.values())
         n_params = sum(p.numel() for p in state.model.parameters())
-        print(f"prior-train: the CLI's run, 5 steps with the build, the loader, the "
+        print(f"{name}: the CLI's run, 5 steps with the build, the loader, the "
               f"whole-state save and the export, {run_s:.2f} s; prior {n_params} "
               f"parameters; step "
               f"{state.step}, exported at {exported}; parameters and EMA finite "
               f"{finite}; launches {json.dumps(counts)}")
         check(state.step == 5 and exported == 5,
-              "prior-train: the run did not take 5 steps")
-        check(finite, "prior-train: parameters or EMA not finite")
-        check(not any(counts.values()), f"prior-train: a kernel was launched: {counts}")
+              f"{name}: the run did not take 5 steps")
+        check(finite, f"{name}: parameters or EMA not finite")
+        check(not any(counts.values()), f"{name}: a kernel was launched: {counts}")
         del state
         gc.collect()
         torch.cuda.empty_cache()
@@ -2297,10 +2386,10 @@ def phase_prior_train_full(torch, np, smi: str):
         raw = next(iter(cli.make_loader(cfg)))
         init_state, step = make_prior_train_step(
             prior, cfg["model_config"]["diffusion"],
-            adafactor_from_config(cfg["optim_params"]), ema_decay=0.9999)
+            optimizer_from_config(cfg["optim_params"]), ema_decay=0.9999)
         pstate = init_state()
         zero = {k: 0 for k in counts}
-        return timed_steps(torch, np, "prior-train", lambda: step(
+        return timed_steps(torch, np, name, lambda: step(
             pstate, prepare_batch(raw))["loss"], 5, smi, zero)
 
 
@@ -3112,6 +3201,125 @@ def phase_dpt(torch, np, smi):
     return out
 
 
+# --- phase 19: the optimizers and the examples ---------------------------------
+
+def phase_optimizers(torch, np):
+    """19a: every OPTIM_CASES row through ``fp32_master_optimizer`` for 3
+    steps on the card and on the CPU, fp32 (TF32 off), on one parameter
+    set: a factored [160, 130] matrix, a [144, 128, 3, 3] conv kernel, a
+    vector and a bf16 [256, 96] tensor.  The fp32 masters and every fp32
+    state tensor within 1e-5 relative L2 of the CPU's, the bf16 tensor and
+    a bf16 moment within one bf16 rounding (2^-8); then a state_dict round
+    trip on the card, bitwise, and one more step on both copies, bitwise."""
+    import io
+
+    from kandinsky2_tpu_torch.train.optim import optimizer_from_config
+    from kandinsky2_tpu_torch.train.precision import fp32_master_optimizer
+
+    shapes = {"matrix": (160, 130), "conv": (144, 128, 3, 3), "vector": (64,),
+              "bf16": (256, 96)}
+    rng = np.random.RandomState(41)
+    p0 = {k: rng.randn(*shape).astype(np.float32) for k, shape in shapes.items()}
+    grads = [{k: (rng.randn(*shape) * scale).astype(np.float32)
+              for k, shape in shapes.items()} for scale in (1.0, 30.0, 1e-3)]
+
+    def build(dev, optim_params, start=None):
+        live = {k: (torch.tensor(v, device=dev) if start is None
+                    else start[k].detach().clone()) for k, v in p0.items()}
+        live["bf16"] = live["bf16"].bfloat16()
+        for t in live.values():
+            t.requires_grad_()
+        factory = fp32_master_optimizer(optimizer_from_config(optim_params))
+        return live, factory(list(live.values()))
+
+    def step(live, opt, g):
+        for k, t in live.items():
+            t.grad = torch.tensor(g[k], device=t.device).to(t.dtype)
+        opt.step()
+
+    def states(opt):
+        """[(tensor name, state key, tensor)] of the inner optimizer."""
+        out = []
+        for k, m in zip(shapes, opt.inner.param_groups[0]["params"]):
+            out += [(k, key, v) for key, v in opt.inner.state[m].items()
+                    if torch.is_tensor(v)]
+        return out
+
+    def tensors(live, opt):
+        return [v for _, _, v in states(opt)] + list(opt.masters) + list(live.values())
+
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    t0 = time.perf_counter()
+    for case, (name, params) in OPTIM_CASES.items():
+        optim_params = {"name": name, "params": params}
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            live, opt = build(dev, optim_params)
+            for g in grads:
+                step(live, opt, g)
+            runs[dev] = (live, opt)
+        (gl, go), (cl, co) = runs["cuda"], runs["cpu"]
+        pairs = [(f"master {k}", a, b) for k, a, b in zip(shapes, go.masters, co.masters)]
+        pairs.append(("bf16 tensor", gl["bf16"], cl["bf16"]))
+        pairs += [(f"{k} {key}", a, b)
+                  for (k, key, a), (_, _, b) in zip(states(go), states(co))]
+        for what, a, b in pairs:
+            check(a.dtype == b.dtype, f"optimizers {case} {what}: {a.dtype} != {b.dtype}")
+            kind = "bf16" if a.dtype == torch.bfloat16 else "fp32"
+            err = rel_l2(a.detach().float().cpu().numpy(), b.detach().float().numpy())
+            worst[kind] = max(worst[kind], err)
+            check(err <= (2.0 ** -8 if kind == "bf16" else 1e-5),
+                  f"optimizers {case} {what}: rel_l2 {err:.3e} from the CPU")
+        # a state_dict round trip on the card, then one more step on both
+        buf = io.BytesIO()
+        torch.save(go.state_dict(), buf)
+        buf.seek(0)
+        rl, ro = build("cuda", optim_params, start=gl)
+        ro.load_state_dict(torch.load(buf, weights_only=True))
+        for g_copy in (None, grads[0]):
+            if g_copy is not None:
+                step(gl, go, g_copy)
+                step(rl, ro, g_copy)
+            same = all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(tensors(gl, go), tensors(rl, ro)))
+            check(same, f"optimizers {case}: the state_dict round trip is not "
+                  "bitwise" + (" after a step" if g_copy is not None else ""))
+    print(f"optimizers: {len(OPTIM_CASES)} option sets of optax.adafactor, adam, adamw "
+          f"and sgd, 3 steps through fp32 masters on the card against the CPU: worst "
+          f"rel_l2 {worst['fp32']:.3e} fp32 (tol 1e-5), {worst['bf16']:.3e} bf16 "
+          f"(tol {2.0 ** -8:.3e}); every state_dict round trip and the step after it "
+          f"bitwise; {time.perf_counter() - t0:.2f} s")
+
+
+def phase_examples(torch):
+    """19c: every example of ``kandinsky2_tpu_torch.examples`` with
+    ``--small --device cuda``, in-process (``examples.run_all``), outputs in
+    a temporary directory: the images finite and of the size the JAX script
+    makes, or the steps it trains; seconds and launches of each."""
+    import shutil
+    import tempfile
+
+    from kandinsky2_tpu_torch.examples import run_all
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+
+    out_dir = tempfile.mkdtemp(prefix="k2_examples_")
+    seconds = {}
+    try:
+        for name in run_all.EXAMPLES:
+            reset_path_counts()
+            result = run_all.run_example(name, "cuda", out_dir)
+            counts, plain = launch_counts(), qkv_attention.plain_on_card
+            print(f"example {run_all.check_example(result)}; launches "
+                  f"{json.dumps(counts)}, attention calls on the card by the plain "
+                  f"route {plain}")
+            seconds[name] = result["seconds"]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"examples: all {len(seconds)} with --small --device cuda in "
+          f"{sum(seconds.values()):.2f} s")
+    return seconds
+
+
 def phase_clock():
     """A function that prints the seconds since its last call (the phase
     just run) and since the first, under a label."""
@@ -3299,6 +3507,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("phase 18c-d")
 
+    # 19. the optimizers on the card against the CPU; decoder training at
+    # full width with optax.adamw and the prior CLI with it; every example
+    phase_optimizers(torch, np)
+    lap("phase 19a")
+    adamw_train = {"train_adamw_768": phase_train_full(
+        torch, np, smi, "train-adamw-768", optim_params=ADAMW, state_bytes_per_param=8)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    adamw_train["prior_train_adamw"] = phase_prior_train_full(
+        torch, np, smi, "prior-train-adamw", optim_params=ADAMW)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 19b")
+    example_s = phase_examples(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 19c")
+
     meta = {
         "group_norm_stats": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
                              "kandinsky2_tpu/ops/group_norm.py:86"),
@@ -3329,6 +3555,7 @@ def main() -> int:
             "t20_launches": t2i20_counts[name],
             **{f"{task}_launches": tasks20[task][0][name] for task in tasks20},
             **{f"{path}_launches": new_train[path][0][name] for path in new_train},
+            **{f"{path}_launches": adamw_train[path][0][name] for path in adamw_train},
             "serve21_9_requests_launches": serve_counts[name],
             "lora_swap22_5_requests_launches": lora_counts[name],
             "validate21_launches": validate_counts[name],
@@ -3356,7 +3583,9 @@ def main() -> int:
             f"{io['load_s']:.3f} s ({io['bytes'] / io['load_s'] / 1e9:.3f} GB/s)"
             for path, (_, io) in ckpt.items())
         + f"; dpt-large bf16 {dpt['large'][1]:.3f} ms an estimate (rel_l2 "
-          f"{dpt['large'][2]:.4e} from fp32)")
+          f"{dpt['large'][2]:.4e} from fp32); " + "; ".join(
+            f"{path}: {sec:.4f} s/step" for path, (_, sec) in adamw_train.items())
+        + f"; examples --small: {sum(example_s.values()):.2f} s for {len(example_s)}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -132,19 +132,20 @@ def parse_warmup_spec(spec: str) -> dict:
     return out
 
 
-def build_small_pipeline(version: str = "2.1", device="cuda"):
-    """A small pipeline of ``version`` in bf16 on ``device`` with random
-    weights from seed 0 and the stand-in tokenizers: 2.1 at
-    ``configs.small_config``, 2.0 at ``configs.small_config20``, 2.2 at
-    ``configs.small_overrides22`` (each with 64-wide UNet heads, the width
-    the flash kernel takes)."""
+def build_small_pipeline(version: str = "2.1", device="cuda", task_type="text2img",
+                         param_dtype=None):
+    """A small ``task_type`` pipeline of ``version`` computing in bf16 on
+    ``device`` with random weights from seed 0 (in ``param_dtype``, bf16 by
+    default) and the stand-in tokenizers: 2.1 at ``configs.small_config``,
+    2.0 at ``configs.small_config20``, 2.2 at ``configs.small_overrides22``
+    (each with 64-wide UNet heads, the width the flash kernel takes)."""
     import torch
 
     from .configs import small_config, small_config20, small_overrides22
     from .pipelines import Kandinsky2, Kandinsky2_1, Kandinsky2_2
     from .utils import stub_tokenizer22, stub_tokenizers
 
-    kw = dict(dtype=torch.bfloat16, device=device)
+    kw = dict(dtype=torch.bfloat16, device=device, task_type=task_type)
     if version == "2.1":
         tok1, tok2 = stub_tokenizers()
         pipe = Kandinsky2_1(config=small_config(64), tokenizer1=tok1,
@@ -158,7 +159,8 @@ def build_small_pipeline(version: str = "2.1", device="cuda"):
                             overrides=small_overrides22(), **kw)
     else:
         raise ValueError(f"unknown version {version!r}")
-    pipe.init_random_params(torch.Generator(device=device).manual_seed(0))
+    pipe.init_random_params(torch.Generator(device=device).manual_seed(0),
+                            dtype=param_dtype)
     return pipe
 
 

@@ -1,26 +1,47 @@
-"""Adafactor with optax's defaults, and the decoder's freeze mask.
+"""The optimizers a training YAML's ``optim_params`` name, and the
+decoder's freeze mask.
 
-``Adafactor`` is the counterpart of ``optax.adafactor`` (optax 0.2.6,
-``optax/_src/alias.py`` ``adafactor`` and ``_src/factorized.py``
-``scale_by_factored_rms``), which the YAML's ``optim_params`` name.  Per
-parameter tensor, in the order optax chains them:
+``optimizer_from_config(optim_params)`` reads ``{"name": ..., "params":
+{...}}`` as the JAX CLIs do (``get_obj_from_str(name)(**params)``) and
+returns ``params -> torch.optim.Optimizer``.  Four names build, each a
+counterpart of optax 0.2.6 (``optax/_src/alias.py``) with optax's
+arguments and defaults, step for step in optax's chain order:
 
-1. factored second moments: for a tensor whose two largest dims are both at
-   least 128, row and column means of g² + 1e-30 decayed with
-   1 − (step + 1)^−0.8, and the update
-   g · (v_row / mean(v_row))^−½ · v_col^−½; other tensors keep a full v and
-   get g · v^−½;
-2. block-RMS clipping: u / max(1, rms(u));
-3. the learning rate;
-4. the parameter scale: u · max(rms(p), 1e-3) on the parameter before the
-   step;
-5. p ← p − u.
+* ``optax.adafactor`` -> ``Adafactor``: ``factorized.scale_by_factored_rms``
+  (for a tensor whose two largest dims are both at least
+  ``min_dim_size_to_factor``, row and column means of g² + eps decayed with
+  1 − (step − decay_offset + 1)^−decay_rate, and the update
+  g · (v_row / mean(v_row))^−½ · v_col^−½; other tensors keep a full v and
+  get g · v^−½), then ``clip_by_block_rms`` (u / max(1, rms(u) /
+  clipping_threshold)), the learning rate, ``scale_by_param_block_rms``
+  (u · max(rms(p), 1e-3) on the parameter before the step), the momentum
+  ``ema(momentum, debias=False)`` kept in ``dtype_momentum``, then
+  ``add_decayed_weights`` (u + weight_decay_rate · p, after the learning
+  rate and so not scaled by it) and p ← p − u.
+* ``optax.adam`` and ``optax.adamw`` -> ``Adam``: ``scale_by_adam`` (the
+  moments b·m + (1 − b)·g and b·v + (1 − b)·g², optax's bias correction,
+  u = m̂ / (√(v̂ + eps_root) + eps), the first moment kept in ``mu_dtype``,
+  and with ``nesterov`` optax's m̂ = b1·m / (1 − b1^(t+1)) + (1 − b1)·g /
+  (1 − b1^t), which is not ``torch.optim.NAdam``), adamw's
+  ``add_decayed_weights`` (u + weight_decay · p, default 1e-4, where
+  ``torch.optim.AdamW`` decays by 1e-2) and p ← p − lr · u.
+* ``optax.sgd`` -> ``SGD``: ``trace`` (t ← g + momentum · t, the update
+  g + momentum · t with ``nesterov``, t kept in ``accumulator_dtype``) and
+  p ← p − lr · u.
 
-Only the learning rate is an argument: the YAML's ``optim_params`` set
-nothing else, so optax's other defaults are constants here.
+Dtype arguments are names (``"bfloat16"``, ``"float32"``) as a YAML gives
+them to ``jnp.dtype``.  ``mask`` and ``weight_decay_mask`` take a tree of
+booleans matched against the JAX parameter tree, which the port does not
+have: they raise.  So do another name and an argument that optax does not
+take (TypeError, as optax raises), before anything is built.
 
-``torch.optim.Adafactor`` follows another recipe (relative step sizes, its
-own decay and epsilons), so it is not used.
+``Adam`` and ``SGD`` step all their tensors with ``torch._foreach_*``
+ops; ``Adafactor``'s factored statistics are per tensor, one pass over
+the tensors a step.  ``torch.optim.Adafactor`` follows another recipe
+(relative step sizes, its own decay and epsilons), so it is not used.
+The state of each tensor is ``step`` and its moments; a moment kept in
+another dtype than its parameter's keeps it through ``load_state_dict``
+(which would cast it to the parameter's).
 
 Layouts differ (torch OI / OIHW against flax IO / HWIO), but the factored
 pair is always the two largest dims, so a tensor factors over the same
@@ -35,7 +56,8 @@ the trainable parameters (the counterpart of ``masked_optimizer``).
 
 from __future__ import annotations
 
-from typing import Optional
+from collections import defaultdict
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -71,46 +93,110 @@ def apply_freeze_mask(module: torch.nn.Module, mask: dict[str, bool]) -> list:
     return params
 
 
-# optax.adafactor's defaults
-MIN_DIM_SIZE_TO_FACTOR = 128
-DECAY_RATE = 0.8
-EPS = 1e-30
+# --- helpers ---------------------------------------------------------------
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16,
+           # JAX without x64 canonicalizes float64 to float32
+           "float64": torch.float32}
 
 
-def _factored_dims(shape) -> Optional[tuple[int, int]]:
+def dtype_name(dtype) -> Optional[str]:
+    """A dtype argument (None, a name as a YAML gives it, or a torch dtype)
+    as the name the optimizer keeps; TypeError for anything else, as
+    ``jnp.dtype`` raises."""
+    if dtype is None:
+        return None
+    name = str(dtype).removeprefix("torch.")
+    if name not in _DTYPES:
+        raise TypeError(f"data type {dtype!r} not understood (one of {sorted(_DTYPES)})")
+    return str(_DTYPES[name]).removeprefix("torch.")
+
+
+def _dtype(name: Optional[str], like: torch.Tensor) -> torch.dtype:
+    return like.dtype if name is None else _DTYPES[name]
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """optax's 1 − decay^count, computed in fp32 as optax computes it."""
+    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+
+
+def _factored_dims(shape, factored: bool = True,
+                   min_dim_size_to_factor: int = 128) -> Optional[tuple[int, int]]:
     """(second largest, largest) dim if both are big enough, else None."""
-    if len(shape) < 2:
+    if not factored or len(shape) < 2:
         return None
     order = np.argsort(shape, kind="stable")
-    if shape[order[-2]] < MIN_DIM_SIZE_TO_FACTOR:
+    if shape[order[-2]] < min_dim_size_to_factor:
         return None
     return int(order[-2]), int(order[-1])
+
+
+def _weak(decay: float, dtype: torch.dtype) -> float:
+    """``decay`` as JAX applies it to a moment kept in ``dtype``: a Python
+    scalar takes the array's dtype (bf16's 0.9 is 0.8984375), and the jitted
+    product is formed in fp32 beside the fp32 update."""
+    return torch.tensor(decay, dtype=dtype).item()
 
 
 def _rms(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.mean(x * x))
 
 
-class Adafactor(torch.optim.Optimizer):
-    """``optax.adafactor(learning_rate)`` (no momentum, no weight decay) as a
-    torch optimizer; the state per tensor is ``step`` and either ``v_row``
-    and ``v_col`` or ``v``, in the parameter's dtype."""
+class _OptaxOptimizer(torch.optim.Optimizer):
+    """A torch optimizer whose moments may be kept in another dtype than
+    their parameter's, and keep it through ``load_state_dict``."""
 
-    def __init__(self, params, learning_rate: float):
-        super().__init__(params, dict(learning_rate=learning_rate))
+    def load_state_dict(self, state_dict: dict) -> None:
+        super().load_state_dict(state_dict)
+        params = [p for g in self.param_groups for p in g["params"]]
+        ids = [i for g in state_dict["param_groups"] for i in g["params"]]
+        for p, i in zip(params, ids):
+            for key, saved in state_dict["state"].get(i, {}).items():
+                now = self.state[p].get(key)
+                if torch.is_tensor(saved) and now.dtype != saved.dtype:
+                    self.state[p][key] = now.to(saved.dtype)
+
+    def _stepping(self, group) -> list:
+        return [p for p in group["params"] if p.grad is not None]
+
+
+# --- optax.adafactor ---------------------------------------------------------
+
+class Adafactor(_OptaxOptimizer):
+    """``optax.adafactor`` as a torch optimizer, with optax's arguments and
+    defaults; the state per tensor is ``step``, either ``v_row`` and
+    ``v_col`` or ``v`` (in the parameter's dtype) and, with ``momentum``,
+    ``ema`` in ``dtype_momentum``."""
+
+    def __init__(self, params, learning_rate: Optional[float] = None,
+                 min_dim_size_to_factor: int = 128, decay_rate: float = 0.8,
+                 decay_offset: int = 0, multiply_by_parameter_scale: bool = True,
+                 clipping_threshold: Optional[float] = 1.0,
+                 momentum: Optional[float] = None, dtype_momentum="float32",
+                 weight_decay_rate: Optional[float] = None, eps: float = 1e-30,
+                 factored: bool = True):
+        super().__init__(params, dict(
+            learning_rate=learning_rate, min_dim_size_to_factor=min_dim_size_to_factor,
+            decay_rate=decay_rate, decay_offset=decay_offset,
+            multiply_by_parameter_scale=multiply_by_parameter_scale,
+            clipping_threshold=clipping_threshold, momentum=momentum,
+            dtype_momentum=dtype_name(dtype_momentum),
+            weight_decay_rate=weight_decay_rate, eps=eps, factored=factored))
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("Adafactor takes no closure")
         for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is not None:
-                    p.sub_(self._update(p, p.grad, group["learning_rate"]))
+            for p in self._stepping(group):
+                p.sub_(self._update(p, p.grad, group))
 
-    def _update(self, p, grad, learning_rate: float) -> torch.Tensor:
+    def _update(self, p, grad, group) -> torch.Tensor:
         state = self.state[p]
-        dims = _factored_dims(tuple(p.shape))
+        dims = _factored_dims(tuple(p.shape), group["factored"],
+                              group["min_dim_size_to_factor"])
         if not state:
             state["step"] = 0
             if dims is None:
@@ -119,11 +205,15 @@ class Adafactor(torch.optim.Optimizer):
                 d1, d0 = dims
                 state["v_row"] = torch.zeros_like(p).mean(d0)
                 state["v_col"] = torch.zeros_like(p).mean(d1)
-        # optax's schedule 1 - (step + 1)^-rate, in fp32 as optax computes it
-        step = np.float32(state["step"] + 1)
-        decay = np.float32(1) - step ** np.float32(-DECAY_RATE)
+            if group["momentum"] is not None:
+                state["ema"] = torch.zeros_like(p, dtype=_DTYPES[group["dtype_momentum"]])
+        # optax's schedule 1 - (step - offset + 1)^-rate, in fp32 as optax
+        # computes it (NaN where step - offset + 1 <= 0, as in optax)
+        with np.errstate(all="ignore"):
+            t = np.float32(state["step"] - group["decay_offset"] + 1)
+            decay = np.float32(1) - t ** np.float32(-group["decay_rate"])
         keep, mix = float(decay), float(np.float32(1) - decay)
-        grad_sqr = grad * grad + EPS
+        grad_sqr = grad * grad + group["eps"]
         if dims is None:
             v = state["v"].mul_(keep).add_(grad_sqr, alpha=mix)
             u = grad * v.rsqrt()
@@ -135,20 +225,188 @@ class Adafactor(torch.optim.Optimizer):
             row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt()
             u = grad * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
         state["step"] += 1
-        u = u / torch.clamp(_rms(u), min=1.0)  # clipping threshold 1
-        return u * learning_rate * torch.clamp(_rms(p), min=1e-3)
+        if group["clipping_threshold"] is not None:
+            u = u / torch.clamp(_rms(u) / group["clipping_threshold"], min=1.0)
+        if group["learning_rate"] is not None:
+            u = u * group["learning_rate"]
+        if group["multiply_by_parameter_scale"]:
+            u = u * torch.clamp(_rms(p), min=1e-3)
+        if group["momentum"] is not None:
+            m, ema = group["momentum"], state["ema"]
+            wide = torch.promote_types(u.dtype, ema.dtype)
+            u = u * (1 - m) + ema.to(wide) * _weak(m, ema.dtype)
+            ema.copy_(u)
+        if group["weight_decay_rate"] is not None:
+            u = u + group["weight_decay_rate"] * p
+        return u
 
 
-def adafactor_from_config(optim_params: dict):
-    """The optimizer factory a training YAML's ``optim_params`` names: only
-    ``optax.adafactor`` with only ``learning_rate`` (optax's other defaults
-    are constants here); anything else raises NotImplementedError."""
-    if optim_params["name"] != "optax.adafactor":
+# --- optax.adam / optax.adamw --------------------------------------------------
+
+class Adam(_OptaxOptimizer):
+    """``optax.adam`` (``weight_decay`` None) or ``optax.adamw`` as a torch
+    optimizer; the state per tensor is ``step``, ``mu`` (in ``mu_dtype``)
+    and ``nu``."""
+
+    def __init__(self, params, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, eps_root: float = 0.0, mu_dtype=None,
+                 weight_decay: Optional[float] = None, nesterov: bool = False):
+        super().__init__(params, dict(
+            learning_rate=learning_rate, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
+            mu_dtype=dtype_name(mu_dtype), weight_decay=weight_decay,
+            nesterov=bool(nesterov)))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam takes no closure")
+        for group in self.param_groups:
+            by_count = defaultdict(list)
+            for p in self._stepping(group):
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["mu"] = torch.zeros_like(p, dtype=_dtype(group["mu_dtype"], p))
+                    state["nu"] = torch.zeros_like(p)
+                by_count[state["step"]].append(p)
+            for count, params in by_count.items():
+                self._step(params, count + 1, group)
+
+    def _step(self, params: list, count: int, group) -> None:
+        grads = [p.grad for p in params]
+        mus = [self.state[p]["mu"] for p in params]
+        nus = [self.state[p]["nu"] for p in params]
+        b1, b2 = group["b1"], group["b2"]
+        if all(m.dtype == g.dtype for m, g in zip(mus, grads)):
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, grads, alpha=1 - b1)
+            mu = mus
+        else:  # the moment in mu_dtype: the step uses it, in the wider dtype, before the cast
+            mu = torch._foreach_mul([g.to(torch.promote_types(g.dtype, m.dtype))
+                                     for g, m in zip(grads, mus)], 1 - b1)
+            torch._foreach_add_(mu, mus, alpha=_weak(b1, mus[0].dtype))
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_addcmul_(nus, grads, grads, value=1 - b2)
+        if group["nesterov"]:
+            u = torch._foreach_div(mu, _bias_correction(b1, count + 1))
+            torch._foreach_mul_(u, b1)
+            g_hat = torch._foreach_div(grads, _bias_correction(b1, count))
+            torch._foreach_mul_(g_hat, 1 - b1)
+            torch._foreach_add_(u, g_hat)
+            del g_hat
+        else:
+            u = torch._foreach_div(mu, _bias_correction(b1, count))
+        denom = torch._foreach_div(nus, _bias_correction(b2, count))
+        if group["eps_root"]:
+            torch._foreach_add_(denom, group["eps_root"])
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, group["eps"])
+        torch._foreach_div_(u, denom)
+        del denom
+        if mu is not mus:
+            torch._foreach_copy_(mus, mu)
+        if group["weight_decay"] is not None:
+            torch._foreach_add_(u, params, alpha=group["weight_decay"])
+        torch._foreach_add_(params, u, alpha=-group["learning_rate"])
+        for p in params:
+            self.state[p]["step"] = count
+
+
+# --- optax.sgd -----------------------------------------------------------------
+
+class SGD(_OptaxOptimizer):
+    """``optax.sgd`` as a torch optimizer; with ``momentum`` the state per
+    tensor is ``trace`` (in ``accumulator_dtype``), without it none."""
+
+    def __init__(self, params, learning_rate: float, momentum: Optional[float] = None,
+                 nesterov: bool = False, accumulator_dtype=None):
+        super().__init__(params, dict(
+            learning_rate=learning_rate, momentum=momentum, nesterov=bool(nesterov),
+            accumulator_dtype=dtype_name(accumulator_dtype)))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("SGD takes no closure")
+        for group in self.param_groups:
+            params = self._stepping(group)
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            m = group["momentum"]
+            if m is None:
+                torch._foreach_add_(params, grads, alpha=-group["learning_rate"])
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["trace"] = torch.zeros_like(
+                        p, dtype=_dtype(group["accumulator_dtype"], p))
+            traces = [self.state[p]["trace"] for p in params]
+            if all(t.dtype == g.dtype for t, g in zip(traces, grads)):
+                torch._foreach_mul_(traces, m)
+                torch._foreach_add_(traces, grads)
+                trace = traces
+            else:  # the trace in accumulator_dtype: the step uses it before the cast
+                trace = torch._foreach_add(grads, traces, alpha=_weak(m, traces[0].dtype))
+            u = torch._foreach_add(grads, trace, alpha=m) if group["nesterov"] else trace
+            if trace is not traces:
+                torch._foreach_copy_(traces, trace)
+            torch._foreach_add_(params, u, alpha=-group["learning_rate"])
+
+
+# --- the YAML's optim_params -----------------------------------------------------
+
+def _no_mask(name: str, mask) -> None:
+    if mask is not None:
         raise NotImplementedError(
-            f"optimizer {optim_params['name']}: the port has Adafactor only")
-    opt_kw = optim_params["params"]
-    if set(opt_kw) != {"learning_rate"}:
+            f"{name}: a YAML gives it as a tree of booleans over the JAX parameter "
+            "tree, which the port has no tree to match against")
+
+
+def _adafactor(learning_rate=None, min_dim_size_to_factor=128, decay_rate=0.8,
+               decay_offset=0, multiply_by_parameter_scale=True, clipping_threshold=1.0,
+               momentum=None, dtype_momentum="float32", weight_decay_rate=None,
+               eps=1e-30, factored=True, weight_decay_mask=None):
+    _no_mask("weight_decay_mask", weight_decay_mask)
+    kw = dict(locals())
+    kw.pop("weight_decay_mask")
+    kw["dtype_momentum"] = dtype_name(dtype_momentum)
+    return Adafactor, kw
+
+
+def _adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, mu_dtype=None, *,
+          nesterov=False):
+    return Adam, dict(learning_rate=learning_rate, b1=b1, b2=b2, eps=eps,
+                      eps_root=eps_root, mu_dtype=dtype_name(mu_dtype), nesterov=nesterov)
+
+
+def _adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, mu_dtype=None,
+           weight_decay=1e-4, mask=None, *, nesterov=False):
+    _no_mask("mask", mask)
+    cls, kw = _adam(learning_rate, b1, b2, eps, eps_root, mu_dtype, nesterov=nesterov)
+    return cls, dict(kw, weight_decay=weight_decay)
+
+
+def _sgd(learning_rate, momentum=None, nesterov=False, accumulator_dtype=None):
+    return SGD, dict(learning_rate=learning_rate, momentum=momentum, nesterov=nesterov,
+                     accumulator_dtype=dtype_name(accumulator_dtype))
+
+
+# each with optax 0.2.6's signature, so that an argument optax would refuse
+# raises TypeError here too
+OPTIMIZERS = {"optax.adafactor": _adafactor, "optax.adam": _adam,
+              "optax.adamw": _adamw, "optax.sgd": _sgd}
+
+
+def optimizer_from_config(optim_params: dict) -> Callable:
+    """The optimizer factory (params -> optimizer) a training YAML's
+    ``optim_params`` ({"name": ..., "params": {...}}) names.  Raises,
+    before anything is built, NotImplementedError for another name or a
+    ``mask`` / ``weight_decay_mask``, and TypeError for an argument that
+    optax does not take."""
+    name = optim_params["name"]
+    if name not in OPTIMIZERS:
         raise NotImplementedError(
-            f"Adafactor options {sorted(opt_kw)}: the port takes learning_rate "
-            "only, with optax's other defaults")
-    return lambda params: Adafactor(params, opt_kw["learning_rate"])
+            f"optimizer {name}: the port has {', '.join(OPTIMIZERS)}")
+    cls, kw = OPTIMIZERS[name](**(optim_params.get("params") or {}))
+    return lambda params: cls(params, **kw)

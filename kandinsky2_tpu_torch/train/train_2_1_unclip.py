@@ -32,7 +32,7 @@ from ..utils import stub_tokenizers
 from .checkpoint import load_checkpoint
 from .data import TextImageDataset, create_loader
 from .masks import get_image_mask
-from .optim import adafactor_from_config
+from .optim import optimizer_from_config
 from .train_unclip import train_unclip
 
 
@@ -133,7 +133,7 @@ def run(cfg: dict, device="cuda"):
     """Train as the YAML ``cfg`` says; returns the final ``TrainState``."""
     if cfg.get("parallel"):
         raise NotImplementedError("the PyTorch port trains on one device")
-    optimizer_factory = adafactor_from_config(cfg["optim_params"])
+    optimizer_factory = optimizer_from_config(cfg["optim_params"])
     pipe = build_pipeline(cfg, device)
     dtr = cfg["data"]["train"]
     dataset = TextImageDataset(

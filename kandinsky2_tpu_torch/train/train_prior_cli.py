@@ -33,7 +33,7 @@ from ..tokenizers import CLIPBPETokenizer
 from ..utils import stub_tokenizers
 from .checkpoint import load_checkpoint
 from .data import TextImageDataset, create_loader
-from .optim import adafactor_from_config
+from .optim import optimizer_from_config
 from .train_prior import train_prior
 
 
@@ -96,7 +96,7 @@ def make_loader(cfg: dict):
 
 def run(cfg: dict, device="cuda"):
     """Train as the YAML ``cfg`` says; returns the final ``TrainState``."""
-    optimizer_factory = adafactor_from_config(cfg["optim_params"])
+    optimizer_factory = optimizer_from_config(cfg["optim_params"])
     return train_prior(
         prior=build_prior(cfg, device), diffusion_config=cfg["model_config"]["diffusion"],
         loader=make_loader(cfg), prepare_batch=make_prepare_batch(cfg, device),

@@ -1,0 +1,89 @@
+"""The port's example scripts (``kandinsky2_tpu_torch/examples/``), each run
+with ``--small --device cpu`` through ``runpy`` as ``__main__`` in this
+process (``examples.run_all``): finite images of the size its JAX
+counterpart in ``examples/`` makes, or the steps it trains.  Their flags
+and defaults are the JAX scripts', and importing one runs nothing."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+from kandinsky2_tpu_torch.examples import run_all
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_DIR = os.path.join(ROOT, "kandinsky2_tpu_torch", "examples")
+JAX_DIR = os.path.join(ROOT, "examples")
+
+
+def test_the_eighteen_single_card_examples_are_ported():
+    """Every JAX example but the two that need spatial parallelism."""
+    jax_scripts = {f[:-3] for f in os.listdir(JAX_DIR)
+                   if f.endswith(".py") and f != "common.py"}
+    assert set(run_all.EXAMPLES) == jax_scripts - {"train_sp", "highres_sp_decode"}
+    assert len(run_all.EXAMPLES) == 18
+    for name in run_all.EXAMPLES:
+        assert os.path.exists(os.path.join(PORT_DIR, f"{name}.py")), name
+
+
+@pytest.mark.parametrize("name", list(run_all.EXAMPLES))
+def test_example_runs_small_on_the_cpu(name, tmp_path):
+    result = run_all.run_example(name, "cpu", str(tmp_path))
+    print(run_all.check_example(result))
+    with open(os.path.join(JAX_DIR, f"{name}.py")) as f:
+        saves = 'print("saved"' in f.read()
+    size = run_all.EXAMPLES[name][1]
+    assert (f"saved {result['out']} ({size}, {size})" in result["lines"]) == saves
+
+
+def _argparser_extras(path):
+    """The keyword flags of the ``argparser(...)`` call in a script."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == "argparser"]
+    assert len(calls) == 1, path
+    return {kw.arg: ast.literal_eval(kw.value) for kw in calls[0].keywords}
+
+
+@pytest.mark.parametrize("name", list(run_all.EXAMPLES))
+def test_flags_and_defaults_are_the_jax_scripts(name):
+    assert _argparser_extras(os.path.join(PORT_DIR, f"{name}.py")) == \
+        _argparser_extras(os.path.join(JAX_DIR, f"{name}.py"))
+
+
+def test_common_flags_are_the_jax_scripts_plus_device_and_cache():
+    from kandinsky2_tpu_torch.examples.common import argparser
+
+    ns = vars(argparser().parse_args([]))
+    assert ns == {"small": False, "prompt": "red cat, 4k photo", "out": "out.png",
+                  "steps": None, "res": None, "device": "cuda",
+                  "cache_dir": "/tmp/kandinsky2"}
+
+
+def test_no_example_does_work_at_import():
+    """Each module's top level holds only imports, definitions, constants and
+    the ``if __name__ == "__main__": main()`` guard; importing them all in
+    a fresh interpreter prints nothing."""
+    names = sorted(f[:-3] for f in os.listdir(PORT_DIR) if f.endswith(".py"))
+    for name in names:
+        with open(os.path.join(PORT_DIR, f"{name}.py")) as f:
+            body = ast.parse(f.read()).body
+        for node in body:
+            if isinstance(node, ast.If):
+                assert ast.unparse(node.test) == "__name__ == '__main__'", name
+                assert [ast.unparse(s) for s in node.body] == ["main()"], name
+            elif isinstance(node, ast.Expr):
+                assert isinstance(node.value, ast.Constant), (name, ast.unparse(node))
+            elif isinstance(node, ast.Assign):
+                ast.literal_eval(node.value)
+            else:
+                assert isinstance(node, (ast.Import, ast.ImportFrom, ast.FunctionDef)), \
+                    (name, ast.unparse(node))
+    code = ("import importlib\n" + "".join(
+        f"importlib.import_module('kandinsky2_tpu_torch.examples.{n}')\n" for n in names))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
+    assert proc.returncode == 0 and proc.stdout == "", proc.stdout + proc.stderr

@@ -40,7 +40,7 @@ def test_port_imports_no_jax():
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 40
     # the host side of 2.1 inference, the 2.2 and 2.0 slices and training
-    # are covered too
+    # are covered too, and the examples
     for name in ("tokenizers.clip_bpe", "tokenizers.textfix", "host_ops", "utils",
                  "diffusion.samplers", "pipelines.kandinsky2_1", "diffusion.paired",
                  "models.unet22", "models.prior22", "weights.configs22",
@@ -51,7 +51,8 @@ def test_port_imports_no_jax():
                  "train.train_2_1_unclip", "observability", "eval", "lpips",
                  "weights.realistic", "weights.safetensors_file", "serving",
                  "serving_http", "validate", "weights.convert", "weights.hub",
-                 "weights.load_kandinsky", "weights.load_kandinsky22", "models.dpt"):
+                 "weights.load_kandinsky", "weights.load_kandinsky22", "models.dpt",
+                 "examples.common", "examples.train_lora_22", "examples.run_all"):
         assert f"kandinsky2_tpu_torch.{name}" in proc.stdout.split(), name
 
 

@@ -530,17 +530,50 @@ def test_inpainting_batch_and_step_match_jax(tmp_path):
 
 @pytest.mark.parametrize("change", [
     {"parallel": "fsdp"},
-    {"optim_params": {"name": "optax.adamw", "params": {"learning_rate": 1e-4}}},
-    {"optim_params": {"name": "optax.adafactor",
-                      "params": {"learning_rate": 1e-4, "decay_rate": 0.9}}},
+    {"optim_params": {"name": "optax.lion", "params": {"learning_rate": 1e-4}}},
+    {"optim_params": {"name": "optax.adamw",
+                      "params": {"learning_rate": 1e-4, "mask": {"kernel": True}}}},
 ])
 def test_run_rejects_what_the_port_lacks(change):
     """``run`` refuses, before building anything, a YAML that asks for a
-    parallel mode, another optimizer or an Adafactor option other than the
-    learning rate."""
+    parallel mode, an optimizer other than optax's adafactor, adam, adamw
+    and sgd, or a mask over the JAX parameter tree."""
     cfg = dict(tcli.small_train_config("", "", ""), **change)
     with pytest.raises(NotImplementedError):
         tcli.run(cfg, device="cpu")
+
+
+def test_run_trains_with_adamw(tmp_path):
+    """``run`` on the tiny YAML with ``optax.adamw`` at 1e-4: two steps of
+    optax's AdamW (decay 1e-4) over the trainable tensors only, each moved,
+    with two fp32 moments of its shape and the step count 2."""
+    from PIL import Image
+
+    rng = np.random.RandomState(9)
+    (tmp_path / "img").mkdir()
+    rows = ["image_name,caption"]
+    for i in range(4):
+        Image.fromarray(rng.randint(0, 256, (64, 64, 3), np.uint8)).save(
+            tmp_path / "img" / f"{i}.png")
+        rows.append(f"{i}.png,a seeded picture {i}")
+    (tmp_path / "data.csv").write_text("\n".join(rows) + "\n")
+    cfg = tcli.small_train_config(str(tmp_path / "data.csv"), str(tmp_path / "img"),
+                                  str(tmp_path / "ckpt"))
+    cfg["optim_params"] = {"name": "optax.adamw", "params": {"learning_rate": 1e-4}}
+    before = {n: p.detach().clone() for n, p in tcli.build_pipeline(cfg, "cpu")
+              .unet.named_parameters()}
+    state = tcli.run(cfg, device="cpu")
+    opt = state.optimizer
+    assert state.step == 2 and isinstance(opt, toptim.Adam)
+    assert opt.param_groups[0]["weight_decay"] == 1e-4
+    trained = [p for p in state.model.parameters() if p.requires_grad]
+    assert 0 < len(trained) < len(before) and len(opt.state) == len(trained)
+    for p in trained:
+        s = opt.state[p]
+        assert s["step"] == 2 and s["mu"].dtype == s["nu"].dtype == torch.float32
+        assert s["mu"].shape == s["nu"].shape == p.shape
+    for name, p in state.model.named_parameters():
+        assert torch.equal(p.detach(), before[name]) != p.requires_grad, name
 
 
 def test_loader_batches_match_jax(tmp_path):
