@@ -233,6 +233,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``kandinsky2_tpu_torch.examples`` with --small --device cuda in-process
    (``examples.run_all``): finite images of the JAX script's size or its
    steps, seconds and launches of each.
+20. spatial parallelism (last): 20a the primitives on 4 gloo ranks that
+   share the card (``parallel.launch.RankPool``; what gloo cannot carry
+   is staged through pinned host memory) and on 1 NCCL rank: halo rows
+   against a zero pad, the sharded GroupNorm (K1's moments on every shard,
+   combined over the ranks, then K2) against the unsharded op at the 768²
+   path's shapes and against fp64 at mean/std 1000, K3 on local query rows
+   against gathered K/V (T != S, d 64 and 512) and around the ring with its
+   LSE merge, each against the plain version and the unsharded kernel;
+   which gloo collectives take CUDA tensors; and, in this process, K1, K2
+   and K3 timed at a rank's shard shapes (4 ranks at 768², and the 4096²
+   ring block) beside the plain version, SDPA and the bound.  20b
+   sp21-768: CONFIG_2_1 text2img at 768², prior 25, DDIM 10, CFG 4, bf16,
+   on the 4 ranks with the noise injected, against the same pipeline
+   unsharded on rank 0: the latents within 5e-2 relative L2, the image
+   finite and not constant, each rank's launches pinned (10 UNet calls and
+   the decoder, no attention by the plain route), s/image and peak memory
+   per rank; the small width in fp32, sharded within 1e-4 of unsharded.
+   20c highres-sp: ``examples.highres_sp_decode`` of the full MoVQ at
+   4096² (262,144 latent tokens: the ring) with its launches, seconds and
+   peak memory per rank, and at 2048² the gathered and the ring images
+   agreeing.  Every rank group has a deadline.
 Phases 15-17 time their stages with ``observability.StageReport``.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
@@ -247,6 +268,7 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -340,6 +362,14 @@ L2_BYTES = 50 * 2**20  # the H100's L2
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def smi_memory() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used,memory.total", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
@@ -3320,6 +3350,455 @@ def phase_examples(torch):
     return seconds
 
 
+# --- phase 20: spatial parallelism ---------------------------------------------
+
+SP_WORLD = 4
+# phase 20b's sp21-768: 2.1 text2img at full width on 4 ranks of the card
+SP21 = dict(num_steps=10, guidance_scale=4, h=768, w=768, sampler="ddim_sampler",
+            prior_cf_scale=4, prior_steps="25", output="float")
+# the sharded bf16 latents against the unsharded ones: phase 15's bf16 row
+# limit; the small fp32 image: the port's per-module limit
+SP21_LATENT_TOL, SP_FP32_TOL = 5e-2, 1e-4
+
+
+def _sp_rel(torch, a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _sp_rank_setup(torch):
+    """A rank's float32 matmuls and convolutions in full fp32, as phase 1
+    sets them in this process."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _sp_gloo_probe(torch, dist, mesh):
+    """Which gloo collectives take CUDA tensors on this machine: each tried
+    once by every rank on the same tensors (an unsupported one raises on
+    every rank alike)."""
+    ax = mesh.axis()
+    x = torch.ones(4, device="cuda")
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=ax.group),
+        "broadcast": lambda: dist.broadcast(x.clone(), ax.ranks[0], group=ax.group),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in ax.ranks],
+                                              x, group=ax.group),
+    }
+    out = {}
+    for name, call in tries.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "takes CUDA tensors"
+        except Exception as e:  # the probe's finding, printed by the parent
+            out[name] = f"refuses: {str(e).splitlines()[0][:100]}"
+        dist.barrier(group=ax.group)
+    return out
+
+
+def sp_rank_primitives(mesh):
+    """20a on one rank: the halo rows, the sharded GroupNorm (K1 + K2 on
+    every shard) and K3 gathered and ring against the unsharded op and the
+    plain versions on the card, from the same seeded full tensors on every
+    rank; launches counted; the gloo probe."""
+    import torch
+    import torch.distributed as dist
+
+    from kandinsky2_tpu_torch.ops import group_norm as gn
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+    from kandinsky2_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_attention_plain,
+    )
+    from kandinsky2_tpu_torch.parallel import spatial as sp
+    from kandinsky2_tpu_torch.parallel.collectives import all_gather
+
+    _sp_rank_setup(torch)
+    ax = mesh.axis()
+    n = ax.size
+    g = torch.Generator(device="cuda").manual_seed(20)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    rows = lambda t: sp.shard_rows(t, ax)
+    out = {"checks": [], "rank": ax.index}
+
+    def record(name, err, tol):
+        out["checks"].append((name, err, tol))
+
+    reset_path_counts()
+    # halo rows: this rank's block of the zero-padded tensor, exactly
+    x = randn(2, 96, 96, 384).bfloat16()
+    top = ax.index * 96 // n
+    for name, f, pad, extra in (("halo_exchange_rows", sp.halo_exchange_rows, 1, 2),
+                                ("halo_below_rows", sp.halo_below_rows, 0, 1)):
+        got = f(rows(x), ax)
+        want = torch.nn.functional.pad(x, (0, 0, 0, 0, pad, 1))
+        want = want[:, top:top + 96 // n + extra]
+        record(f"{name} vs zero pad", (got.float() - want.float()).abs().max().item(), 0.0)
+
+    # the sharded GroupNorm at the 768² path's shard shapes against the
+    # unsharded op (K1 + K2 in one call) on the whole tensor
+    with torch.inference_mode():
+        for label, shape, swish, film in (
+                ("unet ds1 FiLM SiLU", (2, 96, 96, 384), 1.0, True),
+                ("unet ds8", (2, 12, 12, 1536), 1.0, False),
+                ("movq 768^2", (1, 768, 768, 128), 0.0, False)):
+            C = shape[-1]
+            x = randn(*shape).bfloat16()
+            scale, bias = 1 + 0.1 * randn(C), 0.1 * randn(C)
+            f = tuple(0.1 * randn(shape[0], 1, 1, C).bfloat16() for _ in range(2)) \
+                if film else None
+            whole = gn.group_norm(x, scale, bias, 32, 1e-5, swish, f)
+            got = all_gather(gn.sharded_group_norm(rows(x), scale, bias, 32, 1e-5, ax,
+                                                   swish, f), ax, dim=1)
+            tol = 2 ** -7 * max(1.0, whole.float().abs().max().item())
+            record(f"sharded GroupNorm {label} {list(shape)} bf16 vs unsharded",
+                   (got.float() - whole.float()).abs().max().item(), tol)
+        # mean/std 1000, fp32: the shards' pivots differ
+        z = torch.randn((2, 96, 96, 384), generator=g, device="cuda", dtype=torch.float64)
+        x = (z + 1000).float()
+        xd = x.double().reshape(2, -1, 32, 12)
+        truth = ((xd - xd.mean(dim=(1, 3), keepdim=True))
+                 / torch.sqrt(xd.var(dim=(1, 3), unbiased=False, keepdim=True) + 1e-5)
+                 ).reshape(x.shape)
+        one, zero = torch.ones(384, device="cuda"), torch.zeros(384, device="cuda")
+        got = all_gather(gn.sharded_group_norm(rows(x), one, zero, 32, 1e-5, ax), ax, dim=1)
+        record("sharded GroupNorm mean/std 1000 fp32 rel_l2 vs fp64",
+               ((got.double() - truth).norm() / truth.norm()).item(), 1e-4)
+        del z, x, xd, truth, got
+
+        # K3 gathered: local query rows against the gathered K/V (T != S)
+        for label, (B, T, H, d, E) in (("unet ds2", (2, 2304, 12, 64, 87)),
+                                       ("unet ds8", (2, 144, 24, 64, 87)),
+                                       ("movq mid", (1, 9216, 1, 512, 0))):
+            q, k, v = (randn(B, T, H, d).bfloat16() for _ in range(3))
+            ek, ev = (randn(B, E, H, d).bfloat16() for _ in range(2))
+            kf = torch.cat([ek, all_gather(rows(k).contiguous(), ax, dim=1)], dim=1)
+            vf = torch.cat([ev, all_gather(rows(v).contiguous(), ax, dim=1)], dim=1)
+            o = all_gather(qkv_attention(rows(q), kf, vf), ax, dim=1)
+            kk, vv = torch.cat([ek, k], 1), torch.cat([ev, v], 1)
+            ref, _ = flash_attention_plain(q, kk, vv)
+            one_card, _ = flash_attention_fwd(q, kk, vv)
+            tol = 2e-2 * ref.float().abs().max().item()
+            record(f"K3 gathered {label} (T {T // n}, S {E + T}, d {d}) vs plain",
+                   (o.float() - ref.float()).abs().max().item(), tol)
+            record(f"K3 gathered {label} vs the unsharded kernel",
+                   (o.float() - one_card.float()).abs().max().item(), tol)
+            # K3 ring: one launch a ring step (and one on the text prefix),
+            # the (O, LSE) pairs merged
+            if E:
+                o = sp.sp_ring_attention_mh(rows(q), rows(k), rows(v), ax,
+                                            extra_k=ek, extra_v=ev)
+            else:  # the MoVQ's 96 x 96 map, its rows sharded
+                o = sp.sp_ring_attention_rows(
+                    *(rows(t.reshape(B, 96, 96, d)) for t in (q, k, v)), ax
+                ).reshape(B, T // n, H, d)
+            o = all_gather(o, ax, dim=1)
+            record(f"K3 ring {label} vs plain", (o.float() - ref.float()).abs().max().item(),
+                   tol)
+            record(f"K3 ring {label} vs the unsharded kernel",
+                   (o.float() - one_card.float()).abs().max().item(), tol)
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    out["plain_on_card"] = qkv_attention.plain_on_card
+    if ax.backend == "gloo":
+        out["gloo_probe"] = _sp_gloo_probe(torch, dist, mesh)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_pipe(torch, config=None, dtype=None):
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
+    from kandinsky2_tpu_torch.utils import stub_tokenizers
+
+    tok1, tok2 = stub_tokenizers()
+    kw = {} if config is None else {"config": config}
+    pipe = Kandinsky2_1(tokenizer1=tok1, tokenizer2=tok2, dtype=dtype or torch.bfloat16,
+                        device="cuda", **kw)
+    pipe.init_random_params(torch.Generator(device="cuda").manual_seed(0))
+    return pipe
+
+
+def _sp_latents(pipe):
+    """Keep the latents of every decode of ``pipe`` (this rank's rows)."""
+    seen = []
+    inner = pipe._decode
+
+    def decode(latents):
+        seen.append(latents)
+        return inner(latents)
+
+    pipe._decode = decode
+    return seen
+
+
+def sp_rank_t2i(mesh, steps: int):
+    """20b on one rank: the full-width 2.1 text2img, unsharded on rank 0
+    and then row-sharded over every rank with the same injected noise (a
+    warm-up call and a timed one); the launches of the timed call, its
+    seconds and peak memory, the latents' distance from the unsharded
+    ones.  Then the small width in fp32, sharded against unsharded."""
+    import numpy as np
+    import torch
+
+    from kandinsky2_tpu_torch.configs import small_config
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+    from kandinsky2_tpu_torch.parallel.collectives import all_gather
+
+    _sp_rank_setup(torch)
+    ax = mesh.axis()
+    rng = np.random.RandomState(20)
+    noise = dict(noise=rng.randn(1, 96, 96, 4).astype(np.float32),
+                 prior_noise=rng.randn(1, 768).astype(np.float32),
+                 prior_noise_seq=rng.randn(25, 1, 768).astype(np.float32))
+    kw = dict(SP21, num_steps=steps, **noise)
+    t0 = time.perf_counter()
+    pipe = _sp_pipe(torch)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    seen = _sp_latents(pipe)
+    if ax.index == 0:
+        ref_img = pipe.generate_text2img(PROMPT, **kw)
+        ref_lat = seen[-1]
+    pipe.generate_text2img(PROMPT, sp_mesh=mesh, **kw)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_path_counts()
+    t0 = time.perf_counter()
+    img = pipe.generate_text2img(PROMPT, sp_mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    out["plain_on_card"] = qkv_attention.plain_on_card
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    lat = all_gather(seen[-1], ax, dim=1)
+    if ax.index == 0:
+        out["latent_rel_l2"] = _sp_rel(torch, lat, ref_lat)
+        out["image"] = (img.shape, bool(np.isfinite(img).all()), float(img.std()),
+                        float(np.abs(img - ref_img).max()))
+    del pipe, seen
+    gc.collect()  # the latents hook ties the pipeline in a reference cycle
+    torch.cuda.empty_cache()
+
+    # the small width in fp32: the sharded image against the unsharded one
+    small = _sp_pipe(torch, small_config(head_channels=64), torch.float32)
+    kw = dict(num_steps=4, guidance_scale=4, h=128, w=128, prior_steps="5",
+              output="float", noise=rng.randn(1, 16, 16, 4).astype(np.float32))
+    small.set_seed(3)
+    whole = small.generate_text2img(PROMPT, **kw)
+    small.set_seed(3)
+    got = small.generate_text2img(PROMPT, sp_mesh=mesh, **kw)
+    out["small_fp32_rel_l2"] = float(np.linalg.norm(got - whole) / np.linalg.norm(whole))
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank_highres(mesh):
+    """20c on one rank: ``examples.highres_sp_decode`` of the full MoVQ at
+    4096² (the ring: 262,144 tokens) with its launches, then 2048² with the
+    gathered and with the ring attention, the two images compared."""
+    import torch
+
+    from kandinsky2_tpu_torch.examples.highres_sp_decode import decode_rank
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+
+    _sp_rank_setup(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    reset_path_counts()
+    r = decode_rank(mesh, 4096, True, "cuda", keep_image=False)
+    img = r.pop("device_image")
+    out["4096"] = dict(r, launches=launch_counts(), plain_on_card=qkv_attention.plain_on_card,
+                       shape=tuple(img.shape), finite=bool(torch.isfinite(img).all()),
+                       std=img.float().std().item())
+    del img, r
+    torch.cuda.empty_cache()
+    imgs = {}
+    for impl in ("gathered", "ring"):
+        r = decode_rank(mesh, 2048, True, "cuda", impl=impl, keep_image=False)
+        imgs[impl] = r.pop("device_image")
+        out[f"2048 {impl}"] = r
+    out["2048 ring vs gathered rel_l2"] = _sp_rel(torch, imgs["ring"], imgs["gathered"])
+    out["2048 finite"] = all(bool(torch.isfinite(i).all()) for i in imgs.values())
+    del imgs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_kernel_rows(torch, F):
+    """20a's timing, in this process: K1 (the moments entry of a sharded
+    GroupNorm) and K2 at a rank's shard of the 768² path's GroupNorms, and
+    K3 at its shard's attention shapes (4 ranks), each beside its plain
+    version, the library call and the bound, as phase 3."""
+    from kandinsky2_tpu_torch.ops import group_norm as gn
+    from kandinsky2_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_attention_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rows = {"group_norm_stats": [], "group_norm_apply": [], "flash_attention_fwd": []}
+    for label, (B, N, C) in (("sp4 unet ds1 shard", (2, 2304, 384)),
+                             ("sp4 movq 768^2 shard", (1, 147456, 128))):
+        x = torch.randn((B, N, C), generator=g, device="cuda").bfloat16()
+        m, mp = gn.group_norm_moments(x, 32), gn.group_moments_plain(x, 32)
+        torch.cuda.synchronize()
+        err1 = (m - mp).abs().max().item()
+        tol1 = 1e-4 * mp.abs().max().item()
+        a = torch.rand((B, C), generator=g, device="cuda") + 0.5
+        b = 0.1 * torch.randn((B, C), generator=g, device="cuda")
+        y, yp = gn.group_norm_apply(x, a, b, 1.0), gn.group_norm_apply_plain(x, a, b, 1.0)
+        err2 = (y.float() - yp.float()).abs().max().item()
+        tol2 = 2 ** -7 * max(1.0, yp.float().abs().max().item())
+        xs = cold_copies(x)
+        t1 = timed_turns({"kernel": lambda: gn.group_norm_moments(xs(), 32),
+                          "plain": lambda: gn.group_moments_plain(xs(), 32)}, 20)
+        t2 = timed_turns({"kernel": lambda: gn.group_norm_apply(xs(), a, b, 1.0),
+                          "plain": lambda: gn.group_norm_apply_plain(xs(), a, b, 1.0)}, 20)
+        b1 = bound(3 * B * N * C, B * N * C * 2 + B * 32 * 3 * 4, PEAK_FP32)
+        b2 = bound(6 * B * N * C, 2 * B * N * C * 2 + 2 * B * C * 4, PEAK_FP32)
+        for name, t, bnd, err, tol in (("group_norm_stats", t1, b1, err1, tol1),
+                                       ("group_norm_apply", t2, b2, err2, tol2)):
+            print(f"sp {name} {label} [{B}, {N}, {C}] bf16: max_abs_err {err:.3e} "
+                  f"(tol {tol:.3e})")
+            _print_times(f"sp {name}", label, t, *bnd)
+            check(err <= tol, f"{name} disagrees at {label}")
+            rows[name].append(_row(label, (B, N, C), err, t, *bnd))
+    for label, (B, T, S, H, d) in (("sp4 unet ds2 shard", (2, 576, 2391, 12, 64)),
+                                   ("sp4 unet ds4 shard", (2, 144, 663, 18, 64)),
+                                   ("sp4 unet ds8/middle shard", (2, 36, 231, 24, 64)),
+                                   ("sp4 movq mid shard", (1, 2304, 9216, 1, 512)),
+                                   ("sp4 4096^2 ring block", (1, 65536, 65536, 1, 512))):
+        q = torch.randn((B, T, H, d), generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn((B, S, H, d), generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        qt, kt, vt = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        o, _ = flash_attention_fwd(q, k, v)
+        big = T * S > 2**30  # the plain version's fp32 logits would be 17 GB
+        ref = (F.scaled_dot_product_attention(qt, kt, vt).permute(0, 2, 1, 3) if big
+               else flash_attention_plain(q, k, v)[0])
+        torch.cuda.synchronize()
+        err = (o.float() - ref.float()).abs().max().item()
+        tol = 2e-2 * ref.float().abs().max().item()
+        fns = {"kernel": lambda: flash_attention_fwd(q, k, v),
+               "library": lambda: F.scaled_dot_product_attention(qt, kt, vt)}
+        if not big:
+            fns["plain"] = lambda: flash_attention_plain(q, k, v)
+        times = timed_turns(fns, 2 if big else 10)
+        times.setdefault("plain", None)
+        bnd = bound(4 * B * H * T * S * d, 2 * (2 * B * T + 2 * B * S) * H * d
+                    + 4 * B * H * T, PEAK_BF16)
+        print(f"sp K3 {label} B={B} T={T} S={S} H={H} d={d}: max_abs_err {err:.3e} "
+              f"(tol {tol:.3e}) against {'SDPA' if big else 'the plain version'}")
+        plain = ("not measured (its fp32 logits would be 17 GB)" if big
+                 else "%.4f ms" % times["plain"])
+        print(f"sp K3 {label}: kernel {times['kernel']:.4f} ms plain {plain} library "
+              f"{times['library']:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), "
+              f"{bnd[0] / times['kernel']:.1%} of it")
+        check(err <= tol, f"K3 disagrees at {label}")
+        rows["flash_attention_fwd"].append(_row(label, (B, T, S, H, d), err, times, *bnd))
+        del q, k, v, qt, kt, vt, o, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_spatial(torch, smi: str, sp_steps: int):
+    """20: spatial parallelism on the card.  20a the primitives on 4 gloo
+    ranks sharing the card and on 1 NCCL rank, and the kernels' times at
+    the shard shapes in this process; 20b sp21-768; 20c highres-sp.
+    Every rank group runs under a deadline (killed and failed if it
+    hangs).  Returns (sp21 launches per rank, highres launches per rank,
+    the timed rows)."""
+    import torch.nn.functional as F
+
+    from kandinsky2_tpu_torch.parallel.launch import RankPool
+
+    t_phase = time.perf_counter()
+    # the ranks' allocators grow their segments in place (less fragmentation
+    # where four ranks fill the card at 4096²); this process's is set already
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    gloo = RankPool(SP_WORLD, "gloo", device="cuda", init_timeout=300)
+    nccl = RankPool(1, "nccl", device="cuda", init_timeout=300)
+    gloo.start()
+    nccl.start()
+    try:
+        # 20a
+        sp_rows = _sp_kernel_rows(torch, F)
+        for name, pool in (("gloo x4", gloo), ("nccl x1", nccl)):
+            res = pool.run(sp_rank_primitives, timeout=300)
+            for r in res:
+                for what, err, tol in r["checks"]:
+                    print(f"sp 20a {name} rank {r['rank']}: {what}: {err:.3e} (tol {tol:.3e})")
+                    check(err <= tol, f"20a {name} rank {r['rank']}: {what}")
+                print(f"sp 20a {name} rank {r['rank']}: launches {json.dumps(r['launches'])}, "
+                      f"attention calls on the card by the plain route {r['plain_on_card']}")
+                check(all(r["launches"][k] > 0 for k in FORWARD_KERNELS),
+                      f"20a {name}: a kernel was not launched")
+                check(r["plain_on_card"] == 0, f"20a {name}: attention missed K3")
+            if "gloo_probe" in res[0]:
+                print(f"sp 20a gloo with CUDA tensors: {json.dumps(res[0]['gloo_probe'])}")
+        nccl.close()
+        print(f"time: phase 20a {time.perf_counter() - t_phase:.1f} s")
+
+        # 20b
+        t0 = time.perf_counter()
+        res = gloo.run(sp_rank_t2i, sp_steps, timeout=420)
+        r0 = res[0]
+        shape, finite, std, diff = r0["image"]
+        print(f"sp21-768: built the full pipeline on each rank in "
+              f"{max(r['build_s'] for r in res):.2f} s; image {shape} finite {finite} "
+              f"std {std:.4f}, max |sharded - unsharded| {diff:.4e}; latents rel_l2 "
+              f"{r0['latent_rel_l2']:.4e} (tol {SP21_LATENT_TOL}); small fp32 image "
+              f"rel_l2 {r0['small_fp32_rel_l2']:.4e} (tol {SP_FP32_TOL})")
+        check(finite and std > 0 and shape == (1, 768, 768, 3), "sp21-768 image")
+        check(r0["latent_rel_l2"] <= SP21_LATENT_TOL, "sp21-768 latents")
+        check(r0["small_fp32_rel_l2"] <= SP_FP32_TOL, "sp21 small fp32 image")
+        for r in res:
+            check_full_launches(f"sp21-768 rank {res.index(r)}", r["launches"], sp_steps,
+                                encoded=False)
+            check(r["plain_on_card"] == 0, "sp21-768: attention missed K3")
+        sec = max(r["seconds"] for r in res)
+        print(f"sp21-768: {sec:.4f} s/image on {SP_WORLD} ranks sharing the card "
+              f"(768^2, DDIM {sp_steps}, prior 25, CFG 4, bf16); peak memory per rank "
+              + ", ".join(f"{r['peak_gib']:.2f}" for r in res)
+              + f" GiB (phase 5, unsharded: 7.37 GiB); {smi}")
+        sp21_launches = res[0]["launches"]
+        print(f"time: phase 20b {time.perf_counter() - t0:.1f} s")
+
+        # 20c
+        t0 = time.perf_counter()
+        print(f"highres-sp: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+              f"GiB; the card's memory in use: {smi_memory()}")
+        res = gloo.run(sp_rank_highres, timeout=420)
+        full = [r["4096"] for r in res]
+        for i, r in enumerate(full):
+            print(f"highres-sp rank {i}: 4096^2 {r['shape']} finite {r['finite']} "
+                  f"std {r['std']:.4f} in {r['seconds']:.3f} s, peak "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB; launches "
+                  f"{json.dumps(r['launches'])}, plain route {r['plain_on_card']}")
+            check(r["finite"] and r["std"] > 0 and r["shape"] == (1, 4096, 4096, 3),
+                  "highres-sp 4096^2 image")
+            check(all(r["launches"][k] > 0 for k in FORWARD_KERNELS),
+                  "highres-sp: a kernel was not launched")
+            check(r["plain_on_card"] == 0, "highres-sp: attention missed K3")
+        rel = res[0]["2048 ring vs gathered rel_l2"]
+        print(f"highres-sp: 2048^2 gathered {res[0]['2048 gathered']['seconds']:.3f} s, "
+              f"ring {res[0]['2048 ring']['seconds']:.3f} s, finite "
+              f"{res[0]['2048 finite']}, ring against gathered rel_l2 {rel:.4e} "
+              f"(tol {SP21_LATENT_TOL}); 4096^2 {max(r['seconds'] for r in full):.3f} s "
+              f"on {SP_WORLD} ranks; {smi}")
+        check(res[0]["2048 finite"] and rel <= SP21_LATENT_TOL,
+              "highres-sp: 2048^2 ring and gathered disagree")
+        highres_launches = full[0]["launches"]
+        print(f"time: phase 20c {time.perf_counter() - t0:.1f} s")
+    finally:
+        gloo.close()
+        nccl.close()
+    return sp21_launches, highres_launches, sp_rows
+
+
 def phase_clock():
     """A function that prints the seconds since its last call (the phase
     just run) and since the first, under a label."""
@@ -3349,6 +3828,7 @@ def main() -> int:
         return 2
 
     # 1. device
+    t_script = time.perf_counter()
     lap = phase_clock()
     smi = smi_line()
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
@@ -3525,6 +4005,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("phase 19c")
 
+    # 20. spatial parallelism: the primitives, sp21-768 and highres-sp on 4
+    # gloo ranks sharing the card (and the primitives on 1 NCCL rank); 20b
+    # at DDIM 5 where the script would otherwise pass 950 s (phase 20 takes
+    # about a minute at DDIM 10)
+    sp_steps = SP21["num_steps"] if time.perf_counter() - t_script + 60 <= 950 else 5
+    sp21_counts, highres_counts, sp_rows = phase_spatial(torch, smi, sp_steps)
+    lap("phase 20")
+
     meta = {
         "group_norm_stats": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
                              "kandinsky2_tpu/ops/group_norm.py:86"),
@@ -3563,11 +4051,16 @@ def main() -> int:
             "dpt_large_launches": dpt["large"][0][name],
             "dpt_hybrid_small_launches": dpt["hybrid"][0][name],
             "controlnet_dpt_hint_launches": dpt["controlnet"][name],
+            "sp21_launches": sp21_counts[name],
+            "highres_sp_launches": highres_counts[name],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "timed_shape": f"{main_row['label']} {main_row['shape']}",
+            "sp_timed": [{k: r[k] for k in ("label", "shape", "ms", "plain_ms",
+                                            "library_ms", "bound_ms", "bound_by")}
+                         for r in sp_rows.get(name, [])],
         })
     print(f"slice: {seconds:.4f} s/image; " + "; ".join(
         f"{task}: {sec:.4f} s/image" for task, (_, sec) in tasks.items())

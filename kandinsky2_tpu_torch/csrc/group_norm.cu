@@ -54,6 +54,12 @@
 //   overlapping launches would count into the same counters.
 // * scale and bias ([C]) and the FiLM pair ([B, C] with a batch stride) are
 //   read as they are stored, bf16 or fp32: no cast launches.
+// * A row-sharded GroupNorm (parallel/spatial.py) runs K1 on each shard
+//   through k2_group_norm_moments: the same launch, whose finish writes the
+//   groups' pivots and shifted sums [B, G, 3] in place of a and b.  The
+//   shards' pivots differ, so the caller shifts every shard's sums to one
+//   pivot before it adds them (ops/group_norm.py, combine_moments), then
+//   hands the coefficients to K2.
 //
 // K2, the apply kernel, replaces the Pallas TPU kernel
 // kandinsky2_tpu/ops/group_norm.py (_apply, kernel _apply_kernel):
@@ -161,13 +167,14 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b) {
 }
 
 struct Params {
-  const void* scale;  // [C]
+  const void* scale;  // [C], null where moments is set
   const void* bias;   // [C]
   const void* fs;     // [B, C] with batch stride film_sb, or null
   const void* fb;
   ll film_sb;
   int param_bf16, film_bf16;
   float eps, cnt;
+  float* moments;     // [B, G, 3] (pivot, sum, sum of squares) out, or null
 };
 
 template <typename T, int VEC>
@@ -275,7 +282,7 @@ __global__ void group_norm_stats_kernel(const T* __restrict__ x, int N, int C,
   for (int k = 0; k < VEC; ++k) {
     const int c = threadIdx.x + k * blockDim.x;
     sc[k] = bi[k] = f1[k] = f2[k] = 0.f;
-    if (c < C) {
+    if (c < C && p.moments == nullptr) {
       sc[k] = load_param(p.scale, c, p.param_bf16);
       bi[k] = load_param(p.bias, c, p.param_bf16);
       if (p.fs != nullptr) {
@@ -311,6 +318,13 @@ __global__ void group_norm_stats_kernel(const T* __restrict__ x, int N, int C,
       t1 += q1[j * G + g];
       t2 += q2[j * G + g];
     }
+    if (p.moments != nullptr) {  // the shard's moments, for a sharded norm
+      float* mo = p.moments + (static_cast<ll>(b) * G + g) * 3;
+      mo[0] = to_f(x0[g * cs]);
+      mo[1] = t1;
+      mo[2] = t2;
+      continue;
+    }
     const float m = t1 / p.cnt;  // the mean less the pivot
     const float var = fmaxf(t2 / p.cnt - m * m, 0.f);
     mean_s[g] = to_f(x0[g * cs]) + m;
@@ -320,7 +334,7 @@ __global__ void group_norm_stats_kernel(const T* __restrict__ x, int N, int C,
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
     const int c = threadIdx.x + k * blockDim.x;
-    if (c >= C) continue;
+    if (c >= C || p.moments != nullptr) continue;
     const int g = c / cs;
     float a = rstd_s[g] * sc[k];
     float bb = bi[k] - mean_s[g] * a;
@@ -490,6 +504,25 @@ int launch_stats(const Plan& q, const void* x, const Params& p, void* a, void* b
   return static_cast<int>(cudaGetLastError());
 }
 
+int stats_of_layout(const Plan* q, const void* x, const Params& p, void* a, void* b,
+                    void* part, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K2_GN(KEY, T, V) \
+  case KEY:              \
+    return launch_stats<T, V>(*q, x, p, a, b, part, s);
+  switch ((q->x_bf16 ? 100 : 0) + q->vec) {
+    K2_GN(108, bf16, 8)
+    K2_GN(104, bf16, 4)
+    K2_GN(102, bf16, 2)
+    K2_GN(101, bf16, 1)
+    K2_GN(4, float, 4)
+    K2_GN(2, float, 2)
+    K2_GN(1, float, 1)
+  }
+#undef K2_GN
+  return -1;
+}
+
 }  // namespace
 
 // K1.  x: contiguous [B, N, C], bf16 (x_bf16 = 1) or fp32, read `vec`
@@ -507,22 +540,21 @@ extern "C" int k2_group_norm_stats(const Plan* q, const void* x, const void* sca
                                    void* a, void* b, void* part, void* stream) {
   const Params p{scale, bias, fs, fb, q->film_sb,
                  static_cast<int>(q->param_bf16), static_cast<int>(q->film_bf16),
-                 static_cast<float>(q->eps), static_cast<float>(q->cnt)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K2_GN(KEY, T, V) \
-  case KEY:              \
-    return launch_stats<T, V>(*q, x, p, a, b, part, s);
-  switch ((q->x_bf16 ? 100 : 0) + q->vec) {
-    K2_GN(108, bf16, 8)
-    K2_GN(104, bf16, 4)
-    K2_GN(102, bf16, 2)
-    K2_GN(101, bf16, 1)
-    K2_GN(4, float, 4)
-    K2_GN(2, float, 2)
-    K2_GN(1, float, 1)
-  }
-#undef K2_GN
-  return -1;
+                 static_cast<float>(q->eps), static_cast<float>(q->cnt), nullptr};
+  return stats_of_layout(q, x, p, a, b, part, stream);
+}
+
+// K1 on one shard of a row-sharded GroupNorm: the same launch as
+// k2_group_norm_stats, whose finish writes each group's pivot and shifted
+// sums, moments [B, G, 3] fp32 (pivot, sum (x - pivot), sum (x - pivot)^2),
+// in place of a and b; the caller combines the shards' moments and hands
+// the coefficients to K2.  Returns as k2_group_norm_stats.
+extern "C" int k2_group_norm_moments(const Plan* q, const void* x, void* moments,
+                                     void* part, void* stream) {
+  const Params p{nullptr, nullptr, nullptr, nullptr, 0, 0, 0,
+                 static_cast<float>(q->eps), static_cast<float>(q->cnt),
+                 static_cast<float*>(moments)};
+  return stats_of_layout(q, x, p, nullptr, nullptr, part, stream);
 }
 
 // K2.  x and y: contiguous [B, N, C] of x's dtype, both aligned to vec

@@ -167,24 +167,34 @@ def predict_eps_from_xstart(sched: Schedule, x_t, t, pred_xstart):
     ) / extract(sched.sqrt_recipm1_alphas_cumprod, t, nd)
 
 
-def dynamic_threshold(x: torch.Tensor, percentile: float = 99.5) -> torch.Tensor:
+def dynamic_threshold(x: torch.Tensor, percentile: float = 99.5,
+                      axis=None) -> torch.Tensor:
     """The dynamic threshold of gaussian_diffusion.py:284-294: the
     ``percentile`` of |x[0]| (linear interpolation, as ``jnp.percentile``),
     at least 1, clips and rescales the whole batch; one scalar from batch
-    element 0, as the reference takes it."""
-    v = x[0].abs().float().flatten()
-    s = torch.clamp(torch.quantile(v, percentile / 100.0), min=1.0)
+    element 0, as the reference takes it.  ``axis`` (a
+    ``parallel.mesh.MeshAxis``): x holds this rank's rows of a row-sharded
+    image, and |x[0]| is gathered over the axis first, so the percentile
+    spans the whole image."""
+    v = x[0].abs().float()
+    if axis is not None:
+        from ..parallel.collectives import all_gather
+
+        v = all_gather(v, axis, dim=0)
+    s = torch.clamp(torch.quantile(v.flatten(), percentile / 100.0), min=1.0)
     return torch.maximum(torch.minimum(x, s), -s) / s
 
 
 def process_xstart(x: torch.Tensor, clip_denoised: bool,
-                   denoised_fn: Optional[Callable] = None) -> torch.Tensor:
-    """``denoised_fn``, then the dynamic threshold where ``clip_denoised``,
-    in the reference's order (gaussian_diffusion.py:284-294)."""
+                   denoised_fn: Optional[Callable] = None,
+                   threshold_axis=None) -> torch.Tensor:
+    """``denoised_fn``, then the dynamic threshold where ``clip_denoised``
+    (over ``threshold_axis`` on row shards), in the reference's order
+    (gaussian_diffusion.py:284-294)."""
     if denoised_fn is not None:
         x = denoised_fn(x)
     if clip_denoised:
-        x = dynamic_threshold(x)
+        x = dynamic_threshold(x, axis=threshold_axis)
     return x
 
 
@@ -236,6 +246,7 @@ def p_mean_variance(
     clip_denoised: bool = True,
     denoised_fn: Optional[Callable] = None,
     channel_axis: int = 1,
+    threshold_axis=None,
 ):
     """p(x_{t-1} | x_t) from a model output (gaussian_diffusion.py:223-322).
     ``channel_axis`` says where the learned-variance channels live: 1 for
@@ -268,12 +279,13 @@ def p_mean_variance(
     if mean_type == MeanType.PREVIOUS_X:
         pred_xstart = process_xstart(
             predict_xstart_from_xprev(sched, x, t, model_output), clip_denoised,
-            denoised_fn)
+            denoised_fn, threshold_axis)
         mean = model_output
     elif mean_type in (MeanType.START_X, MeanType.EPSILON):
         if mean_type == MeanType.EPSILON:
             model_output = predict_xstart_from_eps(sched, x, t, model_output)
-        pred_xstart = process_xstart(model_output, clip_denoised, denoised_fn)
+        pred_xstart = process_xstart(model_output, clip_denoised, denoised_fn,
+                                     threshold_axis)
         mean = q_posterior_mean(sched, pred_xstart, x, t)
     else:
         raise NotImplementedError(mean_type)

@@ -64,10 +64,13 @@ def p_sample_loop(
     noise_seq: Optional[torch.Tensor] = None,
     channel_axis: int = 1,
     model_state=None,
+    threshold_axis=None,
 ) -> torch.Tensor:
     """Ancestral sampling (gaussian_diffusion.py:352-475, samplers.py:65 of
     the JAX package).  ``init_step`` truncates the ladder for img2img
-    (gaussian_diffusion.py:453-455): the loop runs t = init_step-1 down."""
+    (gaussian_diffusion.py:453-455): the loop runs t = init_step-1 down.
+    ``threshold_axis``: x holds row shards, and the dynamic threshold's
+    percentile spans the whole image."""
     num = sched.num_timesteps if init_step is None else init_step
     B = x_T.shape[0]
     x = x_T.float()
@@ -79,7 +82,7 @@ def p_sample_loop(
         out = p_mean_variance(
             sched, model_out, x, t, mean_type=mean_type, var_type=var_type,
             clip_denoised=clip_denoised, denoised_fn=denoised_fn,
-            channel_axis=channel_axis,
+            channel_axis=channel_axis, threshold_axis=threshold_axis,
         )
         noise = _step_noise(generator, noise_seq, pos, x)
         x = out["mean"] if i == 0 else (

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.group_norm import group_norm
+from ..ops.group_norm import group_norm, sharded_group_norm
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -71,11 +71,14 @@ class Conv2d(nn.Conv2d):
         self.weight.data = self.weight.data.to(memory_format=torch.channels_last)
         self.compute_dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, padding=None):
+        """``padding`` (height, width) in place of the layer's own: the
+        row-sharded convolutions of ``parallel/spatial.py`` pad the height
+        with halo rows and pass (0, 1)."""
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b,
-                     self.stride, self.padding)
+                     self.stride, self.padding if padding is None else padding)
         return y.permute(0, 2, 3, 1)
 
 
@@ -84,18 +87,27 @@ class GroupNorm32(nn.Module):
     (shifted by each group's first element, ``ops/group_norm.py``), an
     optional FiLM ``norm(x)·(1+scale)+shift`` folded into the coefficients,
     and optional SiLU (nn.py:26-37).  Runs the GroupNorm kernel pair
-    (``ops/group_norm.py``) on a CUDA tensor."""
+    (``ops/group_norm.py``) on a CUDA tensor.
+
+    ``sp_axis`` (a ``parallel.mesh.MeshAxis``, the counterpart of JAX's
+    ``axis_name``): the rows are sharded over that axis and the statistics
+    span the whole image (``ops.group_norm.sharded_group_norm``)."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
-                 swish: float = 0.0, device=None):
+                 swish: float = 0.0, device=None, sp_axis=None):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
         self.swish = swish
+        self.sp_axis = sp_axis
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
     def forward(self, x, film: Optional[tuple] = None):
+        if self.sp_axis is not None:
+            return sharded_group_norm(x, self.weight, self.bias, self.num_groups,
+                                      self.eps, self.sp_axis, swish=self.swish,
+                                      film=film)
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
                           swish=self.swish, film=film)
 
@@ -131,19 +143,6 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     return x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(
         B, 2 * H, 2 * W, C
     )
-
-
-def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
-    """Nearest resize, NHWC, with F.interpolate's index math
-    src = floor(dst · in/out); an identity-size resize returns x."""
-    B, H, W, C = x.shape
-    if (H, W) == tuple(size):
-        return x
-    h_idx = (torch.arange(size[0], dtype=torch.float32, device=x.device)
-             * (H / size[0])).long()
-    w_idx = (torch.arange(size[1], dtype=torch.float32, device=x.device)
-             * (W / size[1])).long()
-    return x[:, h_idx][:, :, w_idx]
 
 
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:

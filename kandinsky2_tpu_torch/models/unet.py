@@ -14,6 +14,15 @@ Every GroupNorm runs the GroupNorm kernel pair on a CUDA tensor, and the
 spatial attention (encoder K/V prepended to the spatial K/V, so S = T +
 tokens) the flash-attention kernel where ``ops.attention.use_flash_kernel``
 sends it (bf16, d = 64).
+
+Spatial parallelism (``parallel/spatial.py``): with ``sp_axis`` set (a
+``parallel.mesh.MeshAxis``, by ``parallel.spatial.using_sp_axis`` or the
+constructors) the torso takes this rank's rows of a row-sharded latent:
+halo rows before every 3x3 convolution (a top halo before the stride-2
+``Downsample``), statistics over the whole image in every GroupNorm, and
+attention of the local queries against gathered K/V, or the ring above
+``RING_THRESHOLD_TOKENS`` tokens (``unet.py:120-174`` of the JAX package).
+The parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import qkv_attention
+from ..parallel import spatial as _sp
+from ..parallel.collectives import all_gather
 from .layers import (
     AttentionPooling,
     Conv2d,
@@ -39,16 +50,19 @@ from .layers import (
 
 
 class ResBlock(nn.Module):
-    """Residual block with FiLM scale-shift GroupNorm (unet.py:110-220)."""
+    """Residual block with FiLM scale-shift GroupNorm (unet.py:110-220).
+    The nearest upsample and the 2x2 average pool keep even row shards
+    aligned, so only the convolutions and norms see the shards."""
 
     def __init__(self, channels, out_channels, emb_channels,
                  use_scale_shift_norm=True, up=False, down=False,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, sp_axis=None):
         super().__init__()
         self.up, self.down = up, down
+        self.sp_axis = sp_axis
         self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.ModuleList([
-            GroupNorm32(channels, swish=1.0, device=device),
+            GroupNorm32(channels, swish=1.0, device=device, sp_axis=sp_axis),
             nn.Identity(),
             Conv2d(channels, out_channels, dtype=dtype, device=device),
         ])
@@ -57,7 +71,7 @@ class ResBlock(nn.Module):
             nn.SiLU(), Linear(emb_channels, emb_dim, dtype=dtype, device=device),
         ])
         self.out_layers = nn.ModuleList([
-            GroupNorm32(out_channels, swish=1.0, device=device),
+            GroupNorm32(out_channels, swish=1.0, device=device, sp_axis=sp_axis),
             nn.Identity(),
             nn.Identity(),
             Conv2d(out_channels, out_channels, dtype=dtype, device=device),
@@ -75,14 +89,14 @@ class ResBlock(nn.Module):
         elif self.down:
             h = avg_pool_2x(h)
             x = avg_pool_2x(x)
-        h = self.in_layers[2](h)
+        h = _sp.sp_conv3x3(self.in_layers[2], h, self.sp_axis)
         emb_out = self.emb_layers[1](F.silu(emb)).to(h.dtype)[:, None, None, :]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=-1)
             h = self.out_layers[0](h, film=(scale, shift))
         else:
             h = self.out_layers[0](h + emb_out)
-        h = self.out_layers[3](h)
+        h = _sp.sp_conv3x3(self.out_layers[3], h, self.sp_axis)
         if self.skip_connection is not None:
             x = self.skip_connection(x)
         return x + h
@@ -92,13 +106,17 @@ class AttentionBlock(nn.Module):
     """Spatial self-attention with the encoder K/V, where the block has an
     ``encoder_kv`` projection (``encoder_channels`` not None), concatenated
     before the spatial K/V (unet.py:223-340); per-head [q|k|v] channel
-    layout."""
+    layout.  On row shards the local queries attend to the all-gathered
+    spatial K/V, or, above ``RING_THRESHOLD_TOKENS`` tokens, to the ring
+    (``parallel.spatial.sp_ring_attention_mh``) with the encoder K/V as a
+    replicated prefix."""
 
     def __init__(self, channels, num_heads, encoder_channels=None,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, sp_axis=None):
         super().__init__()
         self.num_heads = num_heads
-        self.norm = GroupNorm32(channels, device=device)
+        self.sp_axis = sp_axis
+        self.norm = GroupNorm32(channels, device=device, sp_axis=sp_axis)
         self.qkv = Linear(channels, 3 * channels, dtype=dtype, device=device)
         self.encoder_kv = (None if encoder_channels is None else
                            Linear(encoder_channels, 2 * channels, dtype=dtype,
@@ -111,38 +129,54 @@ class AttentionBlock(nn.Module):
         ch = C // heads
         h = self.norm(x).reshape(B, H * W, C)
         q, k, v = self.qkv(h).reshape(B, H * W, heads, 3 * ch).split(ch, dim=-1)
+        ek = ev = None
         if self.encoder_kv is not None:
             ekv = self.encoder_kv(encoder_out).reshape(
                 B, encoder_out.shape[1], heads, 2 * ch
             )
             ek, ev = ekv.split(ch, dim=-1)
-            k = torch.cat([ek, k], dim=1)
-            v = torch.cat([ev, v], dim=1)
-        a = qkv_attention(q, k, v).reshape(B, H * W, C)
+        sp = self.sp_axis
+        if sp is not None and H * W * sp.size > _sp.RING_THRESHOLD_TOKENS:
+            a = _sp.sp_ring_attention_mh(q, k, v, sp, extra_k=ek, extra_v=ev)
+        else:
+            if sp is not None:
+                k, v = all_gather(k, sp, dim=1), all_gather(v, sp, dim=1)
+            if ek is not None:
+                k = torch.cat([ek, k], dim=1)
+                v = torch.cat([ev, v], dim=1)
+            a = qkv_attention(q, k, v)
+        a = a.reshape(B, H * W, C)
         return x + self.proj_out(a).reshape(B, H, W, C)
 
 
 class Downsample(nn.Module):
-    """Strided-conv downsample (unet.py:80-107)."""
+    """Strided-conv downsample (unet.py:80-107); on row shards a top halo
+    row only (``parallel.spatial.sp_conv3x3_down``)."""
 
-    def __init__(self, channels, out_channels, dtype=torch.float32, device=None):
+    def __init__(self, channels, out_channels, dtype=torch.float32, device=None,
+                 sp_axis=None):
         super().__init__()
+        self.sp_axis = sp_axis
         self.op = Conv2d(channels, out_channels, stride=2, dtype=dtype,
                          device=device)
 
     def forward(self, x):
-        return self.op(x)
+        if self.sp_axis is None:
+            return self.op(x)
+        return _sp.sp_conv3x3_down(self.op, x, self.sp_axis)
 
 
 class Upsample(nn.Module):
-    """Nearest 2x + 3x3 conv (unet.py:48-77)."""
+    """Nearest 2x + 3x3 conv (unet.py:48-77), the halo conv on row shards."""
 
-    def __init__(self, channels, out_channels, dtype=torch.float32, device=None):
+    def __init__(self, channels, out_channels, dtype=torch.float32, device=None,
+                 sp_axis=None):
         super().__init__()
+        self.sp_axis = sp_axis
         self.conv = Conv2d(channels, out_channels, dtype=dtype, device=device)
 
     def forward(self, x):
-        return self.conv(upsample_nearest_2x(x))
+        return _sp.sp_conv3x3(self.conv, upsample_nearest_2x(x), self.sp_axis)
 
 
 def _build_plan(model_channels: int, num_res_blocks: int,
@@ -215,9 +249,10 @@ class UNetModel(nn.Module):
                  channel_mult=(1, 2, 3, 4), num_heads=1, num_head_channels=64,
                  num_heads_upsample=-1, use_scale_shift_norm=True,
                  resblock_updown=True, encoder_channels=None,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, sp_axis=None):
         super().__init__()
         self.dtype = dtype
+        self.sp_axis = sp_axis
         self.model_channels = model_channels
         self.num_head_channels = num_head_channels
         self.num_heads = num_heads
@@ -239,15 +274,17 @@ class UNetModel(nn.Module):
             if kind in ("res", "res_down", "res_up"):
                 return ResBlock(cin, cout, emb_ch, use_scale_shift_norm,
                                 up=kind == "res_up", down=kind == "res_down",
-                                dtype=dtype, device=device)
+                                dtype=dtype, device=device, sp_axis=sp_axis)
             if kind == "attn":
                 return AttentionBlock(cout, self._heads(cout, upsample_branch),
                                       encoder_channels, dtype=dtype,
-                                      device=device)
+                                      device=device, sp_axis=sp_axis)
             if kind == "down":
-                return Downsample(cin, cout, dtype=dtype, device=device)
+                return Downsample(cin, cout, dtype=dtype, device=device,
+                                  sp_axis=sp_axis)
             if kind == "up":
-                return Upsample(cin, cout, dtype=dtype, device=device)
+                return Upsample(cin, cout, dtype=dtype, device=device,
+                                sp_axis=sp_axis)
             raise ValueError(kind)
 
         self.input_blocks = nn.ModuleList(
@@ -265,7 +302,8 @@ class UNetModel(nn.Module):
         )
         # the output head stays fp32 (unet.py:559-572)
         self.out = nn.ModuleList([
-            GroupNorm32(output_plan[-1][-1][2], swish=1.0, device=device),
+            GroupNorm32(output_plan[-1][-1][2], swish=1.0, device=device,
+                        sp_axis=sp_axis),
             nn.Identity(),
             Conv2d(output_plan[-1][-1][2], out_channels, dtype=torch.float32,
                    device=device),
@@ -283,12 +321,13 @@ class UNetModel(nn.Module):
             return self.num_heads_upsample
         return self.num_heads
 
-    @staticmethod
-    def _run_layer(layer, h, emb, encoder_out):
+    def _run_layer(self, layer, h, emb, encoder_out):
         if isinstance(layer, ResBlock):
             return layer(h, emb)
         if isinstance(layer, AttentionBlock):
             return layer(h, encoder_out)
+        if isinstance(layer, Conv2d):  # the input conv: halo rows on shards
+            return _sp.sp_conv3x3(layer, h, self.sp_axis)
         return layer(h)
 
     def run_torso(self, x, emb, encoder_out=None):
@@ -331,7 +370,8 @@ class UNetModel(nn.Module):
             h = torch.cat([h, hs.pop()], dim=-1)
             for layer in layers:
                 h = self._run_layer(layer, h, emb, encoder_out)
-        return self.out[2](self.out[0](h.float())), new_cache
+        out = _sp.sp_conv3x3(self.out[2], self.out[0](h.float()), self.sp_axis)
+        return out, new_cache
 
     def time_embedding(self, timesteps):
         temb = timestep_embedding(timesteps, self.model_channels)

@@ -42,6 +42,13 @@ It stays one pass over x, and every block of a batch row shares the
 pivots, so its partial sums still add.  At ordinary activations the two
 agree to fp32 rounding.
 
+A row-sharded GroupNorm (``sharded_group_norm``, the counterpart of
+``GroupNorm32(axis_name=...)``) runs K1 on its shard through the moments
+entry ``k2_group_norm_moments`` (the same launch, whose finish writes each
+group's pivot and shifted sums), gathers every shard's moments over the
+axis, shifts them to one pivot (``combine_moments``: the shards' pivots
+differ) and folds the coefficients, then runs K2.
+
 Gradients: ``GroupNormFunction`` is the counterpart of the ``custom_vjp``
 of ``pallas_group_norm``.  Its forward is K1 + K2 and saves only the
 inputs; its backward recomputes the norm in plain PyTorch
@@ -114,6 +121,14 @@ def _coefficients(p, s1, s2, cnt, scale, bias, film, g, eps):
     m_g = s1.reshape(B, g, cs).sum(-1) / cnt
     mean_g = p + m_g
     var_g = torch.clamp(s2.reshape(B, g, cs).sum(-1) / cnt - m_g * m_g, min=0.0)
+    return _fold_affine(mean_g, var_g, scale, bias, film, eps)
+
+
+def _fold_affine(mean_g, var_g, scale, bias, film, eps):
+    """Per-channel a, b ([B, C] fp32) of the group statistics mean_g and
+    var_g [B, G], with the affine scale and bias and the FiLM pair."""
+    B, C = mean_g.shape[0], scale.shape[0]
+    cs = C // mean_g.shape[1]
     inv_c = torch.rsqrt(var_g + eps).repeat_interleave(cs, dim=-1)
     mean_c = mean_g.repeat_interleave(cs, dim=-1)
     a = inv_c * scale.float()
@@ -229,7 +244,7 @@ def _lib():
     lib = load_library("group_norm.cu")
     P, I = ctypes.c_void_p, ctypes.c_int
     for name, n in (("k2_group_norm_stats", 10), ("k2_group_norm_apply", 6),
-                    ("k2_group_norm", 9)):
+                    ("k2_group_norm", 9), ("k2_group_norm_moments", 5)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [P] * n, I
     lib.k2_group_norm_layout.argtypes, lib.k2_group_norm_layout.restype = [P, I], I
@@ -283,8 +298,9 @@ def _plan(dtype, device, shape, align, num_groups, eps, swish, params, film,
     kernels take, then fills a _Plan with ``launch_plan``'s geometry and
     the stream's K1 counters.  x is contiguous, [B, ..., C], its data
     pointer ``align`` bytes past 16; ``params`` and ``film`` are the
-    layouts of (scale, bias) and of (fs, fb) or None.  ``num_groups``
-    None: a plan for K2 alone, which needs no counters."""
+    layouts of (scale, bias) and of (fs, fb) or None (``params`` None for
+    K1's moments, which read neither).  ``num_groups`` None: a plan for K2
+    alone, which needs no counters."""
     name = "group_norm_apply" if num_groups is None else "group_norm"
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: the kernels take bf16 or fp32 x")
@@ -303,7 +319,7 @@ def _plan(dtype, device, shape, align, num_groups, eps, swish, params, film,
                  apply_threads=geo.apply_threads,
                  swish_mode=mode, swish=swish)
     part = 0
-    if num_groups is not None:
+    if num_groups is not None and params is not None:
         plan.param_bf16 = _param_bf16(params[0], "scale", device, 1, C)
         if _param_bf16(params[1], "bias", device, 1, C) != plan.param_bf16:
             raise TypeError("group_norm_stats: scale and bias must share a dtype")
@@ -313,6 +329,7 @@ def _plan(dtype, device, shape, align, num_groups, eps, swish, params, film,
             if _param_bf16(film[1], "fb", device, B, C) != plan.film_bf16 or (
                     B > 1 and film[1][3][0] != plan.film_sb):
                 raise TypeError("group_norm_stats: fs and fb must share a dtype and strides")
+    if num_groups is not None:
         plan.stats_splits, plan.stats_rows = geo.stats_splits, geo.stats_rows
         plan.stats_threads, plan.eps = geo.stats_threads, eps
         plan.cnt = float(N * (C // num_groups))
@@ -464,3 +481,77 @@ def group_norm(x, scale, bias, num_groups: int, eps: float, swish: float = 0.0,
     fs, fb = (None, None) if film is None else film
     return GroupNormFunction.apply(x, scale, bias, fs, fb, num_groups,
                                    float(eps), float(swish))
+
+
+# --- row-sharded GroupNorm (parallel/spatial.py) -------------------------------
+
+
+def group_moments_plain(x3: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """K1's moments in plain PyTorch: [B, G, 3] fp32, each group's pivot,
+    Σ(x − p) and Σ(x − p)² over this tensor's rows."""
+    p, s1, s2 = group_norm_moments_plain(x3, num_groups)
+    B, C = s1.shape
+    return torch.stack([p, s1.reshape(B, num_groups, -1).sum(-1),
+                        s2.reshape(B, num_groups, -1).sum(-1)], dim=-1)
+
+
+def group_norm_moments(x3: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """K1 on one shard: its groups' moments [B, G, 3] fp32 (pivot, Σ(x − p),
+    Σ(x − p)²).  For a CPU tensor the plain version; for a CUDA tensor one
+    launch of K1 (``k2_group_norm_moments``), counted as K1's."""
+    if x3.device.type == "cpu":
+        return group_moments_plain(x3, num_groups)
+    _check_cuda(x3, "group_norm_moments")
+    stream = _stream(x3)
+    launch = _plan(x3.dtype, x3.device, x3.shape, x3.data_ptr() % 16, num_groups,
+                   0.0, 0.0, None, None, stream)
+    moments = torch.empty((x3.shape[0], num_groups, 3), dtype=torch.float32,
+                          device=x3.device)
+    part = torch.empty(launch.part, dtype=torch.float32, device=x3.device)
+    group_norm_stats.launches += 1
+    err = _lib().k2_group_norm_moments(launch.ref, x3.data_ptr(), moments.data_ptr(),
+                                       part.data_ptr(), stream)
+    check(err, "group_norm_moments kernel launch")
+    return moments
+
+
+def combine_moments(moments: torch.Tensor, cnt: float):
+    """(mean, var), each [B, G] fp32, of the whole image from the shards'
+    moments [n, B, G, 3], ``cnt`` elements a group on each shard.  The
+    shards' pivots differ, so each shard's sums are first shifted to shard
+    0's pivot (d = p_r − p_0, exact in fp32 for two values of one group
+    within a factor 2 of each other):
+    Σ(x − p_0) = S1 + cnt·d, Σ(x − p_0)² = S2 + 2·d·S1 + cnt·d²; then the
+    single-device formula, in fp64."""
+    m = moments.double()
+    p, s1, s2 = m[..., 0], m[..., 1], m[..., 2]
+    d = p - p[:1]
+    total = cnt * m.shape[0]
+    m1 = (s1 + cnt * d).sum(0) / total
+    m2 = (s2 + 2.0 * d * s1 + cnt * d * d).sum(0) / total
+    var = torch.clamp(m2 - m1 * m1, min=0.0)
+    return (p[0] + m1).float(), var.float()
+
+
+def sharded_group_norm(x, scale, bias, num_groups: int, eps: float, axis,
+                       swish: float = 0.0, film=None):
+    """GroupNorm of x [B, Hl, W, C], this rank's rows of an image sharded
+    over ``axis`` (a ``parallel.mesh.MeshAxis``), with statistics over the
+    whole image: K1's moments of the shard, all-gathered over the axis and
+    combined (``combine_moments``), the coefficients folded in fp32, then
+    K2.  The same function as ``group_norm`` of the unsharded image;
+    inference only (no gradient)."""
+    from ..parallel.collectives import all_gather
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, scale, bias)):
+        raise NotImplementedError("sharded_group_norm has no backward: sp "
+                                  "training is not ported")
+    B, C = x.shape[0], x.shape[-1]
+    if C % num_groups:
+        raise ValueError(f"group_norm: C={C} not divisible by {num_groups}")
+    x3 = x.reshape(B, -1, C).contiguous()
+    moments = all_gather(group_norm_moments(x3, num_groups)[None], axis, dim=0)
+    mean, var = combine_moments(moments, float(x3.shape[1] * (C // num_groups)))
+    a, b = _fold_affine(mean, var, scale, bias, film, eps)
+    return group_norm_apply(x3, a.contiguous(), b.contiguous(), swish).reshape(x.shape)

@@ -4,7 +4,8 @@ random parameters, the weight bridge, the output images), the seeded
 parameter draw :func:`init_random_`, and the decoder half of the 2.0 and
 2.1 pipelines: classifier-free guidance over the CFG-doubled UNet
 (:func:`cfg_mix`) and the five decoder samplers' tables and loops
-(:func:`decoder_schedule`, :func:`sample_latents`).
+(:func:`decoder_schedule`, :func:`sample_latents`), with the per-rank
+noise stream of a row-sharded run (:func:`rank_generator`).
 """
 
 from __future__ import annotations
@@ -163,11 +164,22 @@ def decoder_schedule(diff_cfg: dict, sampler: str, num_steps: int, device=None):
     return dkw, make_schedule(**dkw["make_schedule"], device=device)
 
 
+def rank_generator(generator: torch.Generator, axis) -> torch.Generator:
+    """This rank's own noise stream on row shards (``fold_in`` of the JAX
+    pipeline's key with the axis index): a generator seeded from a draw of
+    the shared ``generator``, the same draw on every rank, and the rank."""
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                             device=generator.device))
+    return torch.Generator(device=generator.device).manual_seed(
+        (seed * 65537 + axis.index) % 2**63)
+
+
 def sample_latents(model_fn: Callable, x_T: torch.Tensor, *, sampler: str,
                    diff_cfg: dict, num_steps: int, init_step: Optional[int],
                    generator: Optional[torch.Generator], eta: float = 0.0,
                    denoised_fn: Optional[Callable] = None, model_state=None,
-                   noise_seq: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   noise_seq: Optional[torch.Tensor] = None,
+                   sp_axis=None) -> torch.Tensor:
     """The decoder sampler's loop from ``x_T`` (the JAX pipelines' latent
     program after the conditioning): ``p_sampler`` (x0 clipped, then
     ``denoised_fn``; ``model_fn`` returns eps and the variance channels),
@@ -175,7 +187,9 @@ def sample_latents(model_fn: Callable, x_T: torch.Tensor, *, sampler: str,
     DPM++ 2M on the uniform or the Karras grid.  ``init_step`` starts a
     truncated ladder: in respaced units for the p_sampler, 1000-step units
     otherwise.  ``model_state`` is the turbo deep cache, threaded through
-    ``model_fn``."""
+    ``model_fn``.  ``sp_axis``: x_T, ``noise_seq`` and the model's
+    activations are this rank's row shard, and the p_sampler's dynamic
+    threshold spans the whole image."""
     dev = x_T.device
     dkw, sched = decoder_schedule(diff_cfg, sampler, num_steps, dev)
     if sampler == "p_sampler":
@@ -183,7 +197,7 @@ def sample_latents(model_fn: Callable, x_T: torch.Tensor, *, sampler: str,
             model_fn, sched, x_T, generator, mean_type=dkw["mean_type"],
             var_type=dkw["var_type"], clip_denoised=True, denoised_fn=denoised_fn,
             init_step=init_step, channel_axis=-1, model_state=model_state,
-            noise_seq=noise_seq)
+            noise_seq=noise_seq, threshold_axis=sp_axis)
     base = sched.base_alphas_cumprod
     if sampler == "ddim_sampler":
         tables = make_ddim_tables(base, num_steps, eta=eta, init_step=init_step,

@@ -18,6 +18,14 @@ not injected is drawn from ``generator``, or from the pipeline's own
 (``set_seed``), never from torch's global one.  Every image entry point takes
 ``output="float"`` for the float NHWC images in [-1, 1] (a numpy array)
 instead of PIL images.
+
+``sp_mesh=`` (a ``parallel.mesh.Mesh`` with an ``"sp"`` axis; one process
+per shard, every rank calling with the same arguments) runs the denoise
+and the MoVQ decode row-sharded over the mesh (``_build_latent_fn`` of the
+JAX pipeline): each rank takes its rows of the same x_T, the conditioning
+is computed on every rank, and every rank returns the whole image.  The
+latent height must keep equal even row shards at every UNet level
+(``parallel.spatial.check_sp_rows``).
 """
 
 from __future__ import annotations
@@ -34,6 +42,14 @@ from ..models.movq import MOVQ
 from ..models.prior import PriorTransformer, prior_sample_fn
 from ..models.text_encoders import CLIPTextTower, CLIPViT, TextEncoder
 from ..models.unet import deep_cache_spec
+from ..parallel.collectives import all_gather
+from ..parallel.spatial import (
+    check_sp_rows,
+    shard_rows,
+    sp_rows_ok,
+    spatial_decode,
+    using_sp_axis,
+)
 from ..utils import (
     as_prompt_list,
     check_noise,
@@ -47,6 +63,7 @@ from .base import (
     cfg_mix,
     check_sampler,
     decoder_schedule,
+    rank_generator,
     sample_latents,
 )
 
@@ -230,15 +247,36 @@ class Kandinsky2_1(Pipeline):
     # the decoder: sampler loop over the UNet, then MoVQ decode
     # ------------------------------------------------------------------
 
-    def _sample_images(self, full_emb, pooled_emb, img_prompt, x_T, *, sampler,
-                       num_steps, guidance_scale, init_step, inpaint_image,
-                       inpaint_mask, turbo_interval, noise_seq, generator):
+    def _sample_images(self, full_emb, pooled_emb, img_prompt, x_T, sp_axis=None,
+                       **kw):
         """The JAX pipeline's latent program: UNet conditioning once, the
         sampler's loop over the CFG-doubled UNet (the deep cache every
         ``turbo_interval`` steps where it is above 1), MoVQ decode.
         Returns the float images [B, H8, W8, 3] in fp32.  The profiler range
         ``k21.unet_<sampler>`` (``k21.unet_ddim`` for DDIM) spans everything
-        but the decode."""
+        but the decode.  ``sp_axis``: the latents, init latent, mask and
+        per-step noise are cut to this rank's rows, the UNet and the MoVQ
+        run on the shards (the p_sampler from this rank's own noise
+        stream), and the decoded rows are gathered."""
+        if sp_axis is None:
+            return self._sample_local(full_emb, pooled_emb, img_prompt, x_T, **kw)
+        x_T = shard_rows(x_T, sp_axis)
+        kw.update(inpaint_image=shard_rows(kw["inpaint_image"], sp_axis),
+                  inpaint_mask=shard_rows(kw["inpaint_mask"], sp_axis),
+                  noise_seq=shard_rows(kw["noise_seq"], sp_axis, dim=2))
+        if kw["sampler"] == "p_sampler":
+            kw["generator"] = rank_generator(kw["generator"], sp_axis)
+        with using_sp_axis(self.unet, sp_axis), using_sp_axis(self.movq, sp_axis):
+            images = self._sample_local(full_emb, pooled_emb, img_prompt, x_T,
+                                        sp_axis=sp_axis, **kw)
+        return all_gather(images, sp_axis, dim=1)
+
+    def _sample_local(self, full_emb, pooled_emb, img_prompt, x_T, *, sampler,
+                      num_steps, guidance_scale, init_step, inpaint_image,
+                      inpaint_mask, turbo_interval, noise_seq, generator,
+                      sp_axis=None):
+        """``_sample_images`` on this rank's tensors: the whole latent, or
+        its row shard with the UNet and the MoVQ set to ``sp_axis``."""
         with record_function("k21.unet_" + sampler.removesuffix("_sampler")):
             B = x_T.shape[0]
             C = self.config["model_config"]["in_channels"]
@@ -282,7 +320,8 @@ class Kandinsky2_1(Pipeline):
             samples = sample_latents(
                 active_fn, x_T, sampler=sampler, diff_cfg=self._decoder_diff_cfg,
                 num_steps=num_steps, init_step=init_step, generator=generator,
-                denoised_fn=denoised_fn, model_state=state, noise_seq=noise_seq)
+                denoised_fn=denoised_fn, model_state=state, noise_seq=noise_seq,
+                sp_axis=sp_axis)
         return self._decode(samples)
 
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
@@ -294,7 +333,8 @@ class Kandinsky2_1(Pipeline):
                      init_step=None, noise=None, init_img=None, img_mask=None,
                      h=512, w=512, sampler="ddim_sampler", num_steps=50,
                      turbo_interval=1, noise_seq=None,
-                     generator: Optional[torch.Generator] = None, output="pil"):
+                     generator: Optional[torch.Generator] = None, output="pil",
+                     sp_mesh=None):
         """The decoder loop and MoVQ decode (kandinsky2_1_model.py:183-292).
         ``img_prompt`` is the CFG-doubled [cond; uncond] image embedding;
         ``noise`` the starting latent x_T [B, h/8, w/8, C]; ``noise_seq``
@@ -302,7 +342,9 @@ class Kandinsky2_1(Pipeline):
         where the ladder is truncated); ``init_img`` and ``img_mask`` the
         inpainting latent and mask.  ``turbo_interval`` > 1 recomputes the
         UNet's deep branch every that many steps and reuses it between
-        (not the reference's trajectory; 1 is)."""
+        (not the reference's trajectory; 1 is).  ``sp_mesh``: the denoise
+        and decode row-sharded over the mesh's "sp" axis (see the module
+        docstring)."""
         check_sampler(sampler)
         if noise_seq is not None and sampler != "p_sampler":
             raise ValueError("noise_seq only applies to the ancestral p_sampler; "
@@ -310,6 +352,10 @@ class Kandinsky2_1(Pipeline):
         dev = self.device
         generator = self._gen(generator)
         new_h, new_w = get_new_h_w(h, w)
+        sp_axis = None
+        if sp_mesh is not None:
+            check_sp_rows(new_h, sp_mesh.shape["sp"], len(self.unet.channel_mult))
+            sp_axis = sp_mesh.axis("sp")
         C = self.config["model_config"]["in_channels"]
         full_emb, pooled_emb = self.encode_text(prompt, batch_size)
         x_T = check_noise(noise, (batch_size, new_h, new_w, C), "noise", dev)
@@ -325,7 +371,8 @@ class Kandinsky2_1(Pipeline):
             sampler=sampler, num_steps=num_steps, guidance_scale=guidance_scale,
             init_step=init_step, inpaint_image=as_dev(init_img, torch.zeros_like(x_T)),
             inpaint_mask=as_dev(img_mask, torch.zeros_like(x_T[..., :1])),
-            turbo_interval=turbo_interval, noise_seq=nseq, generator=generator)
+            turbo_interval=turbo_interval, noise_seq=nseq, generator=generator,
+            sp_axis=sp_axis)
         return self._output(images, output, h, w)
 
     def _image_prompt(self, image_emb, negative_decoder_prompt, batch_size, **prior_kw):
@@ -346,10 +393,12 @@ class Kandinsky2_1(Pipeline):
         prior_steps="25", negative_prior_prompt="", negative_decoder_prompt="",
         turbo_interval=1, noise=None, prior_noise=None, noise_seq=None,
         prior_noise_seq=None, generator: Optional[torch.Generator] = None,
-        output="pil",
+        output="pil", sp_mesh=None,
     ):
         """kandinsky2_1_model.py:299-351: the prior's image embedding, then
-        ``generate_img``.  ``noise`` is the decoder x_T [B, h/8, w/8, 4],
+        ``generate_img`` (row-sharded over ``sp_mesh`` where given; the JAX
+        pipeline's staged path, as its fused program is single-device).
+        ``noise`` is the decoder x_T [B, h/8, w/8, 4],
         ``prior_noise`` the prior x_T [B, clip_dim] (of the positive prior
         run), ``noise_seq`` and ``prior_noise_seq`` their per-step
         ancestral noise; ``prompt`` may be a list of B prompts."""
@@ -367,7 +416,7 @@ class Kandinsky2_1(Pipeline):
             prompt=prompt, img_prompt=img_prompt, batch_size=batch_size,
             guidance_scale=guidance_scale, h=h, w=w, sampler=sampler,
             num_steps=num_steps, turbo_interval=turbo_interval, noise=noise,
-            noise_seq=noise_seq, generator=generator, output=output)
+            noise_seq=noise_seq, generator=generator, output=output, sp_mesh=sp_mesh)
 
     @torch.inference_mode()
     def generate_text2img_hires(
@@ -375,13 +424,15 @@ class Kandinsky2_1(Pipeline):
         sampler="ddim_sampler", low_scale=0.5, low_steps=None, strength=0.65,
         prior_cf_scale=4, prior_steps="25", negative_prior_prompt="",
         turbo_interval=1, noise=None, prior_noise=None,
-        generator: Optional[torch.Generator] = None, output="pil",
+        generator: Optional[torch.Generator] = None, output="pil", sp_mesh=None,
     ):
         """Two stages (kandinsky2_1.py:786 of the JAX package): the whole
         ladder at ``low_scale`` of the size, a LANCZOS upsample of its
         8-bit images, then img2img at full size with ``strength``; the
         prior runs once and both stages use its embedding.  ``noise`` is
-        the img2img re-noising draw."""
+        the img2img re-noising draw.  With ``sp_mesh`` the full-size stage
+        is row-sharded, and the low stage too where its own latent height
+        keeps equal even shards."""
         from PIL import Image
 
         batch_size = resolve_batch(prompt, batch_size)
@@ -391,18 +442,23 @@ class Kandinsky2_1(Pipeline):
             noise=prior_noise, generator=generator)
         image_emb = self._image_prompt(image_emb, "", batch_size)
         lo_h, lo_w = max(64, int(h * low_scale)), max(64, int(w * low_scale))
+        low_sp = sp_mesh
+        if sp_mesh is not None and not sp_rows_ok(
+                get_new_h_w(lo_h, lo_w)[0], sp_mesh.shape["sp"],
+                len(self.unet.channel_mult)):
+            low_sp = None
         low = self.generate_img(
             prompt=prompt, img_prompt=image_emb, batch_size=batch_size,
             guidance_scale=guidance_scale, h=lo_h, w=lo_w, sampler=sampler,
             num_steps=low_steps or num_steps, turbo_interval=turbo_interval,
-            generator=generator)
+            generator=generator, sp_mesh=low_sp)
         ups = [im.resize((w, h), Image.LANCZOS) for im in low]
         return self.generate_img2img(
             prompt, ups, strength=strength, num_steps=num_steps,
             batch_size=batch_size, guidance_scale=guidance_scale, h=h, w=w,
             sampler=sampler, prior_cf_scale=prior_cf_scale, prior_steps=prior_steps,
             image_emb=image_emb, turbo_interval=turbo_interval, noise=noise,
-            generator=generator, output=output)
+            generator=generator, output=output, sp_mesh=sp_mesh)
 
     @torch.inference_mode()
     def mix_images(
@@ -410,6 +466,7 @@ class Kandinsky2_1(Pipeline):
         h=512, w=512, sampler="ddim_sampler", prior_cf_scale=4, prior_steps="25",
         negative_prior_prompt="", negative_decoder_prompt="", noise=None,
         noise_seq=None, generator: Optional[torch.Generator] = None, output="pil",
+        sp_mesh=None,
     ):
         """The weighted sum of image embeddings, of texts through the prior
         and of PIL images through CLIP ViT (kandinsky2_1_model.py:353-425),
@@ -434,7 +491,7 @@ class Kandinsky2_1(Pipeline):
             prompt="", img_prompt=img_prompt, batch_size=batch_size,
             guidance_scale=guidance_scale, h=h, w=w, sampler=sampler,
             num_steps=num_steps, noise=noise, noise_seq=noise_seq,
-            generator=generator, output=output)
+            generator=generator, output=output, sp_mesh=sp_mesh)
 
     @torch.inference_mode()
     def generate_img2img(
@@ -442,7 +499,7 @@ class Kandinsky2_1(Pipeline):
         guidance_scale=7, h=512, w=512, sampler="ddim_sampler", prior_cf_scale=4,
         prior_steps="25", image_emb=None, turbo_interval=1, noise=None,
         prior_noise=None, noise_seq=None,
-        generator: Optional[torch.Generator] = None, output="pil",
+        generator: Optional[torch.Generator] = None, output="pil", sp_mesh=None,
     ):
         """kandinsky2_1_model.py:427-484: MoVQ-encode the init image (one,
         or a list of B), re-noise it to the step ``strength`` gives and run
@@ -482,7 +539,7 @@ class Kandinsky2_1(Pipeline):
             guidance_scale=guidance_scale, h=h, w=w, sampler=sampler,
             num_steps=num_steps, noise=latent, init_step=start_step,
             turbo_interval=turbo_interval, noise_seq=noise_seq, generator=generator,
-            output=output)
+            output=output, sp_mesh=sp_mesh)
 
     @torch.inference_mode()
     def generate_inpainting(
@@ -490,7 +547,7 @@ class Kandinsky2_1(Pipeline):
         guidance_scale=7, h=512, w=512, sampler="ddim_sampler", prior_cf_scale=4,
         prior_steps="25", negative_prior_prompt="", negative_decoder_prompt="",
         noise=None, prior_noise=None, noise_seq=None,
-        generator: Optional[torch.Generator] = None, output="pil",
+        generator: Optional[torch.Generator] = None, output="pil", sp_mesh=None,
     ):
         """kandinsky2_1_model.py:486-548: the init image's MoVQ latent and
         the mask (1 = keep, 0 = inpaint; one, or a list of B, at the
@@ -527,11 +584,18 @@ class Kandinsky2_1(Pipeline):
             prompt=prompt, img_prompt=image_emb, batch_size=batch_size,
             guidance_scale=guidance_scale, h=h, w=w, sampler=sampler,
             num_steps=num_steps, init_img=latent, img_mask=mask, noise=noise,
-            noise_seq=noise_seq, generator=generator, output=output)
+            noise_seq=noise_seq, generator=generator, output=output, sp_mesh=sp_mesh)
 
     @torch.inference_mode()
-    def decode_latents(self, latents, output="pil"):
-        """MoVQ-decode sampler latents [B, h/8, w/8, 4] to images."""
-        images = self._decode(torch.as_tensor(latents, dtype=torch.float32,
-                                              device=self.device))
+    def decode_latents(self, latents, output="pil", sp_mesh=None, axis="sp"):
+        """MoVQ-decode sampler latents [B, h/8, w/8, 4] to images.  With
+        ``sp_mesh`` the decode runs row-sharded over the mesh's ``axis``
+        (``parallel.spatial.spatial_decode``), for sizes whose decoder
+        activations do not fit one card; every rank gets every image."""
+        lat = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
+        if sp_mesh is None:
+            return self._output(self._decode(lat), output)
+        with record_function("k21.movq_decode"):
+            images = spatial_decode(self.movq, (lat / self.scale).to(self.dtype),
+                                    sp_mesh, axis=axis, method="decode").float()
         return self._output(images, output)

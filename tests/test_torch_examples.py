@@ -19,12 +19,14 @@ JAX_DIR = os.path.join(ROOT, "examples")
 
 
 def test_the_eighteen_single_card_examples_are_ported():
-    """Every JAX example but the two that need spatial parallelism."""
+    """Every JAX example but the two that need spatial parallelism is in
+    ``run_all``; of those two, ``highres_sp_decode`` is ported (and run on
+    its own ranks below), ``train_sp`` waits for sp training."""
     jax_scripts = {f[:-3] for f in os.listdir(JAX_DIR)
                    if f.endswith(".py") and f != "common.py"}
     assert set(run_all.EXAMPLES) == jax_scripts - {"train_sp", "highres_sp_decode"}
     assert len(run_all.EXAMPLES) == 18
-    for name in run_all.EXAMPLES:
+    for name in [*run_all.EXAMPLES, "highres_sp_decode"]:
         assert os.path.exists(os.path.join(PORT_DIR, f"{name}.py")), name
 
 
@@ -87,3 +89,34 @@ def test_no_example_does_work_at_import():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120, env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0 and proc.stdout == "", proc.stdout + proc.stderr
+
+
+def test_highres_sp_decode_small_on_two_cpu_ranks(capsys):
+    """The spatially parallel decode with ``--small`` over 2 gloo ranks on
+    the CPU: a finite 64² image, every rank's rows gathered."""
+    from kandinsky2_tpu_torch.examples import highres_sp_decode
+
+    highres_sp_decode.main(["--small", "--world", "2", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "2 ranks on cpu, image rows sharded 2-way"
+    assert lines[-1].startswith("decoded 64²x3 in ") and lines[-1].endswith("finite=True")
+
+
+def test_highres_sp_decode_flags_are_the_jax_scripts():
+    """``--res`` and ``--full`` as the JAX script's (its defaults too);
+    ``--world`` (ranks) in place of its ``--cpu N`` (virtual devices), and
+    the port's ``--device`` and ``--small``."""
+    def flags(path):
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        return {ast.literal_eval(n.args[0]): {kw.arg: ast.unparse(kw.value)
+                                              for kw in n.keywords if kw.arg != "help"}
+                for n in ast.walk(tree) if isinstance(n, ast.Call)
+                and getattr(n.func, "attr", None) == "add_argument"}
+
+    jax_flags = flags(os.path.join(JAX_DIR, "highres_sp_decode.py"))
+    port_flags = flags(os.path.join(PORT_DIR, "highres_sp_decode.py"))
+    assert {k: v for k, v in port_flags.items()
+            if k not in ("--world", "--device", "--small")} == \
+        {k: v for k, v in jax_flags.items() if k != "--cpu"}
+    assert port_flags["--world"]["type"] == jax_flags["--cpu"]["type"] == "int"

@@ -52,7 +52,9 @@ def test_port_imports_no_jax():
                  "weights.realistic", "weights.safetensors_file", "serving",
                  "serving_http", "validate", "weights.convert", "weights.hub",
                  "weights.load_kandinsky", "weights.load_kandinsky22", "models.dpt",
-                 "examples.common", "examples.train_lora_22", "examples.run_all"):
+                 "examples.common", "examples.train_lora_22", "examples.run_all",
+                 "parallel.mesh", "parallel.collectives", "parallel.spatial",
+                 "parallel.launch", "examples.highres_sp_decode"):
         assert f"kandinsky2_tpu_torch.{name}" in proc.stdout.split(), name
 
 
