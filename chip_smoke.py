@@ -166,7 +166,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    share; 9 requests queued before ``start()`` (buckets 4, 4, 1, no
    padding) with their requests/s and launches, then 3 more after a
    restart (one bucket 4, one padded row); rows 0 and 3 of a batch-4 call
-   against those prompts alone with the same injected noise: in an fp32
+   against those prompts alone with the same injected noise, at DDIM 10
+   and prior "5" (``SERVE21_ROWS``, a depth cut for time): in an fp32
    copy of the pipeline (no rounding to hide a row that took another's
    work) latents and images within 5e-2 relative L2; in bf16 the latents
    within 5e-2 and the images within ROW_FACTOR times the row's own bf16
@@ -254,6 +255,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    4096² (262,144 latent tokens: the ring) with its launches, seconds and
    peak memory per rank, and at 2048² the gathered and the ring images
    agreeing.  Every rank group has a deadline.
+21. row-sharded training (last, on a fresh pool of 4 gloo ranks sharing
+   the card, and 1 NCCL rank): 21a in bf16 at the 768² path's shard shapes
+   the sharded GroupNorm's gradient (x, scale, bias, FiLM) against the
+   unsharded op's, K5 + K4 on local query rows against gathered K/V
+   against the plain backward, and the gradients through the gathered
+   attention and through the ring (K3, K5 and K4 once a ring step) against
+   the unsharded kernels' (each K/V gradient arriving at its owner); in
+   this process K5 and K4 timed at a rank's shard shapes and at one ring
+   step's block beside the plain backward, SDPA's backward and the bound.
+   21c the small width: the example's tiny UNet in fp32 on a (data 2, sp 2)
+   mesh, two steps within 1e-5 relative L2 of the same steps unsharded at
+   batch 2; a bf16 step with the ring forced, its launches pinned, against
+   the gathered step.  21b sp-train-768: CONFIG_2_1's UNet at 768² on a
+   (data 1, sp 4) mesh, batch 1, fp32 parameters, bf16 compute, Adafactor
+   at 5e-6, the loss-second-moment sampler, no EMA, remat: rank 0's
+   unsharded step with the same injected t and noise first (loss within
+   1e-2, named gradients within 5e-2), then a warm-up and three timed
+   steps (one where the script would pass 950 s there), the parameters
+   bitwise equal across the ranks after every step (digests) and every
+   one moved, K1 = K2 = 190, K3 = 44 and K4 = K5 = 22 a step a rank,
+   s/step, the all-reduce's seconds and the peak memory per rank.
 Phases 15-17 time their stages with ``observability.StageReport``.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
@@ -268,6 +290,7 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2429,8 +2452,13 @@ SERVE21 = {k: v for k, v in FULL_TASK.items() if k != "output"}
 # phase 15: a bf16 row of a batch-4 call may stand as far from the same
 # prompt alone as bf16 stands from fp32 on that row, and half as far again
 # (1.02 and 1.04 times on an H100 80GB HBM3 at 700 W; a row that took
-# another's work reads about 1.26 against bf16 drifts of 0.09-0.11)
+# another's work reads about 1.26 against bf16 drifts of 0.09-0.11; both
+# at DDIM 50)
 ROW_FACTOR = 1.5
+# phase 15's rows check at a cut depth, DDIM 10 and prior "5": a row that
+# took another's work shows at any depth, and at full depth the fp32 copy's
+# three calls took 49 s of the script's time limit (an H100 80GB HBM3 at 700 W)
+SERVE21_ROWS = dict(SERVE21, num_steps=10, prior_steps="5")
 
 
 def rel_l2(a, b) -> float:
@@ -2535,14 +2563,15 @@ def phase_serve21(torch, np, smi: str, pipe):
     # matching rows of the same injected noise, in bf16 (the served
     # pipeline, kernels) and in fp32 (its weights in an fp32 copy, TF32
     # off: the rounding is gone, so a row that took another row's work
-    # would show).  The decoder's latents are compared too: the random
-    # MoVQ decoder magnifies their bf16 drift about tenfold (1e-2 in the
-    # latents, 0.09-0.12 in the images on an H100 80GB HBM3 at 700 W)
+    # would show), at SERVE21_ROWS' depth.  The decoder's latents are
+    # compared too: the random MoVQ decoder magnifies their bf16 drift about
+    # tenfold (at DDIM 50: 1e-2 in the latents, 0.09-0.12 in the images on
+    # an H100 80GB HBM3 at 700 W)
     rng = np.random.RandomState(15)
     clip_dim = pipe.clip_mean.shape[-1]
     noise = rng.randn(4, 96, 96, 4).astype(np.float32)
     prior_noise = rng.randn(4, clip_dim).astype(np.float32)
-    prior_seq = rng.randn(int(SERVE21["prior_steps"]), 4, clip_dim).astype(np.float32)
+    prior_seq = rng.randn(int(SERVE21_ROWS["prior_steps"]), 4, clip_dim).astype(np.float32)
     prompts = [f"{PROMPT}, row {i}" for i in range(4)]
 
     def rows(p, sl):
@@ -2554,7 +2583,7 @@ def phase_serve21(torch, np, smi: str, pipe):
             img = p.generate_text2img(prompts[sl], batch_size=sl.stop - sl.start,
                                       noise=noise[sl], prior_noise=prior_noise[sl],
                                       prior_noise_seq=prior_seq[:, sl], output="float",
-                                      **SERVE21)
+                                      **SERVE21_ROWS)
         finally:
             del p._decode
         return latents[0], img
@@ -3799,6 +3828,556 @@ def phase_spatial(torch, smi: str, sp_steps: int):
     return sp21_launches, highres_launches, sp_rows
 
 
+# --- phase 21: row-sharded training ---------------------------------------------
+
+# sp-train-768: CONFIG_2_1's UNet at 768² on a (data 1, sp 4) mesh of the 4
+# ranks sharing the card, batch 1, fp32 parameters and bf16 compute, the
+# train_sp example's settings (Adafactor at 5e-6, the loss-second-moment
+# sampler, no EMA, remat)
+SP_TRAIN_OPTIM = {"name": "optax.adafactor", "params": {"learning_rate": 5e-6}}
+# the tensors whose gradients rank 0 holds against the unsharded step: the
+# input conv, a sharded ds2 attention's qkv, the middle attention's output,
+# an output block's text K/V projection, the head's GroupNorm scale and conv
+SP_TRAIN_GRADS = ("input_blocks.0.0.weight", "input_blocks.5.1.qkv.weight",
+                  "middle_block.1.proj_out.weight", "output_blocks.11.1.encoder_kv.weight",
+                  "out.0.weight", "out.2.weight")
+# phase 7's and 13's card limits: bf16 on the card against another order of
+# the same sums
+SP_TRAIN_LOSS_TOL, SP_TRAIN_GRAD_TOL = 1e-2, 5e-2
+# a step with remat runs the UNet forward twice (the step, then its
+# recomputation in the backward) and the backward once: K1 (the sharded
+# norms' moments entry) and K2 95 x 2, K3 22 x 2, K5 and K4 22 (the
+# sharded GroupNorm's backward is autograd of its plain formulation)
+SP_TRAIN_LAUNCHES = {"group_norm_stats": 2 * UNET_LAUNCHES[0],
+                     "group_norm_apply": 2 * UNET_LAUNCHES[0],
+                     "flash_attention_fwd": 2 * UNET_LAUNCHES[1],
+                     "flash_attention_bwd_dq": UNET_LAUNCHES[1],
+                     "flash_attention_bwd_dkv": UNET_LAUNCHES[1]}
+# the shard shapes (B·H, T, S) of a rank at 768², batch 1, 4 ranks: local
+# query rows against the gathered K/V after the 87 text tokens, and one
+# ring step's block (the local rows against a visiting block at ds2)
+SP_BWD_SHAPES = (("sp4 unet ds2 shard", (1, 576, 2391, 12)),
+                 ("sp4 unet ds4 shard", (1, 144, 663, 18)),
+                 ("sp4 unet ds8/middle shard", (1, 36, 231, 24)),
+                 ("sp4 unet ds2 ring step", (1, 576, 576, 12)))
+
+
+def _param_digests(torch, model) -> list:
+    """One int64 a parameter that any change of any bit changes: the
+    parameter's words, each times an odd weight, summed with wrap-around."""
+    out = []
+    for p in model.parameters():
+        bits = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64) * 2 + 1
+        out.append(int((bits * w).sum()))
+    return out
+
+
+def sp_rank_backward(mesh, device="cuda"):
+    """21a on one rank, bf16 at the 768² path's shard shapes: the sharded
+    GroupNorm's gradient (x, scale, bias, FiLM) against the unsharded op's;
+    K5 + K4 on this rank's query rows against the gathered K/V against the
+    plain backward; the gradients through the gathered attention and
+    through the ring (K3, then K5 and K4 once a ring step) against the
+    unsharded kernels' (each rank's K/V gradient arriving at its owner);
+    launches counted."""
+    import torch
+
+    from kandinsky2_tpu_torch.ops import group_norm as gn
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+    from kandinsky2_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+    )
+    from kandinsky2_tpu_torch.parallel import spatial as sp
+    from kandinsky2_tpu_torch.parallel.collectives import all_gather, psum
+
+    _sp_rank_setup(torch)
+    ax = mesh.axis()
+    g = torch.Generator(device=device).manual_seed(21)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=device)
+    rows = lambda t: sp.shard_rows(t, ax)
+    out = {"checks": [], "rank": ax.index}
+    record = lambda name, err, tol: out["checks"].append((name, err, tol))
+    reset_path_counts()
+
+    # the sharded GroupNorm's gradient at the UNet ds1 shape, FiLM and SiLU
+    x = randn(1, 96, 96, 384).bfloat16()
+    scale, bias = 1 + 0.1 * randn(384), 0.1 * randn(384)
+    fs, fb = (0.1 * randn(1, 1, 1, 384).bfloat16() for _ in range(2))
+    gy = randn(1, 96, 96, 384).bfloat16()
+    leaves = lambda: [t.detach().clone().requires_grad_() for t in (x, scale, bias, fs, fb)]
+    ins = leaves()
+    whole = torch.autograd.grad(gn.group_norm(ins[0], *ins[1:3], 32, 1e-5, 1.0,
+                                              (ins[3], ins[4])), ins, gy)
+    ins = leaves()
+    y = gn.sharded_group_norm(rows(ins[0]), ins[1], ins[2], 32, 1e-5, ax, 1.0,
+                              (ins[3], ins[4]))
+    got = [psum(t.float(), ax) for t in torch.autograd.grad(y, ins, rows(gy))]
+    for name, a, b in zip(("x", "scale", "bias", "FiLM scale", "FiLM shift"), got, whole):
+        # both are autograd of a plain formulation on the same bf16 inputs:
+        # phase 6's GroupNorm gradient tolerance
+        record(f"sharded GroupNorm d{name} [1, 96, 96, 384] vs unsharded", rel_err(a, b),
+               1e-2)
+    del x, gy, ins, y, got, whole
+
+    for label, (B, T, S, H) in SP_BWD_SHAPES:
+        if "ring" in label:
+            continue
+        # the whole image's tokens, the 87 text tokens before them
+        d, E, Tw = 64, S - T * SP_WORLD, T * SP_WORLD
+        q, k, v, do = (randn(B, Tw, H, d).bfloat16() for _ in range(4))
+        ek, ev = (randn(B, E, H, d).bfloat16() for _ in range(2))
+        kf, vf = torch.cat([ek, k], 1), torch.cat([ev, v], 1)
+        # K5 + K4 on the local query rows against the gathered K/V
+        o, lse = flash_attention_fwd(rows(q), kf, vf)
+        got = flash_attention_bwd(rows(q), kf, vf, o, lse, rows(do))
+        want = flash_attention_bwd_plain(rows(q), kf, vf, o, lse, rows(do))
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            record(f"K5 + K4 {label} (T {rows(q).shape[1]}, S {kf.shape[1]}) {name} vs "
+                   "plain", rel_err(a, b), 2e-2)
+        # the unsharded kernels' gradients of the whole attention
+        lv = [t.detach().clone().requires_grad_() for t in (q, k, v, ek, ev)]
+        ow = flash_attention(lv[0], torch.cat([lv[3], lv[1]], 1),
+                             torch.cat([lv[4], lv[2]], 1))[0]
+        ref = torch.autograd.grad(ow, lv, do)
+        by_impl = {}
+        for impl in ("gathered", "ring"):
+            lv = [t.detach().clone().requires_grad_() for t in (q, k, v, ek, ev)]
+            if impl == "gathered":
+                o = qkv_attention(rows(lv[0]),
+                                  torch.cat([lv[3], all_gather(rows(lv[1]), ax, dim=1)], 1),
+                                  torch.cat([lv[4], all_gather(rows(lv[2]), ax, dim=1)], 1))
+            else:
+                o = sp.sp_ring_attention_mh(rows(lv[0]), rows(lv[1]), rows(lv[2]), ax,
+                                            extra_k=lv[3], extra_v=lv[4])
+            grads = by_impl[impl] = [psum(t.float(), ax)
+                                     for t in torch.autograd.grad(o, lv, rows(do))]
+            for name, a, b in zip(("dq", "dk", "dv", "d prefix k", "d prefix v"), grads,
+                                  ref):
+                record(f"{impl} backward {label} {name} vs the unsharded kernels",
+                       rel_err(a, b), 2e-2)
+        for name, a, b in zip(("dq", "dk", "dv", "d prefix k", "d prefix v"),
+                              by_impl["ring"], by_impl["gathered"]):
+            record(f"ring backward {label} {name} vs the gathered backward", rel_err(a, b),
+                   2e-2)
+        del q, k, v, do, ek, ev, kf, vf, o, lse, got, want, lv, ow, ref, grads, by_impl
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    out["plain_on_card"] = qkv_attention.plain_on_card
+    return out
+
+
+def _sp_backward_rows(torch, F):
+    """21a's timing, in this process: K5 and K4 at a rank's shard shapes
+    of the 768² train step (4 ranks, batch 1) and at one ring step's
+    block, each beside the whole plain backward, SDPA's backward and the
+    bound, as phase 6."""
+    from kandinsky2_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    rows = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    for label, (B, T, S, H) in SP_BWD_SHAPES:
+        d = 64
+        randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").bfloat16()
+        q, k, v, do = randn(B, T, H, d), randn(B, S, H, d), randn(B, S, H, d), \
+            randn(B, T, H, d)
+        o, lse = flash_attention_fwd(q, k, v)
+        k5 = lambda: flash_attention_bwd_dq(q, k, v, o, do, lse)
+        dq, delta = k5()
+        k4 = lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        dk, dv = k4()
+        ref = flash_attention_bwd_plain(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+        abs_errs = {n: (a.float() - b.float()).abs().max().item()
+                    for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+        for n, e in errs.items():
+            check(e <= 2e-2, f"K4/K5 {n} disagrees at {label}")
+        qg, kg, vg = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg)
+        dot = do.permute(0, 2, 1, 3)
+        times = timed_turns({
+            "plain": lambda: flash_attention_bwd_plain(q, k, v, o, lse, do),
+            "k5": k5, "k4": k4,
+            "library": lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
+                                                   retain_graph=True)}, 10)
+        qo_bytes, kv_bytes, row_bytes = 2 * B * T * H * d, 2 * B * S * H * d, 4 * B * H * T
+        b5 = bound(6 * B * H * T * S * d, 4 * qo_bytes + 2 * kv_bytes + 2 * row_bytes,
+                   PEAK_BF16)
+        b4 = bound(8 * B * H * T * S * d, 2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes,
+                   PEAK_BF16)
+        t5 = {"kernel": times["k5"], "plain": times["plain"], "library": times["library"]}
+        t4 = {"kernel": times["k4"], "plain": times["plain"], "library": times["library"]}
+        print(f"sp K5/K4 {label} B·H={B * H} T={T} S={S} d=64: max_rel_err dq "
+              f"{errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} (tol 2e-2)")
+        _print_times("sp K5 dQ    ", label, t5, *b5)
+        _print_times("sp K4 dK/dV ", label, t4, *b4)
+        print(f"  (plain: the whole plain backward; library: SDPA's backward, dq, dk "
+              f"and dv together; K5 + K4 {(times['k5'] + times['k4']) / times['library']:.2f}x"
+              f" the library's time)")
+        rows["flash_attention_bwd_dq"].append(_row(label, (B, T, S, H, d), abs_errs["dq"],
+                                                   t5, *b5))
+        rows["flash_attention_bwd_dkv"].append(
+            _row(label, (B, T, S, H, d), max(abs_errs["dk"], abs_errs["dv"]), t4, *b4))
+        del q, k, v, do, o, lse, dq, delta, dk, dv, ref, qg, kg, vg, out, dot
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _sp_train_model(torch, config, dtype, device, seed=0):
+    from kandinsky2_tpu_torch.configs import create_model
+    from kandinsky2_tpu_torch.pipelines.base import init_random_
+
+    unet = create_model(**dict(config["model_config"], inpainting=False), dtype=dtype,
+                        device=device)
+    init_random_(unet, torch.Generator(device=device).manual_seed(seed))
+    return unet
+
+
+def _sp_train_batch(torch, mc, B, lat, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device=device)
+    return {"image_latents": randn(B, lat, lat, 4), "full_emb": randn(B, 77, mc[
+        "text_encoder_in_dim1"]), "pooled_emb": randn(B, mc["text_encoder_in_dim2"]),
+        "image_emb": randn(B, mc["image_encoder_in_dim"])}, randn(B, lat, lat, 4)
+
+
+def _captured_grads(unet, names=None):
+    """An optimizer pre-step hook that keeps the gradients of ``names``
+    (all where None) on the host, and the dict they land in."""
+    kept = {}
+
+    def hook(opt, args, kwargs):
+        kept.update({n: p.grad.float().cpu() for n, p in unet.named_parameters()
+                     if p.grad is not None and (names is None or n in names)})
+
+    return hook, kept
+
+
+def sp_rank_train_small(mesh, device="cuda"):
+    """21c on one rank: (1) the tiny UNet of examples.train_sp in fp32 on a
+    (data 2, sp 2) mesh, two steps with injected draws and optax.sgd,
+    against the same two steps unsharded on the whole batch of 2; (2) the
+    small UNet with 64-wide heads in bf16 on a (data 1, sp 4) mesh, one
+    step with the ring forced (RING_THRESHOLD_TOKENS 1: K3 once on the text
+    prefix and once a ring step, K5 and K4 the same in the backward)
+    against the same step through the gathered attention."""
+    import numpy as np
+    import torch
+
+    from kandinsky2_tpu_torch.configs import CONFIG_2_1, deep_copy_config, small_config
+    from kandinsky2_tpu_torch.examples.train_sp import DEMO
+    from kandinsky2_tpu_torch.models.layers import GroupNorm32
+    from kandinsky2_tpu_torch.models.unet import AttentionBlock
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+    from kandinsky2_tpu_torch.parallel import spatial as sp
+    from kandinsky2_tpu_torch.parallel.mesh import Mesh
+    from kandinsky2_tpu_torch.train import train_unclip as tu
+    from kandinsky2_tpu_torch.train.optim import optimizer_from_config
+
+    _sp_rank_setup(torch)
+    out = {}
+    sgd = optimizer_from_config({"name": "optax.sgd", "params": {"learning_rate": 0.05}})
+    cfg = deep_copy_config(CONFIG_2_1)
+    cfg["model_config"].update(DEMO)
+    dcfg = cfg["diffusion_config"]
+    mc = cfg["model_config"]
+    batch, _ = _sp_train_batch(torch, mc, 2, 16, device, 30)
+    g = torch.Generator(device=device).manual_seed(31)
+    draws = [(torch.randint(0, 1000, (2,), generator=g, device=device),
+              torch.randn((2, 16, 16, 4), generator=g, device=device)) for _ in range(2)]
+    grid = Mesh(None, ("data", "sp"), shape=(2, 2))
+    unet = _sp_train_model(torch, cfg, torch.float32, device)
+    p0 = [p.detach().clone() for p in unet.parameters()]
+    init_state, train_fn = tu.make_spdp_train_fn(unet, dcfg, sgd, grid, ema_decay=None)
+    state = init_state(seed=0)
+    losses = [float(train_fn(state, batch, t, n)["loss"]) for t, n in draws]
+    whole = _sp_train_model(torch, cfg, torch.float32, device)
+    init_w, step_w = tu.make_unclip_train_step(whole, dcfg, sgd, ema_decay=None)
+    state_w = init_w(seed=0)
+    losses_w = [float(step_w(state_w, batch, t, n)["loss"]) for t, n in draws]
+    cat = lambda ps: torch.cat([p.detach().reshape(-1).double() for p in ps])
+    a, b, a0 = cat(unet.parameters()), cat(whole.parameters()), cat(p0)
+    out["fp32 params rel_l2"] = ((a - b).norm() / b.norm()).item()
+    out["fp32 update rel_l2"] = ((a - b).norm() / (b - a0).norm()).item()
+    out["fp32 losses"] = (losses, losses_w)
+    out["fp32 digests"] = _param_digests(torch, unet)
+    del unet, whole, state, state_w
+
+    # bf16, the ring forced, against the gathered attention
+    grid = Mesh(None, ("data", "sp"), shape=(1, SP_WORLD))
+    cfg = small_config(head_channels=64)
+    mc = cfg["model_config"]
+    batch, noise = _sp_train_batch(torch, mc, 1, 16, device, 32)
+    t = torch.tensor([500], device=device)
+    runs = {}
+    for impl in ("ring", "gathered"):
+        unet = _sp_train_model(torch, cfg, torch.bfloat16, device)
+        init_state, train_fn = tu.make_spdp_train_fn(
+            unet, cfg["diffusion_config"], sgd, grid, ema_decay=None)
+        state = init_state(seed=0)
+        hook, kept = _captured_grads(unet)
+        state.optimizer.register_step_pre_hook(hook)
+        saved = sp.RING_THRESHOLD_TOKENS
+        sp.RING_THRESHOLD_TOKENS = 1 if impl == "ring" else 2**62
+        reset_path_counts()
+        try:
+            loss = float(train_fn(state, batch, t, noise)["loss"])
+        finally:
+            sp.RING_THRESHOLD_TOKENS = saved
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[impl] = dict(loss=loss, grads=kept, launches=launch_counts(),
+                          plain_on_card=qkv_attention.plain_on_card)
+        out["n_attn"] = sum(isinstance(m, AttentionBlock) for m in unet.modules())
+        out["n_norm"] = sum(isinstance(m, GroupNorm32) for m in unet.modules())
+        del unet, state
+    r, w = runs["ring"], runs["gathered"]
+    num = sum(float((r["grads"][n] - w["grads"][n]).double().norm() ** 2) for n in w["grads"])
+    den = sum(float(w["grads"][n].double().norm() ** 2) for n in w["grads"])
+    out["bf16 ring"] = dict(loss=r["loss"], gathered_loss=w["loss"],
+                            grads_rel_l2=float(np.sqrt(num / den)),
+                            finite=all(bool(torch.isfinite(v).all())
+                                       for v in r["grads"].values()),
+                            launches=r["launches"], plain_on_card=r["plain_on_card"])
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank_train768(mesh, steps: int, device="cuda", config=None, res=768):
+    """21b sp-train-768 on one rank: CONFIG_2_1's UNet (``config`` for a
+    rehearsal) at ``res``² on a (data 1, sp 4) mesh, batch 1, the
+    example's settings.  Rank 0 first runs the same step unsharded with
+    the same injected t and noise on the same seeded weights and keeps the
+    loss and the gradients of SP_TRAIN_GRADS; then every rank takes the
+    sharded step with those draws (the warm-up, its gradients kept on rank
+    0) and ``steps`` timed ones, each ending in a synchronize: seconds,
+    the gradient all-reduce's seconds, launches, parameter digests after
+    every step, peak memory."""
+    import torch
+
+    from kandinsky2_tpu_torch.configs import CONFIG_2_1, schedule_kwargs
+    from kandinsky2_tpu_torch.diffusion.gaussian import make_schedule
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+    from kandinsky2_tpu_torch.parallel.mesh import Mesh
+    from kandinsky2_tpu_torch.train import train_unclip as tu
+    from kandinsky2_tpu_torch.train.optim import optimizer_from_config
+
+    _sp_rank_setup(torch)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    grid = Mesh(None, ("data", "sp"), shape=(1, SP_WORLD))
+    rank = grid.axis("sp").index
+    cfg = config or CONFIG_2_1
+    t0 = time.perf_counter()
+    unet = _sp_train_model(torch, cfg, torch.bfloat16, device)
+    batch, noise = _sp_train_batch(torch, cfg["model_config"], 1, res // 8, device, 23)
+    t_inj = torch.tensor([417], device=device)
+    sync()
+    out = {"rank": rank, "build_s": time.perf_counter() - t0,
+           "n_params": sum(p.numel() for p in unet.parameters())}
+    if rank == 0:
+        skw = schedule_kwargs(cfg["diffusion_config"], "")
+        sched = make_schedule(**skw["make_schedule"], device=device)
+        loss, _ = tu.unclip_loss(unet, sched, batch, t_inj, noise,
+                                 torch.ones((1,), device=device), mean_type=skw["mean_type"],
+                                 var_type=skw["var_type"], loss_type=skw["loss_type"],
+                                 remat=True)
+        loss.backward()
+        params = dict(unet.named_parameters())
+        out["ref_loss"] = float(loss.detach())
+        out["ref_grads"] = {n: params[n].grad.float().cpu() for n in SP_TRAIN_GRADS
+                            if n in params}
+        out["unsharded_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0
+        unet.zero_grad(set_to_none=True)
+        del loss, params
+        if cuda:
+            torch.cuda.empty_cache()
+    init_state, train_fn = tu.make_spdp_train_fn(
+        unet, cfg["diffusion_config"], optimizer_from_config(SP_TRAIN_OPTIM), grid,
+        schedule_sampler="loss-second-moment", ema_decay=None, remat=True)
+    state = init_state(seed=0)
+    hook, kept = _captured_grads(unet, SP_TRAIN_GRADS)
+    handle = state.optimizer.register_step_pre_hook(hook)
+    inner, reduce_s = tu.pmean_grads, []
+
+    def timed_pmean(params, axis, *args, **kwargs):
+        sync()
+        t = time.perf_counter()
+        inner(params, axis, *args, **kwargs)
+        sync()
+        reduce_s.append(time.perf_counter() - t)
+
+    tu.pmean_grads = timed_pmean
+    digests = [_param_digests(torch, unet)]
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_path_counts()
+        t0 = time.perf_counter()
+        metrics = train_fn(state, batch, t_inj, noise)
+        sync()
+        out["warm_s"] = time.perf_counter() - t0
+        out["warm_launches"] = launch_counts()
+        out["loss"] = float(metrics["loss"])
+        handle.remove()
+        out["grads"] = kept
+        digests.append(_param_digests(torch, unet))
+        out["steps"] = []
+        for _ in range(steps):
+            reduce_s.clear()
+            reset_path_counts()
+            t0 = time.perf_counter()
+            metrics = train_fn(state, batch)
+            sync()
+            out["steps"].append(dict(seconds=time.perf_counter() - t0,
+                                     reduce_s=sum(reduce_s), loss=float(metrics["loss"]),
+                                     launches=launch_counts(),
+                                     plain_on_card=qkv_attention.plain_on_card))
+            digests.append(_param_digests(torch, unet))
+    finally:
+        tu.pmean_grads = inner
+    out["digests"] = digests
+    out["finite"] = all(bool(torch.isfinite(p).all()) for p in unet.parameters())
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0
+    del unet, state, init_state, train_fn, batch, noise
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sp_train(torch, smi: str, t_script: float):
+    """21: row-sharded training on 4 gloo ranks sharing the card (and the
+    primitives on 1 NCCL rank).  21a the backward primitives on the ranks
+    and K5 and K4 timed at the shard shapes in this process; 21c the small
+    width (fp32 (data 2, sp 2) against unsharded; bf16 with the ring
+    forced); 21b sp-train-768.  Returns (a step's launches on rank 0 of
+    sp-train-768, the timed rows)."""
+    import torch.nn.functional as F
+
+    from kandinsky2_tpu_torch.parallel.launch import RankPool
+
+    t_phase = time.perf_counter()
+    gloo = RankPool(SP_WORLD, "gloo", device="cuda", init_timeout=300)
+    nccl = RankPool(1, "nccl", device="cuda", init_timeout=300)
+    gloo.start()
+    nccl.start()
+    try:
+        # 21a
+        rows = _sp_backward_rows(torch, F)
+        for name, pool in (("gloo x4", gloo), ("nccl x1", nccl)):
+            for r in pool.run(sp_rank_backward, timeout=300):
+                for what, err, tol in r["checks"]:
+                    print(f"sp 21a {name} rank {r['rank']}: {what}: {err:.3e} (tol {tol:.3e})")
+                    check(err <= tol, f"21a {name} rank {r['rank']}: {what}")
+                print(f"sp 21a {name} rank {r['rank']}: launches {json.dumps(r['launches'])}, "
+                      f"attention calls on the card by the plain route {r['plain_on_card']}")
+                check(all(v > 0 for v in r["launches"].values()),
+                      f"21a {name}: a kernel was not launched")
+                check(r["plain_on_card"] == 0, f"21a {name}: an attention missed the kernels")
+        nccl.close()
+        print(f"time: phase 21a {time.perf_counter() - t_phase:.1f} s")
+
+        # 21c
+        t0 = time.perf_counter()
+        res = gloo.run(sp_rank_train_small, timeout=300)
+        r0 = res[0]
+        print(f"sp-train small fp32 (data 2, sp 2): losses {r0['fp32 losses'][0]} against "
+              f"unsharded {r0['fp32 losses'][1]}; parameters rel_l2 "
+              f"{r0['fp32 params rel_l2']:.3e} (tol 1e-5), the update's "
+              f"{r0['fp32 update rel_l2']:.3e} (recorded)")
+        check(r0["fp32 params rel_l2"] <= 1e-5, "sp-train small fp32: parameters")
+        check(all(r["fp32 digests"] == r0["fp32 digests"] for r in res),
+              "sp-train small fp32: parameters differ across the ranks")
+        n_attn, n_norm = r0["n_attn"], r0["n_norm"]
+        steps_ring = 1 + SP_WORLD  # the text prefix, then one a ring step
+        want = {"group_norm_stats": n_norm, "group_norm_apply": n_norm,
+                "flash_attention_fwd": n_attn * steps_ring,
+                "flash_attention_bwd_dq": n_attn * steps_ring,
+                "flash_attention_bwd_dkv": n_attn * steps_ring}
+        for r in res:
+            b = r["bf16 ring"]
+            print(f"sp-train small bf16 ring rank {res.index(r)}: loss {b['loss']:.5f} "
+                  f"against gathered {b['gathered_loss']:.5f}; gradients rel_l2 "
+                  f"{b['grads_rel_l2']:.3e} (tol {SP_TRAIN_GRAD_TOL}); launches "
+                  f"{json.dumps(b['launches'])} (pinned at {json.dumps(want)}), plain "
+                  f"route {b['plain_on_card']}")
+            check(b["finite"] and abs(b["loss"] - b["gathered_loss"])
+                  <= SP_TRAIN_LOSS_TOL * abs(b["gathered_loss"]), "sp-train bf16 ring loss")
+            check(b["grads_rel_l2"] <= SP_TRAIN_GRAD_TOL, "sp-train bf16 ring gradients")
+            check(b["launches"] == want, "sp-train bf16 ring: launches")
+            check(b["plain_on_card"] == 0, "sp-train bf16 ring: the plain route ran")
+        print(f"time: phase 21c {time.perf_counter() - t0:.1f} s")
+
+        # 21b
+        t0 = time.perf_counter()
+        steps = 3 if t0 - t_script <= 950 else 1
+        print(f"sp-train-768: {steps} timed step(s) (one where the script passes 950 s "
+              f"here; {t0 - t_script:.1f} s so far); the card's memory in use: "
+              f"{smi_memory()}")
+        res = gloo.run(sp_rank_train768, steps, timeout=900)
+        r0 = res[0]
+        loss_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+        print(f"sp-train-768: UNet {r0['n_params']} parameters built in "
+              f"{max(r['build_s'] for r in res):.2f} s a rank; unsharded step on rank 0 "
+              f"(peak {r0['unsharded_peak_gib']:.2f} GiB): loss {r0['ref_loss']:.6f}; "
+              f"sharded warm-up step {max(r['warm_s'] for r in res):.3f} s, loss "
+              f"{r0['loss']:.6f}, rel err {loss_err:.3e} (tol {SP_TRAIN_LOSS_TOL})")
+        check(loss_err <= SP_TRAIN_LOSS_TOL, "sp-train-768: the sharded loss")
+        check(set(r0["ref_grads"]) == set(SP_TRAIN_GRADS), "sp-train-768: a named tensor")
+        for n in SP_TRAIN_GRADS:
+            a, b = r0["grads"][n], r0["ref_grads"][n]
+            err = float((a - b).norm() / b.norm())
+            print(f"sp-train-768: d {n} {list(b.shape)} rel_l2 {err:.3e} "
+                  f"(tol {SP_TRAIN_GRAD_TOL})")
+            check(err <= SP_TRAIN_GRAD_TOL, f"sp-train-768: gradient of {n}")
+        for i, r in enumerate(res):
+            check(r["digests"] == r0["digests"],
+                  f"sp-train-768: rank {i}'s parameters differ from rank 0's")
+            moved = sum(a != b for a, b in zip(r["digests"][0], r["digests"][-1]))
+            check(moved == len(r["digests"][0]),
+                  f"sp-train-768 rank {i}: {len(r['digests'][0]) - moved} tensors unmoved")
+            check(r["finite"], f"sp-train-768 rank {i}: parameters not finite")
+            check(r["warm_launches"] == SP_TRAIN_LAUNCHES,
+                  f"sp-train-768 rank {i}: warm-up launches {r['warm_launches']}")
+            for s in r["steps"]:
+                check(s["launches"] == SP_TRAIN_LAUNCHES and s["plain_on_card"] == 0,
+                      f"sp-train-768 rank {i}: launches {s['launches']}, plain route "
+                      f"{s['plain_on_card']}")
+                check(math.isfinite(s["loss"]), f"sp-train-768 rank {i}: loss not finite")
+            print(f"sp-train-768 rank {i}: steps " + ", ".join(
+                f"{s['seconds']:.3f} s (all-reduce {s['reduce_s']:.3f} s, loss "
+                f"{s['loss']:.5f})" for s in r["steps"]) + f"; peak {r['peak_gib']:.2f} GiB;"
+                f" launches a step {json.dumps(r['steps'][-1]['launches'])}")
+        n = len(r0["steps"])
+        step_s = sum(max(r["steps"][i]["seconds"] for r in res) for i in range(n)) / n
+        reduce_s = sum(max(r["steps"][i]["reduce_s"] for r in res) for i in range(n)) / n
+        print(f"sp-train-768: {step_s:.4f} s/step (the slowest rank, mean of {n}), the "
+              f"gradient all-reduce {reduce_s:.4f} s of it; 768², batch 1, mesh (data 1, "
+              f"sp {SP_WORLD}) sharing the card over gloo, fp32 parameters, bf16 compute, "
+              f"Adafactor 5e-6, remat, no EMA; every parameter bitwise equal across the "
+              f"ranks after each step and every one moved; peak per rank " + ", ".join(
+                  f"{r['peak_gib']:.2f}" for r in res)
+              + f" GiB (train-768 unsharded, EMA, no remat: 24.94 GiB); {smi}")
+        print(f"time: phase 21b {time.perf_counter() - t0:.1f} s")
+        sp_train_launches = r0["steps"][-1]["launches"]
+    finally:
+        gloo.close()
+        nccl.close()
+    return sp_train_launches, rows
+
+
 def phase_clock():
     """A function that prints the seconds since its last call (the phase
     just run) and since the first, under a label."""
@@ -4013,6 +4592,11 @@ def main() -> int:
     sp21_counts, highres_counts, sp_rows = phase_spatial(torch, smi, sp_steps)
     lap("phase 20")
 
+    # 21. row-sharded training: the backward primitives, the small width and
+    # sp-train-768 on 4 gloo ranks sharing the card
+    sp_train_counts, sp_bwd_rows = phase_sp_train(torch, smi, t_script)
+    lap("phase 21")
+
     meta = {
         "group_norm_stats": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
                              "kandinsky2_tpu/ops/group_norm.py:86"),
@@ -4053,6 +4637,7 @@ def main() -> int:
             "controlnet_dpt_hint_launches": dpt["controlnet"][name],
             "sp21_launches": sp21_counts[name],
             "highres_sp_launches": highres_counts[name],
+            "sp_train_launches": sp_train_counts[name],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4060,7 +4645,7 @@ def main() -> int:
             "timed_shape": f"{main_row['label']} {main_row['shape']}",
             "sp_timed": [{k: r[k] for k in ("label", "shape", "ms", "plain_ms",
                                             "library_ms", "bound_ms", "bound_by")}
-                         for r in sp_rows.get(name, [])],
+                         for r in sp_rows.get(name, []) + sp_bwd_rows.get(name, [])],
         })
     print(f"slice: {seconds:.4f} s/image; " + "; ".join(
         f"{task}: {sec:.4f} s/image" for task, (_, sec) in tasks.items())

@@ -44,7 +44,10 @@ EXAMPLES = {
     "serving_bench": (["--n", "2", "--steps", "2"], 64, None),
     "serving_lora": ([], 64, None),
     "bf16_stress_768": (["--steps", "4"], 64, None),
+    "train_sp": (["--sp", "2", "--steps", "2"], None, 2),  # 2 ranks, no image
 }
+# the scripts with flags of their own (no ``--out``)
+OWN_FLAGS = {"train_sp"}
 
 
 @contextlib.contextmanager
@@ -73,7 +76,8 @@ def run_example(name: str, device: str, out_dir: str) -> dict:
 
     flags, _, _ = EXAMPLES[name]
     out = os.path.join(out_dir, f"{name}.png")
-    argv = [name, "--small", "--device", device, "--out", out, *flags]
+    argv = [name, "--small", "--device", device,
+            *([] if name in OWN_FLAGS else ["--out", out]), *flags]
     images, printed = [], io.StringIO()
     saved_argv, saved_tmp = sys.argv, tempfile.tempdir
     sys.argv, tempfile.tempdir = argv, out_dir
@@ -114,7 +118,10 @@ def check_example(result: dict) -> str:
     if steps is not None:
         found = lambda pattern: [int(m.group(1)) for line in lines
                                  for m in [re.match(pattern, line)] if m]
-        trained, logged = found(r"trained to step (\d+)"), found(r"step (\d+):")
+        # "trained to step N", or train_sp's "step N: {...} (1.23s)" after each
+        trained = (found(r"trained to step (\d+)")
+                   or found(r"step (\d+): \{.*\} \([\d.]+s\)$"))
+        logged = found(r"step (\d+):")
         done = trained[-1] if trained else (logged[-1] + 1 if logged else 0)
         assert done == steps, f"{name}: trained {done} steps, not {steps}"
         what.append(f"{steps} steps")

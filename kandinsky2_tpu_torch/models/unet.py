@@ -22,7 +22,8 @@ halo rows before every 3x3 convolution (a top halo before the stride-2
 ``Downsample``), statistics over the whole image in every GroupNorm, and
 attention of the local queries against gathered K/V, or the ring above
 ``RING_THRESHOLD_TOKENS`` tokens (``unet.py:120-174`` of the JAX package).
-The parameters are the same either way.
+The parameters are the same either way, and the sharded forward is
+differentiable end to end (row-sharded training, ``train_unclip``).
 """
 
 from __future__ import annotations

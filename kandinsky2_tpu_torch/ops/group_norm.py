@@ -47,7 +47,10 @@ A row-sharded GroupNorm (``sharded_group_norm``, the counterpart of
 entry ``k2_group_norm_moments`` (the same launch, whose finish writes each
 group's pivot and shifted sums), gathers every shard's moments over the
 axis, shifts them to one pivot (``combine_moments``: the shards' pivots
-differ) and folds the coefficients, then runs K2.
+differ) and folds the coefficients, then runs K2.  Its gradient
+(``ShardedGroupNormFunction``) is autograd of a plain sharded norm whose
+per-group sums are ``psum``'d over the axis, so the ``psum``s' backward
+carries the cross-shard terms.
 
 Gradients: ``GroupNormFunction`` is the counterpart of the ``custom_vjp``
 of ``pallas_group_norm``.  Its forward is K1 + K2 and saves only the
@@ -533,25 +536,99 @@ def combine_moments(moments: torch.Tensor, cnt: float):
     return (p[0] + m1).float(), var.float()
 
 
+def _sharded_forward(x, scale, bias, num_groups, eps, axis, swish, film):
+    """K1's moments of the shard, gathered over the axis and combined, the
+    folded coefficients, then K2.  Returns (y, each group's mean [B, G])."""
+    from ..parallel.collectives import all_gather
+
+    B, C = x.shape[0], x.shape[-1]
+    x3 = x.reshape(B, -1, C).contiguous()
+    moments = all_gather(group_norm_moments(x3, num_groups)[None], axis, dim=0)
+    mean, var = combine_moments(moments, float(x3.shape[1] * (C // num_groups)))
+    a, b = _fold_affine(mean, var, scale, bias, film, eps)
+    y = group_norm_apply(x3, a.contiguous(), b.contiguous(), swish).reshape(x.shape)
+    return y, mean
+
+
+def sharded_group_norm_plain(x, scale, bias, num_groups: int, eps: float, axis,
+                             swish: float, film, shift):
+    """The row-sharded GroupNorm in plain PyTorch, differentiable by
+    autograd: per-group sums of x − shift in fp32, ``psum``'d over the axis
+    for the mean, then the centred second pass Σ(x − mean)², ``psum``'d for
+    the variance, and the norm of the centred values times the affine and
+    FiLM scales, plus their shifts, then SiLU.  ``shift`` [B, G] (detached)
+    is any value near each group's mean: the forward's combined mean keeps
+    the sums, and every product that the gradient takes, centred where the
+    mean lies far from zero (folding the mean into a per-channel offset, as
+    K2's x·a + b does, would cancel there).  The backward target of
+    ``ShardedGroupNormFunction``: the ``psum``s' backward carries the
+    cross-shard terms of the gradient."""
+    from ..parallel.collectives import psum
+
+    B, C = x.shape[0], x.shape[-1]
+    G, cs = num_groups, C // num_groups
+    xg = x.float().reshape(B, -1, G, cs) - shift.detach().float()[:, None, :, None]
+    total = float(xg.shape[1] * cs * axis.size)
+    m = psum(xg.sum(dim=(1, 3)), axis) / total
+    xc = xg - m[:, None, :, None]
+    var = psum((xc * xc).sum(dim=(1, 3)), axis) / total
+    y = (xc * torch.rsqrt(var + eps)[:, None, :, None]).reshape(B, -1, C)
+    y = y * scale.float() + bias.float()
+    if film is not None:
+        fs, fb = (f.reshape(B, 1, C).float() for f in film)
+        y = y * (1.0 + fs) + fb
+    if swish:
+        y = y * torch.sigmoid(y * swish)
+    return y.to(x.dtype).reshape(x.shape)
+
+
+class ShardedGroupNormFunction(torch.autograd.Function):
+    """The sharded GroupNorm: K1's moments entry on the shard, the gather
+    and ``combine_moments``, then K2 (their plain versions for CPU
+    tensors), saving the inputs and the combined means; backward through
+    autograd of ``sharded_group_norm_plain`` on the saved inputs, as
+    ``GroupNormFunction``'s.  Gradients for x, scale, bias and the FiLM
+    pair, each None where that input needs none."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, fs, fb, num_groups, eps, swish, axis):
+        film = None if fs is None else (fs, fb)
+        y, mean = _sharded_forward(x, scale, bias, num_groups, eps, axis, swish, film)
+        ctx.save_for_backward(x, scale, bias, fs, fb, mean)
+        ctx.config = (num_groups, eps, axis, swish)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        *saved, mean = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        num_groups, eps, axis, swish = ctx.config
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(saved, needs)]
+            x, scale, bias, fs, fb = inputs
+            y = sharded_group_norm_plain(x, scale, bias, num_groups, eps, axis, swish,
+                                         None if fs is None else (fs, fb), shift=mean)
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            grads = iter(torch.autograd.grad(y, wanted, gy) if wanted else ())
+        return (*(next(grads) if n else None for n in needs), None, None, None, None)
+
+
 def sharded_group_norm(x, scale, bias, num_groups: int, eps: float, axis,
                        swish: float = 0.0, film=None):
     """GroupNorm of x [B, Hl, W, C], this rank's rows of an image sharded
     over ``axis`` (a ``parallel.mesh.MeshAxis``), with statistics over the
     whole image: K1's moments of the shard, all-gathered over the axis and
     combined (``combine_moments``), the coefficients folded in fp32, then
-    K2.  The same function as ``group_norm`` of the unsharded image;
-    inference only (no gradient)."""
-    from ..parallel.collectives import all_gather
-
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, scale, bias)):
-        raise NotImplementedError("sharded_group_norm has no backward: sp "
-                                  "training is not ported")
+    K2.  The same function as ``group_norm`` of the unsharded image, and
+    differentiable (``ShardedGroupNormFunction``); with grad mode off, or
+    no input that needs a gradient, the kernels run directly."""
     B, C = x.shape[0], x.shape[-1]
     if C % num_groups:
         raise ValueError(f"group_norm: C={C} not divisible by {num_groups}")
-    x3 = x.reshape(B, -1, C).contiguous()
-    moments = all_gather(group_norm_moments(x3, num_groups)[None], axis, dim=0)
-    mean, var = combine_moments(moments, float(x3.shape[1] * (C // num_groups)))
-    a, b = _fold_affine(mean, var, scale, bias, film, eps)
-    return group_norm_apply(x3, a.contiguous(), b.contiguous(), swish).reshape(x.shape)
+    fs, fb = (None, None) if film is None else film
+    ins = [t for t in (x, scale, bias, fs, fb) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return ShardedGroupNormFunction.apply(x, scale, bias, fs, fb, num_groups,
+                                              float(eps), float(swish), axis)
+    return _sharded_forward(x, scale, bias, num_groups, eps, axis, swish, film)[0]

@@ -10,9 +10,11 @@ every rank as ``fn(mesh, *args)``, ``mesh`` the group's one-axis
 the deadline passes, the pool kills every rank and raises, so a hung
 collective never hangs the caller; the next ``run`` spawns a fresh pool.
 
-Backends: ``"gloo"`` on the CPU, or for several ranks that share one card
-(``device="cuda"``: each rank keeps its tensors on the card, and the
-collectives stage what gloo cannot carry); ``"nccl"`` for one card a rank.
+The ranks run on the card (``device="cuda"``, the default: a rank fails
+where there is none) unless the caller asks for ``device="cpu"``.
+Backends: ``"gloo"`` for several ranks that share one card (each rank
+keeps its tensors on the card, and the collectives stage what gloo cannot
+carry) or on the CPU; ``"nccl"`` for one card a rank.
 """
 
 from __future__ import annotations
@@ -66,11 +68,11 @@ def _worker(rank, world, port, backend, device, threads, init_timeout, tasks, re
 
 
 class RankPool:
-    """``world`` ranks over ``backend`` (see the module docstring);
-    ``threads`` sets each rank's intra-op threads, ``init_timeout`` the
-    process group's timeout in seconds."""
+    """``world`` ranks over ``backend`` on ``device`` (see the module
+    docstring); ``threads`` sets each rank's intra-op threads,
+    ``init_timeout`` the process group's timeout in seconds."""
 
-    def __init__(self, world: int, backend: str = "gloo", device: str = "cpu",
+    def __init__(self, world: int, backend: str = "gloo", device: str = "cuda",
                  threads: int = 1, init_timeout: float = 60.0):
         self.world, self.backend, self.device = world, backend, device
         self.threads, self.init_timeout = threads, init_timeout
@@ -151,7 +153,7 @@ class RankPool:
         self.close()
 
 
-def run_ranks(fn, world: int, *args, backend: str = "gloo", device: str = "cpu",
+def run_ranks(fn, world: int, *args, backend: str = "gloo", device: str = "cuda",
               threads: int = 1, timeout: float = 600.0, **kwargs) -> list:
     """Spawn ``world`` ranks, run ``fn(mesh, *args, **kwargs)`` once on
     each within ``timeout`` seconds, stop them; the results by rank."""

@@ -20,6 +20,12 @@ every layer exact:
 * Nearest resizes map whole rows, so equal row shards stay aligned with
   no communication.
 
+Every op is differentiable for sp training: the halo rows and the ring
+hops through ``ppermute_many``'s reverse permutation, the gathered K/V
+through ``all_gather``'s reduce-scatter, the norms through
+``ShardedGroupNormFunction``, and the ring of K3 launches through
+``RingFlashFunction`` (K5 and K4 once a ring step on the card).
+
 The modules take ``sp_axis`` (a :class:`~.mesh.MeshAxis`, where JAX takes
 an axis name inside ``shard_map``) and keep the same parameters either
 way, so one state dict serves both layouts; ``using_sp_axis`` sets it on a
@@ -39,8 +45,8 @@ import torch
 from torch import nn
 
 from ..ops.attention import qkv_attention, use_flash_kernel
-from ..ops.flash_attention import flash_attention_fwd
-from .collectives import all_gather, exchange, ppermute
+from ..ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+from .collectives import all_gather, ppermute, ppermute_many
 from .mesh import Mesh, MeshAxis
 
 SPATIAL_AXIS = "sp"
@@ -68,19 +74,12 @@ def using_sp_axis(module: nn.Module, axis: Optional[MeshAxis]):
 
 def halo_exchange_rows(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """This rank's rows with one halo row from each neighbour: (B, Hl, W, C)
-    -> (B, Hl + 2, W, C), zeros above the first rank and below the last."""
-    n, i = axis.size, axis.index
-    B, _, W, C = x.shape
-    top, bottom = (torch.zeros((B, 1, W, C), dtype=x.dtype, device=x.device)
-                   for _ in range(2))
-    sends, recvs = [], []
-    if i + 1 < n:  # my last row down, the next rank's first row up
-        sends.append((x[:, -1:], i + 1))
-        recvs.append((bottom, i + 1))
-    if i > 0:
-        sends.append((x[:, :1], i - 1))
-        recvs.append((top, i - 1))
-    exchange(axis, sends, recvs)
+    -> (B, Hl + 2, W, C), zeros above the first rank and below the last;
+    both rows cross in one batch of transfers."""
+    n = axis.size
+    down = [(i, i + 1) for i in range(n - 1)]  # my last row to the next rank
+    up = [(i + 1, i) for i in range(n - 1)]  # my first row to the previous one
+    top, bottom = ppermute_many([x[:, -1:], x[:, :1]], axis, [down, up])
     return torch.cat([top, x, bottom], dim=1)
 
 
@@ -150,10 +149,12 @@ def _merge(acc, o, lse):
     return (o_acc * wa + o * wb) / s, m + torch.log(s)
 
 
-def _ring_flash(q, k, v, axis, extra_k=None, extra_v=None):
+def _ring_flash_fwd(q, k, v, axis, extra_k=None, extra_v=None):
     """Ring attention through K3: one launch on the replicated prefix (if
     any) and one per ring step, their (O, LSE) pairs merged in fp32.
-    q [B, Tl, H, d], k/v [B, Tl, H, d] local, extra [B, E, H, d]."""
+    q [B, Tl, H, d], k/v [B, Tl, H, d] local, extra [B, E, H, d].  Returns
+    (O in v's dtype, the merged natural-log LSE [B*H, Tl] fp32)."""
+    B, Tl, H, _ = q.shape
     acc = None
     if extra_k is not None:
         acc = _merge(acc, *flash_attention_fwd(q, extra_k, extra_v))
@@ -161,8 +162,79 @@ def _ring_flash(q, k, v, axis, extra_k=None, extra_v=None):
     for step in range(axis.size):
         acc = _merge(acc, *flash_attention_fwd(q, kc, vc))
         if step + 1 < axis.size:
-            kc, vc = ppermute(kc, axis, _ring(axis)), ppermute(vc, axis, _ring(axis))
-    return acc[0].to(v.dtype)
+            kc, vc = ppermute_many([kc, vc], axis, [_ring(axis)] * 2)
+    o, lse = acc
+    return o.to(v.dtype), lse[..., 0].transpose(1, 2).reshape(B * H, Tl).contiguous()
+
+
+class RingFlashFunction(torch.autograd.Function):
+    """The ring of K3 launches with its backward on the card: K5 and K4
+    (``flash_attention_bwd``; their plain versions for CPU tensors) once a
+    ring step and once on the prefix, each against the visiting
+    K/V block with the MERGED LSE and O, so exp(S − LSE) is the true
+    probability and delta = rowsum(dO·O) the whole row's.  dQ is summed in
+    fp32 over the steps; each block's dK/dV (fp32) travels the ring with
+    the block and, after one more hop, is home: every rank ends with the
+    gradient of its own K/V.  The prefix's dK/dV is this rank's share (the
+    gradient all-reduce sums the shares)."""
+
+    @staticmethod
+    def forward(ctx, axis, q, k, v, extra_k, extra_v):
+        o, lse = _ring_flash_fwd(q, k, v, axis, extra_k, extra_v)
+        ctx.axis = axis
+        ctx.save_for_backward(q, k, v, extra_k, extra_v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, ek, ev, o, lse = ctx.saved_tensors
+        axis, n = ctx.axis, ctx.axis.size
+        do = do.contiguous()
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dek = dev = None
+        if ek is not None:
+            dq_e, dek, dev = flash_attention_bwd(q, ek, ev, o, lse, do)
+            dq += dq_e.float()
+        kc, vc = k.contiguous(), v.contiguous()
+        dkc = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dvc = torch.zeros_like(dkc)
+        ring = _ring(axis)
+        for step in range(n):
+            dq_s, dk_s, dv_s = flash_attention_bwd(q, kc, vc, o, lse, do)
+            dq += dq_s.float()
+            dkc += dk_s.float()
+            dvc += dv_s.float()
+            if step + 1 < n:
+                kc, vc, dkc, dvc = ppermute_many([kc, vc, dkc, dvc], axis, [ring] * 4)
+            elif n > 1:  # the last hop brings each block's gradient home
+                dkc, dvc = ppermute_many([dkc, dvc], axis, [ring] * 2)
+        return (None, dq.to(q.dtype), dkc.to(k.dtype), dvc.to(v.dtype), dek, dev)
+
+
+def _ring_flash(q, k, v, axis, extra_k=None, extra_v=None):
+    """Ring attention through K3, differentiable through K5 and K4
+    (``RingFlashFunction``) where a gradient is wanted; output in v's
+    dtype."""
+    ins = [t for t in (q, k, v, extra_k, extra_v) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return RingFlashFunction.apply(axis, q, k, v, extra_k, extra_v)
+    return _ring_flash_fwd(q, k, v, axis, extra_k, extra_v)[0]
+
+
+class _PlainBackwardOnCard(torch.autograd.Function):
+    """Identity whose backward counts one plain-route attention backward
+    on the card (``qkv_attention.plain_on_card``), as the plain fold's
+    forward is counted."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.is_cuda:
+            qkv_attention.plain_on_card += 1
+        return g
 
 
 def _fold(state, qq, kc, vc):
@@ -181,7 +253,9 @@ def _ring_fold(q, k, v, axis, q_chunk, scale, extra_k=None, extra_v=None):
     """The plain ring (``spatial.py:196-260`` of the JAX package): fp32
     online softmax, queries ``q_chunk`` rows at a time, K/V blocks one ring
     hop a step, the replicated prefix folded first.  q, k pre-scaled by
-    ``scale``; q/k/v [B, Tl, H, c]."""
+    ``scale``; q/k/v [B, Tl, H, c].  Differentiable by autograd, through
+    the permutations' transposes, as JAX's scan is; on the card its
+    backward is counted as a plain-route attention too."""
     B, Tl, H, c = q.shape
     qf = q.float() * scale
     kc, vc = k.float() * scale, v.float()
@@ -195,9 +269,11 @@ def _ring_fold(q, k, v, axis, q_chunk, scale, extra_k=None, extra_v=None):
     for step in range(axis.size):
         states = [_fold(st, qq, kc, vc) for st, qq in zip(states, chunks)]
         if step + 1 < axis.size:
-            kc, vc = ppermute(kc, axis, _ring(axis)), ppermute(vc, axis, _ring(axis))
-    out = torch.cat([acc / s[..., None] for _, s, acc in states], dim=1)
-    return out.to(v.dtype)
+            kc, vc = ppermute_many([kc, vc], axis, [_ring(axis)] * 2)
+    out = torch.cat([acc / s[..., None] for _, s, acc in states], dim=1).to(v.dtype)
+    if q.is_cuda and out.requires_grad:
+        out = _PlainBackwardOnCard.apply(out)
+    return out
 
 
 def _flash_route(q, k, v) -> bool:

@@ -61,9 +61,17 @@ class LossSecondMomentSampler:
         t = torch.multinomial(p, batch_size, replacement=True, generator=generator)
         return t, self.importance(t)
 
-    def update(self, ts: torch.Tensor, losses: torch.Tensor) -> None:
+    def update(self, ts: torch.Tensor, losses: torch.Tensor, axis=None) -> None:
         """Append each (t, loss) to t's history, first in first out once full
-        (resample.py:134-142), in batch order."""
+        (resample.py:134-142), in batch order.  With ``axis`` (a
+        ``parallel.mesh.MeshAxis``), every shard's batch is all-gathered
+        over it first, in axis order, so every shard updates identically
+        (resample.py:77-98)."""
+        if axis is not None:
+            from ..parallel.collectives import all_gather
+
+            ts = all_gather(ts.detach().reshape(-1), axis)
+            losses = all_gather(losses.detach().float().reshape(-1), axis)
         H = self.history.shape[1]
         for t, loss in zip(ts.tolist(), losses.detach().float().cpu().tolist()):
             c = int(self.counts[t])

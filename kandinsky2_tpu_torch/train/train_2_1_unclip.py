@@ -130,9 +130,48 @@ def build_pipeline(cfg: dict, device="cuda") -> Kandinsky2_1:
 
 
 def run(cfg: dict, device="cuda"):
-    """Train as the YAML ``cfg`` says; returns the final ``TrainState``."""
-    if cfg.get("parallel"):
-        raise NotImplementedError("the PyTorch port trains on one device")
+    """Train as the YAML ``cfg`` says; returns the final ``TrainState``.
+
+    ``parallel: {data: D, sp: S}`` spawns D·S ranks (``parallel.launch``)
+    on ``device``: NCCL with one card a rank where there are D·S cards,
+    else gloo (the ranks sharing the card, or on the CPU); each rank runs
+    the spatial x data parallel step (``train_unclip(mesh_shape=(D, S))``)
+    on the same batches, rank 0 writes the checkpoints, and ``run`` returns
+    rank 0's ``{"step", "world"}``.  ``parallel: {fsdp: N}`` raises: the
+    ZeRO-sharded state is not ported."""
+    par = cfg.get("parallel")
+    if par:
+        if "fsdp" in par:
+            raise NotImplementedError(
+                "parallel: {fsdp: N}: the ZeRO-sharded train state is not ported to "
+                "PyTorch yet (ROADMAP.md Queue 1 item 4, part 3); use "
+                "parallel: {data: D, sp: S}")
+        return run_parallel(cfg, (int(par.get("data", 1)), int(par.get("sp", 1))),
+                            device)
+    return _train(cfg, device)
+
+
+def run_parallel(cfg: dict, mesh_shape: tuple, device="cuda"):
+    """``run`` on a (data, sp) mesh of D·S ranks spawned here, under a
+    deadline of a week; rank 0's summary."""
+    from ..parallel.launch import RankPool
+
+    world = mesh_shape[0] * mesh_shape[1]
+    backend = ("nccl" if device == "cuda" and torch.cuda.device_count() >= world
+               else "gloo")
+    with RankPool(world, backend, device=device) as pool:
+        return pool.run(_train_rank, cfg, tuple(mesh_shape), device,
+                        timeout=7 * 86400.0)[0]
+
+
+def _train_rank(mesh, cfg: dict, mesh_shape: tuple, device: str) -> dict:
+    """One rank of ``run_parallel``: the same seeded masks on every rank."""
+    np.random.seed(0)
+    state = _train(cfg, device, mesh_shape)
+    return {"step": state.step, "world": mesh_shape[0] * mesh_shape[1]}
+
+
+def _train(cfg: dict, device, mesh_shape=None):
     optimizer_factory = optimizer_from_config(cfg["optim_params"])
     pipe = build_pipeline(cfg, device)
     dtr = cfg["data"]["train"]
@@ -159,6 +198,7 @@ def run(cfg: dict, device="cuda"):
         freeze_attention=cfg["freeze"]["freeze_attention"],
         remat=bool(cfg.get("remat", False)),
         accum_steps=int(cfg.get("accum_steps", 1)),
+        mesh_shape=mesh_shape,
     )
 
 

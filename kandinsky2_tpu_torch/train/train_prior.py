@@ -1,6 +1,7 @@
 """Diffusion-prior training, the counterpart of
 ``kandinsky2_tpu/train/train_prior.py`` (reference: kandinsky2/train_utils/
-trainer_prior.py:29-70) on one device.
+trainer_prior.py:29-70), on one device or, with ``data_axis``, data-parallel
+over ranks.
 
 The prior predicts x0, the clip_mean/std-normalised CLIP image embedding,
 from CLIP text features (cosine schedule, MSE loss; configs.py:113-123).
@@ -21,12 +22,13 @@ from ..configs import schedule_kwargs
 from ..diffusion.gaussian import make_schedule, training_losses
 from .ema import ema_update
 from .resample import uniform_sample
-from .train_unclip import TrainState, default_optimizer, fit
+from ..parallel.collectives import pmean, pmean_grads
+from .train_unclip import TrainState, _shard_generators, default_optimizer, fit
 
 
 def make_prior_train_step(prior: nn.Module, diffusion_config: dict,
                           optimizer_factory: Callable = default_optimizer, *,
-                          ema_decay: float = 0.9999):
+                          ema_decay: float = 0.9999, data_axis=None):
     """(init_state, train_step) for ``prior`` on the device its parameters
     lie on.
 
@@ -35,7 +37,13 @@ def make_prior_train_step(prior: nn.Module, diffusion_config: dict,
     noise=None)`` runs one step in place on batch = {image_emb [B, D] (the
     normalised x0 target), txt_feat [B, D], txt_feat_seq [B, ctx, W],
     mask [B, ctx]} and returns {"loss"}; t [B] is drawn uniformly and then
-    the noise, from ``state.generator``, unless given."""
+    the noise, from ``state.generator``, unless given.
+
+    ``data_axis`` (a ``parallel.mesh.MeshAxis``): the batch is this rank's
+    examples, the gradients and the loss are ``pmean``'d over the axis
+    (``kandinsky2_tpu/train/train_prior.py:79-81``), and undrawn t and
+    noise come from a generator of this data shard's own, seeded from one
+    draw of ``state.generator`` (``train_unclip._shard_generators``)."""
     skw = schedule_kwargs(diffusion_config, "")
     device = next(prior.parameters()).device
     sched = make_schedule(**skw["make_schedule"], device=device)
@@ -51,13 +59,16 @@ def make_prior_train_step(prior: nn.Module, diffusion_config: dict,
     def train_step(state: TrainState, batch: dict, t=None, noise=None) -> dict:
         x0 = batch["image_emb"].float()
         B = x0.shape[0]
+        gen = state.generator
+        if data_axis is not None and (t is None or noise is None):
+            gen = _shard_generators(state.generator, data_axis, None)[0]
         if t is None:
-            t, weights = uniform_sample(state.generator, sched.num_timesteps, B)
+            t, weights = uniform_sample(gen, sched.num_timesteps, B)
         else:
             t = torch.as_tensor(t, device=device).long()
             weights = torch.ones((B,), device=device)
         if noise is None:
-            noise = torch.randn(x0.shape, generator=state.generator, device=device)
+            noise = torch.randn(x0.shape, generator=gen, device=device)
         noise = torch.as_tensor(noise, device=device).float()
 
         def model_fn(x_t, t_model):
@@ -67,6 +78,9 @@ def make_prior_train_step(prior: nn.Module, diffusion_config: dict,
         terms = training_losses(sched, model_fn, x0, t, noise, **loss_kw)
         loss = (terms["loss"] * weights).mean()
         loss.backward()
+        if data_axis is not None:
+            pmean_grads([p for p in prior.parameters() if p.requires_grad], data_axis)
+            loss = pmean(loss.detach(), data_axis)
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         ema_update(state.ema_params, dict(prior.named_parameters()), ema_decay,

@@ -19,13 +19,13 @@ JAX_DIR = os.path.join(ROOT, "examples")
 
 
 def test_the_eighteen_single_card_examples_are_ported():
-    """Every JAX example but the two that need spatial parallelism is in
-    ``run_all``; of those two, ``highres_sp_decode`` is ported (and run on
-    its own ranks below), ``train_sp`` waits for sp training."""
+    """Every JAX example is ported: the eighteen single-card ones and
+    ``train_sp`` (two CPU ranks with ``--small``) are in ``run_all``;
+    ``highres_sp_decode`` runs on its own ranks below."""
     jax_scripts = {f[:-3] for f in os.listdir(JAX_DIR)
                    if f.endswith(".py") and f != "common.py"}
-    assert set(run_all.EXAMPLES) == jax_scripts - {"train_sp", "highres_sp_decode"}
-    assert len(run_all.EXAMPLES) == 18
+    assert set(run_all.EXAMPLES) == jax_scripts - {"highres_sp_decode"}
+    assert len(run_all.EXAMPLES) == 19 and run_all.OWN_FLAGS == {"train_sp"}
     for name in [*run_all.EXAMPLES, "highres_sp_decode"]:
         assert os.path.exists(os.path.join(PORT_DIR, f"{name}.py")), name
 
@@ -50,7 +50,8 @@ def _argparser_extras(path):
     return {kw.arg: ast.literal_eval(kw.value) for kw in calls[0].keywords}
 
 
-@pytest.mark.parametrize("name", list(run_all.EXAMPLES))
+@pytest.mark.parametrize("name", [n for n in run_all.EXAMPLES
+                                  if n not in run_all.OWN_FLAGS])
 def test_flags_and_defaults_are_the_jax_scripts(name):
     assert _argparser_extras(os.path.join(PORT_DIR, f"{name}.py")) == \
         _argparser_extras(os.path.join(JAX_DIR, f"{name}.py"))
@@ -100,6 +101,35 @@ def test_highres_sp_decode_small_on_two_cpu_ranks(capsys):
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "2 ranks on cpu, image rows sharded 2-way"
     assert lines[-1].startswith("decoded 64²x3 in ") and lines[-1].endswith("finite=True")
+
+
+def _add_argument_flags(path):
+    """{flag: its keywords but help} of every ``add_argument`` call."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {ast.literal_eval(n.args[0]): {kw.arg: ast.unparse(kw.value)
+                                          for kw in n.keywords if kw.arg != "help"}
+            for n in ast.walk(tree) if isinstance(n, ast.Call)
+            and getattr(n.func, "attr", None) == "add_argument"}
+
+
+def test_train_sp_flags_and_lines_are_the_jax_scripts():
+    """``--data``, ``--sp``, ``--res``, ``--steps`` and ``--full`` as the JAX
+    script's, defaults too; ``--device`` (the card by default) in place of
+    its ``--cpu N``, and ``--small`` for ``run_all``.  The printed lines
+    are the JAX script's formats."""
+    jax_flags = _add_argument_flags(os.path.join(JAX_DIR, "train_sp.py"))
+    port_flags = _add_argument_flags(os.path.join(PORT_DIR, "train_sp.py"))
+    assert {k: v for k, v in port_flags.items() if k not in ("--device", "--small")} \
+        == {k: v for k, v in jax_flags.items() if k != "--cpu"}
+    assert port_flags["--device"] == {"default": "'cuda'"}
+    with open(os.path.join(JAX_DIR, "train_sp.py")) as f:
+        jax_src = f.read()
+    with open(os.path.join(PORT_DIR, "train_sp.py")) as f:
+        port_src = f.read()
+    for fmt in ("params, mesh ", "(data x sp), ", "rows sharded ", '"SP training OK"',
+                "s)\""):
+        assert fmt in jax_src and fmt in port_src, fmt
 
 
 def test_highres_sp_decode_flags_are_the_jax_scripts():

@@ -54,8 +54,22 @@ def test_port_imports_no_jax():
                  "weights.load_kandinsky", "weights.load_kandinsky22", "models.dpt",
                  "examples.common", "examples.train_lora_22", "examples.run_all",
                  "parallel.mesh", "parallel.collectives", "parallel.spatial",
-                 "parallel.launch", "examples.highres_sp_decode"):
+                 "parallel.launch", "examples.highres_sp_decode", "examples.train_sp"):
         assert f"kandinsky2_tpu_torch.{name}" in proc.stdout.split(), name
+
+
+def test_entry_points_default_to_the_card():
+    """The rank launcher and the entry points that spawn ranks run on the
+    card unless the caller asks for the CPU: a rank fails where there is
+    no card rather than falling back."""
+    import inspect
+
+    from kandinsky2_tpu_torch.parallel import launch
+    from kandinsky2_tpu_torch.train import train_2_1_unclip
+
+    for fn in (launch.RankPool, launch.run_ranks, train_2_1_unclip.run,
+               train_2_1_unclip.run_parallel):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_ab.py"])

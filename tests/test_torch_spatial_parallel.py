@@ -46,7 +46,7 @@ KL_KW = dict(z_channels=4, embed_dim=4, ch=32, ch_mult=(1, 2, 2), num_res_blocks
 
 @pytest.fixture(scope="module")
 def pool():
-    p = RankPool(4)
+    p = RankPool(4, device="cpu")
     p.start()  # the ranks join while the JAX side compiles
     yield p
     p.close()

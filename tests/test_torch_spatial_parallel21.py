@@ -37,7 +37,7 @@ H = 128  # latent 16x16: 4 rows a rank at 4 ranks, 2 at the UNet's second level
 
 @pytest.fixture(scope="module")
 def pool():
-    p = RankPool(4)
+    p = RankPool(4, device="cpu")
     p.start()  # the ranks join while the JAX side compiles
     yield p
     p.close()
