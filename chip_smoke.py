@@ -125,14 +125,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    CONFIG_2_0 (2.01B parameters: XLM-R large, mT5-small, Text2ImUNet20,
    the KL-VAE) with random bf16 weights from a seeded generator and the
    stand-in tokenizers, as ``generate_text2img(prompt)`` is called with
-   its own defaults: 512², DDIM 100 at eta 0.05, guidance 7, batch 1; one
-   warm-up and one timed call, during which K1 and K2 must launch
-   100 × 95 + 30 (the UNet calls and the KL-VAE decoder) and K3
-   100 × 22 + 1 times with no attention call on the card by the plain
+   its own defaults (512², DDIM at eta 0.05, guidance 7, batch 1) but at
+   DDIM 50 in place of its 100 steps (a depth cut for the script's time
+   limit); one warm-up and one timed call, during which K1 and K2 must
+   launch 50 × 95 + 30 (the UNet calls and the KL-VAE decoder) and K3
+   50 × 22 + 1 times with no attention call on the card by the plain
    route; peak memory; the GroupNorm input shapes of one UNet call and
    its device ops; one call under the profiler (device ops and time, idle
-   share, the ``k20.*`` spans).  Then img2img at strength 0.7 (30 of the
-   100 steps, the KL encoder's 22 GroupNorms and 1 attention more) on that
+   share, the ``k20.*`` spans).  Then img2img at strength 0.7 (15 of the
+   50 steps, the KL encoder's 22 GroupNorms and 1 attention more) on that
    pipeline and, that pipeline freed, inpainting on a
    task_type="inpainting" one, each timed and pinned as in phase 5b
    (unprofiled: the text2img call shows where a 2.0 image's time goes).
@@ -159,9 +160,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 15. serve21-768 (run after phase 5b's img2img, on phase 5's pipeline):
    ``serving.GenerationServer(pipe, max_batch=4)``; its warmup runs
-   buckets 1, 2 and 4; each bucket's call, as the server makes it, with
-   K1 = K2 = 4,783 and K3 = 1,104 pinned a call (batch lives in the
-   grids) and no attention call on the card by the plain route, s/call,
+   buckets 1, 2 and 4; each bucket's call, as the server makes it (768²,
+   prior "25", DDIM 25: a depth cut for the script's time limit), with
+   K1 = K2 = 25 x 95 + 33 and K3 = 25 x 22 + 4 pinned a call (batch lives
+   in the grids) and no attention call on the card by the plain route, s/call,
    s/image, peak memory and one profiled call's device time and idle
    share; 9 requests queued before ``start()`` (buckets 4, 4, 1, no
    padding) with their requests/s and launches, then 3 more after a
@@ -179,7 +181,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    768² PNGs back, an undecodable image 400, an unknown path 404; then
    the pipeline re-drawn at torch-default weight scales
    (``weights.realistic.torch_init_stats``) and ``validate.validate``
-   twice at 768², 50 DDIM steps: the bootstrap and the seeded repeat
+   twice at 768², 25 DDIM steps: the bootstrap and the seeded repeat
    against it (LPIPS weights from ``lpips.init_random_lpips`` written and
    read by the port's own file code), both ok with PSNR >= 30 dB; the bf16
    image finite and not constant; without a builder the report stops at
@@ -210,7 +212,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    loaded pipeline on the card and bitwise equal to the source's; one image
    from each with the same seed bitwise equal (the 2.2 source given the
    loaded tokenizer), its launches pinned (2.2 and 2.1 K1 = K2 = 4,783, K3
-   = 1,104; 2.0 9,530 and 2,201).  18d: DPT-Large at full width (the
+   = 1,104; 2.0 4,780 and 1,101).  18d: DPT-Large at full width (the
    ``DPTDepth()`` defaults as config.json, F32 safetensors of a seeded
    model) through ``depth.dpt_estimator`` in bf16 and fp32 on a 768²
    image: a finite, non-constant depth, K3 24 launches in bf16 and none in
@@ -272,10 +274,47 @@ Phases, in order; any failure raises and the script exits non-zero:
    at 5e-6, the loss-second-moment sampler, no EMA, remat: rank 0's
    unsharded step with the same injected t and noise first (loss within
    1e-2, named gradients within 5e-2), then a warm-up and three timed
-   steps (one where the script would pass 950 s there), the parameters
+   steps (one where the script would pass 850 s there), the parameters
    bitwise equal across the ranks after every step (digests) and every
    one moved, K1 = K2 = 190, K3 = 44 and K4 = K5 = 22 a step a rank,
    s/step, the all-reduce's seconds and the peak memory per rank.
+22. row-sharded 2.2 and 2.0 inference and sharded LoRA tuning of the
+   UNet22 (last, on a fresh pool of 4 gloo ranks sharing the card, the
+   pipelines of phases 1-21 freed): 22a in this process K3 at a rank's
+   shard shapes of the 768² UNet22 (local query rows against the gathered
+   K/V after its 10 image tokens), of the 512² UNet20 (after its 154 text
+   tokens) and of the 512² KL-VAE's mid attention, and K5 and K4 at the
+   UNet22's LoRA shard shapes, each beside its plain version, SDPA (or its
+   backward) and the bound; on the ranks the published UNet22's
+   ``AddedKVAttention`` at each level row-sharded against the unsharded
+   module in bf16, and its gradients through the gather (K5 + K4 on the
+   local rows).  22b sp22-768: phase 10's 2.2 text2img at 768², prior 25,
+   decoder DDPM 10 (the cut), CFG 4 and 4, bf16, every draw injected, on
+   the 4 ranks against the same call unsharded on rank 0: the latents
+   within 5e-2 relative L2, the image finite and not constant, each rank's
+   launches pinned (K1 = K2 = 10 x 95 + 33, K3 = 10 x 22 + 4, none by the
+   plain route), s/image (the slowest rank's) and peak memory per rank;
+   then the small width in fp32: text2img, img2img, inpainting,
+   ControlNet with hint=, turbo, ``decode_latents`` and hires (on a UNet
+   of four levels, so that its first stage runs whole on every rank), each
+   sharded within 1e-4 relative L2 of unsharded.  22c sp20-512: phase 12's
+   2.0 text2img at 512², DDIM 10 (the cut) at eta 0.05, guidance 7, bf16,
+   x_T and the DDIM noise injected, checked as 22b (K1 = K2 = 10 x 95 +
+   30, K3 = 10 x 22 + 1); the small width in fp32: the p_sampler (its
+   dynamic threshold over the whole image) and inpainting.  22d
+   sp-lora22-768: ``make_sp_lora_train_fn`` on a (data 1, sp 4) mesh with
+   phase 14's lora22-768 settings (the published UNet22, a bf16 base,
+   rank-4 factors on ``default_target`` with ``up`` drawn non-zero, Adam
+   1e-4, latents [1, 96, 96, 4]): one step against the same step
+   unsharded on rank 0 with the same injected t and noise (loss within
+   1e-2, the factors' gradients within 5e-2 relative L2), then three timed
+   steps, the factors bitwise equal across the ranks and the base
+   unchanged after every step, K1 = K2 = 95 and K3 = K4 = K5 = 22 a step a
+   rank, s/step, the factors' all-reduce's seconds and peak memory per
+   rank; the small width: fp32 on (data 2, sp 2), two SGD steps within
+   1e-5 of the unsharded steps at batch 2.  Past ``SP22_CUT_AT_S`` seconds
+   of the script at its start, 22b and 22c run 5 decoder steps and 22d
+   one timed step (depth only).
 Phases 15-17 time their stages with ``observability.StageReport``.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
@@ -307,10 +346,11 @@ UNET_LAUNCHES, DECODER_LAUNCHES, ENCODER_LAUNCHES = (95, 22), (33, 4), (24, 3)
 # the 2.0 KL-VAE's: its decoder 30 GroupNorms and 1 attention (the mid
 # block's), its encoder 22 and 1; Text2ImUNet20's torso is 2.1's (95, 22)
 KL_DECODER_LAUNCHES, KL_ENCODER_LAUNCHES = (30, 1), (22, 1)
-# phase 12's full-width 2.0 text2img: generate_text2img's own defaults,
-# 512², DDIM 100 at eta 0.05, guidance 7, batch 1
-T2I20 = dict(output="float")
-T2I20_STEPS, T2I20_SIZE = 100, 512
+# phase 12's full-width 2.0 text2img: generate_text2img's own defaults
+# (512², DDIM at eta 0.05, guidance 7, batch 1) at 50 steps in place of 100,
+# a depth cut that keeps the whole script within its time limit
+T2I20_STEPS, T2I20_SIZE = 50, 512
+T2I20 = dict(num_steps=T2I20_STEPS, output="float")
 # phase 5b's full-width tasks: 768², DDIM 50, prior "25", CFG 4 and 4
 FULL_TASK = dict(num_steps=50, guidance_scale=4, h=768, w=768, sampler="ddim_sampler",
                  prior_cf_scale=4, prior_steps="25", output="float")
@@ -1602,7 +1642,7 @@ def phase_tasks20_small(torch, np):
 def phase_t2i20(torch, np, smi: str):
     """Kandinsky 2.0 at CONFIG_2_0 (2.01B parameters), as
     ``generate_text2img(prompt)`` is called with its own defaults (512²,
-    DDIM 100 at eta 0.05, guidance 7, batch 1), bf16; then img2img at
+    DDIM at eta 0.05, guidance 7, batch 1) at T2I20_STEPS, bf16; then img2img at
     strength 0.7 on that pipeline, and inpainting on a
     task_type="inpainting" one.  Returns (text2img launch counts, s/image,
     {task: (launch counts, s/image)})."""
@@ -1680,7 +1720,7 @@ def phase_t2i20(torch, np, smi: str):
     print(f"t2i20: img2img strength 0.7: {steps} of the {T2I20_STEPS} DDIM steps run")
     tasks = {"img2img20": _timed_task(
         torch, np, "2.0 img2img", lambda seed: pipe.generate_img2img(
-            PROMPT, img_in, strength=0.7, output="float",
+            PROMPT, img_in, strength=0.7, num_steps=T2I20_STEPS, output="float",
             generator=torch.Generator(device="cuda").manual_seed(seed)),
         smi, unet_calls=steps, **kl)}
     del pipe, unet, cond, denoise, xt
@@ -1693,7 +1733,7 @@ def phase_t2i20(torch, np, smi: str):
     mask[:, S // 2:] = 0.0  # keep the left half, inpaint the right
     tasks["inpainting20"] = _timed_task(
         torch, np, "2.0 inpainting", lambda seed: pipe.generate_inpainting(
-            PROMPT, img_in, mask, output="float",
+            PROMPT, img_in, mask, num_steps=T2I20_STEPS, output="float",
             generator=torch.Generator(device="cuda").manual_seed(seed)),
         smi, unet_calls=T2I20_STEPS, **kl)
     return counts, seconds, tasks
@@ -2448,7 +2488,10 @@ def phase_prior_train_full(torch, np, smi: str, name="prior-train", optim_params
 
 # phases 15 and 17's 2.1 serving set: phase 5b's full-width task without
 # its output choice (the server hands back PIL images)
-SERVE21 = {k: v for k, v in FULL_TASK.items() if k != "output"}
+# phase 15's and 17's served calls: FULL_TASK at DDIM 25, a depth cut that
+# keeps the whole script within its time limit (at DDIM 50 phase 15 took
+# 115-173 s on an H100 80GB HBM3 at 700 W, its profiled calls most of it)
+SERVE21 = dict({k: v for k, v in FULL_TASK.items() if k != "output"}, num_steps=25)
 # phase 15: a bf16 row of a batch-4 call may stand as far from the same
 # prompt alone as bf16 stands from fp32 on that row, and half as far again
 # (1.02 and 1.04 times on an H100 80GB HBM3 at 700 W; a row that took
@@ -3382,6 +3425,14 @@ def phase_examples(torch):
 # --- phase 20: spatial parallelism ---------------------------------------------
 
 SP_WORLD = 4
+# K3 at a rank's shard shapes (B, T, S, H, d) of the 768² 2.1 path on 4
+# ranks (the local query rows against the gathered K/V after the 87 text
+# tokens), of its MoVQ's mid attention, and at the 4096² ring's block
+SP_K3_SHAPES = (("sp4 unet ds2 shard", (2, 576, 2391, 12, 64)),
+                ("sp4 unet ds4 shard", (2, 144, 663, 18, 64)),
+                ("sp4 unet ds8/middle shard", (2, 36, 231, 24, 64)),
+                ("sp4 movq mid shard", (1, 2304, 9216, 1, 512)),
+                ("sp4 4096^2 ring block", (1, 65536, 65536, 1, 512)))
 # phase 20b's sp21-768: 2.1 text2img at full width on 4 ranks of the card
 SP21 = dict(num_steps=10, guidance_scale=4, h=768, w=768, sampler="ddim_sampler",
             prior_cf_scale=4, prior_steps="25", output="float")
@@ -3662,10 +3713,6 @@ def _sp_kernel_rows(torch, F):
     K3 at its shard's attention shapes (4 ranks), each beside its plain
     version, the library call and the bound, as phase 3."""
     from kandinsky2_tpu_torch.ops import group_norm as gn
-    from kandinsky2_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd,
-        flash_attention_plain,
-    )
 
     g = torch.Generator(device="cuda").manual_seed(21)
     rows = {"group_norm_stats": [], "group_norm_apply": [], "flash_attention_fwd": []}
@@ -3695,11 +3742,24 @@ def _sp_kernel_rows(torch, F):
             _print_times(f"sp {name}", label, t, *bnd)
             check(err <= tol, f"{name} disagrees at {label}")
             rows[name].append(_row(label, (B, N, C), err, t, *bnd))
-    for label, (B, T, S, H, d) in (("sp4 unet ds2 shard", (2, 576, 2391, 12, 64)),
-                                   ("sp4 unet ds4 shard", (2, 144, 663, 18, 64)),
-                                   ("sp4 unet ds8/middle shard", (2, 36, 231, 24, 64)),
-                                   ("sp4 movq mid shard", (1, 2304, 9216, 1, 512)),
-                                   ("sp4 4096^2 ring block", (1, 65536, 65536, 1, 512))):
+    rows["flash_attention_fwd"] = _k3_rows(torch, F, g, SP_K3_SHAPES)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _k3_rows(torch, F, g, shapes) -> list:
+    """K3 at each (label, (B, T, S, H, d)) of ``shapes`` (a rank's shard:
+    its query rows against the gathered K/V, or a ring step's block)
+    against its plain version (SDPA where the plain version's fp32 logits
+    would not fit), timed in turns with the plain version and SDPA, each
+    beside the bound, as phase 3."""
+    from kandinsky2_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_attention_plain,
+    )
+
+    out = []
+    for label, (B, T, S, H, d) in shapes:
         q = torch.randn((B, T, H, d), generator=g, device="cuda").bfloat16()
         k, v = (torch.randn((B, S, H, d), generator=g, device="cuda").bfloat16()
                 for _ in range(2))
@@ -3727,10 +3787,9 @@ def _sp_kernel_rows(torch, F):
               f"{times['library']:.4f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), "
               f"{bnd[0] / times['kernel']:.1%} of it")
         check(err <= tol, f"K3 disagrees at {label}")
-        rows["flash_attention_fwd"].append(_row(label, (B, T, S, H, d), err, times, *bnd))
+        out.append(_row(label, (B, T, S, H, d), err, times, *bnd))
         del q, k, v, qt, kt, vt, o, ref
-    torch.cuda.empty_cache()
-    return rows
+    return out
 
 
 def phase_spatial(torch, smi: str, sp_steps: int):
@@ -3863,11 +3922,19 @@ SP_BWD_SHAPES = (("sp4 unet ds2 shard", (1, 576, 2391, 12)),
 
 
 def _param_digests(torch, model) -> list:
-    """One int64 a parameter that any change of any bit changes: the
-    parameter's words, each times an odd weight, summed with wrap-around."""
+    """``_tensor_digests`` of the model's parameters."""
+    return _tensor_digests(torch, model.parameters())
+
+
+def _tensor_digests(torch, tensors) -> list:
+    """One int64 a tensor that any change of any bit changes: the tensor's
+    words (2 bytes for bf16, 4 otherwise), each times an odd weight,
+    summed with wrap-around."""
     out = []
-    for p in model.parameters():
-        bits = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+    for p in tensors:
+        flat = p.detach().reshape(-1)
+        bits = flat.view(torch.int16 if flat.element_size() == 2 else torch.int32)
+        bits = bits.to(torch.int64)
         w = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64) * 2 + 1
         out.append(int((bits * w).sum()))
     return out
@@ -3971,11 +4038,11 @@ def sp_rank_backward(mesh, device="cuda"):
     return out
 
 
-def _sp_backward_rows(torch, F):
+def _sp_backward_rows(torch, F, shapes=SP_BWD_SHAPES, seed=22):
     """21a's timing, in this process: K5 and K4 at a rank's shard shapes
     of the 768² train step (4 ranks, batch 1) and at one ring step's
-    block, each beside the whole plain backward, SDPA's backward and the
-    bound, as phase 6."""
+    block (``shapes``: (label, (B, T, S, H)), d = 64), each beside the
+    whole plain backward, SDPA's backward and the bound, as phase 6."""
     from kandinsky2_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
@@ -3983,9 +4050,9 @@ def _sp_backward_rows(torch, F):
         flash_attention_fwd,
     )
 
-    g = torch.Generator(device="cuda").manual_seed(22)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     rows = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
-    for label, (B, T, S, H) in SP_BWD_SHAPES:
+    for label, (B, T, S, H) in shapes:
         d = 64
         randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").bfloat16()
         q, k, v, do = randn(B, T, H, d), randn(B, S, H, d), randn(B, S, H, d), \
@@ -4322,8 +4389,8 @@ def phase_sp_train(torch, smi: str, t_script: float):
 
         # 21b
         t0 = time.perf_counter()
-        steps = 3 if t0 - t_script <= 950 else 1
-        print(f"sp-train-768: {steps} timed step(s) (one where the script passes 950 s "
+        steps = 3 if t0 - t_script <= 850 else 1
+        print(f"sp-train-768: {steps} timed step(s) (one where the script passes 850 s "
               f"here; {t0 - t_script:.1f} s so far); the card's memory in use: "
               f"{smi_memory()}")
         res = gloo.run(sp_rank_train768, steps, timeout=900)
@@ -4376,6 +4443,655 @@ def phase_sp_train(torch, smi: str, t_script: float):
         gloo.close()
         nccl.close()
     return sp_train_launches, rows
+
+
+# --- phase 22: row-sharded 2.2 and 2.0 inference and sharded LoRA -------------
+
+# sp22-768: phase 10's 2.2 text2img row-sharded 4-way with the decoder at 10
+# DDPM steps; sp20-512: phase 12's 2.0 text2img at DDIM 10 (eta 0.05,
+# guidance 7); the step counts are the only cuts (5 where the script's clock
+# would otherwise pass SP22_CUT_AT_S at phase 22's start)
+SP22 = dict(T2I22, decoder_steps=10)
+SP20_STEPS = 10
+SP22_CUT_AT_S = 900
+# K3 at a rank's shard shapes (B, T, S, H, d), 4 ranks, batch 1 (CFG 2): the
+# UNet22's local query rows against the gathered K/V after the 10 image
+# tokens at 768², the UNet20's after the 154 text tokens at 512², the
+# KL-VAE decoder's mid attention at 512²
+SP22_K3_SHAPES = (("sp4 unet22 ds2 shard", (2, 576, 2314, 12, 64)),
+                  ("sp4 unet22 ds4 shard", (2, 144, 586, 20, 64)),
+                  ("sp4 unet22 ds8/middle shard", (2, 36, 154, 24, 64)),
+                  ("sp4 unet20 512^2 ds2 shard", (2, 256, 1178, 12, 64)),
+                  ("sp4 unet20 512^2 ds4 shard", (2, 64, 410, 18, 64)),
+                  ("sp4 unet20 512^2 ds8/middle shard", (2, 16, 218, 24, 64)),
+                  ("sp4 kl-vae 512^2 mid shard", (1, 1024, 4096, 1, 512)))
+# K5 and K4 at a rank's shard of sp-lora22-768 (batch 1, no CFG)
+SP22_BWD_SHAPES = (("sp4 unet22 ds2 shard", (1, 576, 2314, 12)),
+                   ("sp4 unet22 ds4 shard", (1, 144, 586, 20)),
+                   ("sp4 unet22 ds8/middle shard", (1, 36, 154, 24)))
+# the published UNet22's added-KV attentions at 768²: (level, channels,
+# heads, latent rows); cross_attention_dim 768 and 10 image tokens
+SP22_ATTN = (("ds2", 768, 12, 48), ("ds4", 1280, 20, 24), ("ds8", 1536, 24, 12))
+# sp-lora22-768 a step a rank: phase 14's lora22-768 (a UNet22 forward and
+# its backward; the sharded GroupNorm's backward launches no kernel)
+SP_LORA22_LAUNCHES = {"group_norm_stats": UNET_LAUNCHES[0],
+                      "group_norm_apply": UNET_LAUNCHES[0],
+                      "flash_attention_fwd": UNET_LAUNCHES[1],
+                      "flash_attention_bwd_dq": UNET_LAUNCHES[1],
+                      "flash_attention_bwd_dkv": UNET_LAUNCHES[1]}
+
+
+def sp_rank_added_kv(mesh):
+    """22a on one rank, bf16 on the card: the published UNet22's
+    ``AddedKVAttention`` at each 768² level row-sharded (K3 on this rank's
+    query rows against the gathered K/V after the 10 image tokens) against
+    the unsharded module, CFG batch 2; then at batch 1 its gradients (x and
+    every parameter) through the gather (K5 + K4 on the local rows, the
+    gather's reduce-scatter) against the unsharded module's; launches
+    counted."""
+    import torch
+
+    from kandinsky2_tpu_torch.models.unet22 import AddedKVAttention
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+    from kandinsky2_tpu_torch.parallel import spatial as sp
+    from kandinsky2_tpu_torch.parallel.collectives import all_gather, psum
+    from kandinsky2_tpu_torch.pipelines.base import init_random_
+
+    _sp_rank_setup(torch)
+    ax = mesh.axis()
+    n = ax.size
+    g = torch.Generator(device="cuda").manual_seed(22)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").bfloat16()
+    out = {"checks": [], "rank": ax.index}
+    record = lambda name, err, tol: out["checks"].append((name, err, tol))
+    reset_path_counts()
+    for label, C, heads, rows in SP22_ATTN:
+        attn = AddedKVAttention(C, heads, 768, dtype=torch.bfloat16, device="cuda")
+        init_random_(attn, g)
+        attn.to(torch.bfloat16)
+        x, enc, gy = randn(2, rows, rows, C), randn(2, 10, 768), randn(1, rows, rows, C)
+        shape = f"(T {rows * rows // n}, S {10 + rows * rows}, H {heads})"
+        # the attention's own output (to_out's), before the residual
+        seen = []
+        hook = attn.to_out[0].register_forward_hook(lambda mod, a, y: seen.append(y))
+        with torch.no_grad():
+            attn(x, enc)
+            with sp.using_sp_axis(attn, ax):
+                attn(sp.shard_rows(x, ax), enc)
+        hook.remove()
+        whole, got = seen[0], all_gather(seen[1], ax, dim=1)
+        record(f"AddedKVAttention {label} {shape} sharded vs unsharded, rel_l2",
+               _sp_rel(torch, got, whole), 1e-2)
+
+        def grads(sharded):
+            attn.zero_grad(set_to_none=True)
+            xi = (sp.shard_rows(x[:1], ax) if sharded else x[:1]).clone().requires_grad_()
+            with sp.using_sp_axes(ax if sharded else None, attn):
+                y = attn(xi, enc[:1])
+            y.backward(sp.shard_rows(gy, ax) if sharded else gy)
+            dx = all_gather(xi.grad, ax, dim=1) if sharded else xi.grad
+            dp = torch.cat([p.grad.float().reshape(-1) for p in attn.parameters()])
+            return dx, psum(dp, ax) if sharded else dp
+
+        (dxw, dpw), (dxs, dps) = grads(False), grads(True)
+        record(f"AddedKVAttention {label} {shape} dx sharded vs unsharded", rel_err(dxs, dxw),
+               2e-2)
+        record(f"AddedKVAttention {label} {shape} d parameters sharded vs unsharded",
+               rel_err(dps, dpw), 2e-2)
+        del attn, x, enc, gy, whole, got, dxw, dpw, dxs, dps
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    out["plain_on_card"] = qkv_attention.plain_on_card
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_build_in_turn(torch, mesh, build):
+    """``build()`` on one rank at a time, a barrier after each: a pipeline
+    is made with fp32 parameters before its cast to bf16 (the 2.2
+    pipeline's 19.8 GB), so four ranks building at once would not fit on
+    the card.  Returns (this rank's result, its own seconds)."""
+    import torch.distributed as dist
+
+    ax = mesh.axis()
+    out, seconds = None, 0.0
+    for i in range(ax.size):
+        if ax.index == i:
+            t0 = time.perf_counter()
+            out = build()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        dist.barrier(group=ax.group)
+    return out, seconds
+
+
+def _sp_compare(torch, np, mesh, pipe, call, inject=None):
+    """``call(sp_mesh)`` of ``pipe`` unsharded (None) and row-sharded over
+    ``mesh``, each after ``set_seed(3)`` and with ``inject(pipe)`` where
+    given (undone after): the sharded float image's relative L2 distance
+    from the unsharded one."""
+    outs = []
+    for m in (None, mesh):
+        pipe.set_seed(3)
+        if inject is not None:
+            inject(pipe)
+        try:
+            outs.append(np.asarray(call(m), np.float64))
+        finally:
+            for name in ("run_prior", "_decode_loop"):
+                pipe.__dict__.pop(name, None)
+    whole, got = outs
+    check(np.isfinite(got).all() and whole.std() > 1e-3, "sp small: image")
+    return float(np.linalg.norm(got - whole) / np.linalg.norm(whole))
+
+
+def _sp_small22(torch, np, mesh) -> dict:
+    """22b's small width in fp32 on the card: every 2.2 entry point at a
+    small width (``configs.small_overrides22``, the MoVQ's output conv
+    scaled by 0.2 as in phase 9), sharded against unsharded with the same
+    injected draws.  Hires runs on a UNet of four levels, so that its 128²
+    first stage (16 latent rows) runs whole on every rank, as the row rule
+    sends it, and only its 256² stage shards."""
+    from PIL import Image
+
+    from kandinsky2_tpu_torch.configs import small_overrides22
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_2
+    from kandinsky2_tpu_torch.utils import stub_tokenizer22
+
+    def build(task, levels=2):
+        ov = small_overrides22()
+        if levels == 4:
+            ov["unet"] = dict(ov["unet"], block_out_channels=(64, 64, 64, 64))
+        pipe = Kandinsky2_2(task_type=task, tokenizer=stub_tokenizer22(64), overrides=ov,
+                            dtype=torch.float32, device="cuda")
+        pipe.init_random_params(torch.Generator(device="cuda").manual_seed(7))
+        with torch.no_grad():
+            pipe.movq.decoder.conv_out.weight.mul_(0.2)
+            pipe.movq.decoder.conv_out.bias.mul_(0.2)
+        return pipe
+
+    rng = np.random.RandomState(23)
+    image = Image.fromarray(rng.randint(0, 256, (128, 128, 3), np.uint8))
+    mask = np.zeros((128, 128), np.float32)
+    mask[30:90, 20:100] = 1.0
+    hint = rng.rand(128, 128, 3).astype(np.float32)
+    lat = rng.randn(1, 16, 16, 4).astype(np.float32)
+    kw = dict(decoder_steps=4, prior_steps=3, h=128, w=128, output="float")
+    cases = {
+        "text2img": ("text2img", 2, lambda p, m: p.generate_text2img(PROMPT, sp_mesh=m, **kw)),
+        "img2img": ("text2img", 2, lambda p, m: p.generate_img2img(
+            PROMPT, image, strength=0.7, sp_mesh=m, **kw)),
+        "inpainting": ("inpainting", 2, lambda p, m: p.generate_inpainting(
+            PROMPT, image, mask, sp_mesh=m, **kw)),
+        "controlnet hint=": ("controlnet", 2, lambda p, m: p.generate_controlnet(
+            PROMPT, hint=hint, sp_mesh=m, **kw)),
+        "turbo": ("text2img", 2, lambda p, m: p.generate_text2img(
+            PROMPT, turbo_interval=2, sp_mesh=m, **kw)),
+        "decode_latents": ("text2img", 2, lambda p, m: p.decode_latents(
+            lat, output="float", sp_mesh=m)),
+        "hires 256^2": ("text2img", 4, lambda p, m: p.generate_text2img_hires(
+            PROMPT, strength=0.5, sp_mesh=m, **dict(kw, h=256, w=256))),
+    }
+    out, pipes = {}, {}
+    for name, (task, levels, call) in cases.items():
+        if (task, levels) not in pipes:
+            pipes[(task, levels)] = build(task, levels)
+        pipe = pipes[(task, levels)]
+        out[name] = _sp_compare(torch, np, mesh, pipe, lambda m: call(pipe, m),
+                                lambda p: inject_noise22(p, 5, np))
+    del pipes
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_full_run(torch, np, mesh, pipe, call, name):
+    """The full-width sharded cell on one rank: ``call(None)`` unsharded on
+    rank 0 first (its latents kept), then ``call(mesh)`` as a warm-up and a
+    timed call (synchronized) with the launches counted; the seconds, peak
+    memory, launches, the latents' distance from the unsharded ones and
+    the image's checks."""
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+    from kandinsky2_tpu_torch.parallel.collectives import all_gather
+
+    ax = mesh.axis()
+    seen = _sp_latents(pipe)
+    out = {}
+    if ax.index == 0:
+        ref_img = call(None)
+        ref_lat = seen[-1]
+    call(mesh)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_path_counts()
+    t0 = time.perf_counter()
+    img = call(mesh)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    out["plain_on_card"] = qkv_attention.plain_on_card
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    lat = all_gather(seen[-1], ax, dim=1)
+    if ax.index == 0:
+        out["latent_rel_l2"] = _sp_rel(torch, lat, ref_lat)
+        out["image"] = (img.shape, bool(np.isfinite(img).all()), float(img.std()),
+                        float(np.abs(img - ref_img).max()))
+    seen.clear()
+    pipe.__dict__.pop("_decode", None)
+    return out
+
+
+def sp_rank_t2i22(mesh, steps: int):
+    """22b on one rank: sp22-768, phase 10's full-width 2.2 text2img at
+    ``steps`` decoder steps with every draw injected, unsharded on rank 0
+    and row-sharded over the ranks (``_sp_full_run``); then the small width
+    in fp32 (``_sp_small22``)."""
+    import numpy as np
+    import torch
+
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2_2
+    from kandinsky2_tpu_torch.utils import stub_tokenizer22
+    from kandinsky2_tpu_torch.weights.configs22 import pipeline_overrides
+
+    _sp_rank_setup(torch)
+    rng = np.random.RandomState(22)
+    draw = lambda *shape: rng.randn(*shape).astype(np.float32)
+    kw = dict(SP22, decoder_steps=steps, noise=draw(1, 96, 96, 4),
+              noise_seq=draw(steps, 1, 96, 96, 4), prior_noise=draw(1, 1280),
+              prior_noise_seq=draw(SP22["prior_steps"], 1, 1280))
+
+    def build():
+        pipe = Kandinsky2_2(tokenizer=stub_tokenizer22(), dtype=torch.bfloat16,
+                            overrides=pipeline_overrides(task_type="text2img"),
+                            device="cuda")
+        pipe.init_random_params(torch.Generator(device="cuda").manual_seed(0))
+        return pipe
+
+    pipe, build_s = _sp_build_in_turn(torch, mesh, build)
+    out = _sp_full_run(torch, np, mesh, pipe,
+                       lambda m: pipe.generate_text2img(PROMPT, sp_mesh=m, **kw), "sp22-768")
+    out["build_s"] = build_s
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["small"] = _sp_small22(torch, np, mesh)
+    return out
+
+
+def _sp_small20(torch, np, mesh) -> dict:
+    """22c's small width in fp32 on the card (``configs.small_config20``
+    with 64-wide heads, the KL-VAE's output conv scaled by 0.1 as in phase
+    11): the p_sampler (its dynamic threshold over the whole image) and
+    inpainting at 512² (the p_sampler, ``denoised_type`` its dynamic
+    threshold too), sharded against unsharded with every draw injected."""
+    from PIL import Image
+
+    from kandinsky2_tpu_torch.configs import small_config20
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2
+    from kandinsky2_tpu_torch.utils import stub_tokenizers
+
+    tok, _ = stub_tokenizers(64)
+    rng = np.random.RandomState(24)
+    draw = lambda *shape: rng.randn(*shape).astype(np.float32)
+    image = Image.fromarray(rng.randint(0, 256, (512, 512, 3), np.uint8))
+    mask = np.ones((512, 512), np.float32)
+    mask[128:384, 128:384] = 0.0
+    out = {}
+    for task, name, call in (
+            ("text2img", "p_sampler", lambda p, m: p.generate_text2img(
+                PROMPT, num_steps=4, h=128, w=128, sampler="p_sampler",
+                noise=draw(1, 16, 16, 4), noise_seq=draw(4, 1, 16, 16, 4), output="float",
+                sp_mesh=m)),
+            ("inpainting", "inpainting", lambda p, m: p.generate_inpainting(
+                PROMPT, image, mask, num_steps=4, sampler="p_sampler",
+                noise=draw(1, 64, 64, 4), noise_seq=draw(4, 1, 64, 64, 4), output="float",
+                sp_mesh=m))):
+        pipe = Kandinsky2(config=small_config20(64), tokenizer1=tok, tokenizer2=tok,
+                          task_type=task, dtype=torch.float32, device="cuda")
+        pipe.init_random_params(torch.Generator(device="cuda").manual_seed(8))
+        with torch.no_grad():
+            pipe.image_encoder.decoder.conv_out.weight.mul_(0.1)
+            pipe.image_encoder.decoder.conv_out.bias.mul_(0.1)
+        state = rng.get_state()
+        outs = []
+        for m in (None, mesh):  # the same draws for both calls
+            rng.set_state(state)
+            pipe.set_seed(3)
+            outs.append(np.asarray(call(pipe, m), np.float64))
+        whole, got = outs
+        check(np.isfinite(got).all() and whole.std() > 1e-3, f"sp20 small {name}: image")
+        out[name] = float(np.linalg.norm(got - whole) / np.linalg.norm(whole))
+        del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank_t2i20(mesh, steps: int):
+    """22c on one rank: sp20-512, phase 12's full-width 2.0 text2img
+    (``generate_text2img``'s 512², eta 0.05, guidance 7) at DDIM ``steps``
+    with x_T and the DDIM noise injected, unsharded on rank 0 and
+    row-sharded over the ranks; then the small width in fp32."""
+    import numpy as np
+    import torch
+
+    from kandinsky2_tpu_torch.diffusion.schedules import ddim_ladder
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2
+    from kandinsky2_tpu_torch.utils import stub_tokenizers
+
+    _sp_rank_setup(torch)
+    rng = np.random.RandomState(20)
+    lat = T2I20_SIZE // 8
+    noise = rng.randn(1, lat, lat, 4).astype(np.float32)
+    nseq = rng.randn(len(ddim_ladder(steps)), 1, lat, lat, 4).astype(np.float32)
+    tok, _ = stub_tokenizers()
+
+    def build():
+        pipe = Kandinsky2(tokenizer1=tok, tokenizer2=tok, dtype=torch.bfloat16,
+                          device="cuda")
+        pipe.init_random_params(torch.Generator(device="cuda").manual_seed(0))
+        return pipe
+
+    pipe, build_s = _sp_build_in_turn(torch, mesh, build)
+    out = _sp_full_run(torch, np, mesh, pipe, lambda m: pipe.generate_text2img(
+        PROMPT, noise=noise, noise_seq=nseq, sp_mesh=m, **dict(T2I20, num_steps=steps)),
+        "sp20-512")
+    out["build_s"] = build_s
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["small"] = _sp_small20(torch, np, mesh)
+    return out
+
+
+def _sp_lora_small(torch, np) -> dict:
+    """22d's small width: the small UNet22 (``configs.small_overrides22``)
+    in fp32 on a (data 2, sp 2) mesh, two ``torch.optim.SGD`` steps of
+    ``make_sp_lora_train_fn`` at batch 2 with injected t and noise, against
+    the same two steps of the unsharded ``make_lora_train_step``: the
+    factors' relative L2 distance and their digests (for the ranks'
+    bitwise agreement)."""
+    from kandinsky2_tpu_torch.configs import small_overrides22
+    from kandinsky2_tpu_torch.models.lora import init_lora
+    from kandinsky2_tpu_torch.models.unet22 import UNet22
+    from kandinsky2_tpu_torch.parallel.mesh import Mesh
+    from kandinsky2_tpu_torch.pipelines.base import init_random_
+    from kandinsky2_tpu_torch.train import train_lora as tl
+
+    grid = Mesh(None, ("data", "sp"), shape=(2, 2))
+    unet = UNet22(**small_overrides22()["unet"], device="cuda")
+    init_random_(unet, torch.Generator(device="cuda").manual_seed(30))
+    g = torch.Generator(device="cuda").manual_seed(31)
+    loras = init_lora(unet, g, rank=4)
+    for f in loras.values():
+        f["up"] = 0.05 * torch.randn(f["up"].shape, generator=g, device="cuda")
+    x0 = 0.5 * torch.randn((2, 16, 16, 4), generator=g, device="cuda")
+    cond = torch.randn((2, unet.encoder_hid_dim), generator=g, device="cuda")
+    draws = [(torch.randint(0, 1000, (2,), generator=g, device="cuda"),
+              torch.randn((2, 16, 16, 4), generator=g, device="cuda")) for _ in range(2)]
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.05)
+    acp = acp_decoder22(np)
+    init_state, train_fn = tl.make_sp_lora_train_fn(tl.unet22_eps_fn(unet), unet, acp,
+                                                    sgd, grid)
+    state = init_state(loras)
+    losses = [float(train_fn(state, x0, cond, t, n)["loss"]) for t, n in draws]
+    whole = tl.init_lora_train_state(loras, sgd)
+    step = tl.make_lora_train_step(tl.unet22_eps_fn(unet), unet, acp)
+    losses_w = [float(step(whole, x0, cond, t, n)["loss"]) for t, n in draws]
+    cat = lambda st: torch.cat([v.detach().reshape(-1).double() for v in st.params.values()])
+    a, b = cat(state), cat(whole)
+    return {"rel_l2": ((a - b).norm() / b.norm()).item(), "losses": (losses, losses_w),
+            "digests": _tensor_digests(torch, state.params.values())}
+
+
+def sp_rank_lora22(mesh, steps: int):
+    """22d sp-lora22-768 on one rank: phase 14's lora22-768 (the published
+    UNet22 with a bf16 base, rank-4 factors on ``default_target`` with
+    ``up`` drawn non-zero so that every factor has a gradient, Adam 1e-4,
+    latents [1, 96, 96, 4]) through ``make_sp_lora_train_fn`` on a (data 1,
+    sp 4) mesh.  Rank 0 first takes the same step unsharded with the same
+    injected t and noise (its loss and factor gradients kept); then every
+    rank the sharded warm-up step with those draws (its gradients kept on
+    rank 0) and ``steps`` timed ones drawing their own (synchronized):
+    seconds, the gradient all-reduce's seconds, launches, the factors'
+    digests after every step, the base's before and after, peak memory.
+    Then the small width (``_sp_lora_small``)."""
+    import numpy as np
+    import torch
+
+    from kandinsky2_tpu_torch.models.lora import init_lora
+    from kandinsky2_tpu_torch.models.unet22 import UNet22
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+    from kandinsky2_tpu_torch.parallel.mesh import Mesh
+    from kandinsky2_tpu_torch.pipelines.base import init_random_
+    from kandinsky2_tpu_torch.pipelines.kandinsky2_2 import Kandinsky2_2
+    from kandinsky2_tpu_torch.train import train_lora as tl
+    from kandinsky2_tpu_torch.weights.configs22 import pipeline_overrides
+
+    _sp_rank_setup(torch)
+    grid = Mesh(None, ("data", "sp"), shape=(1, SP_WORLD))
+    rank = grid.axis("sp").index
+    t0 = time.perf_counter()
+    unet = UNet22(**pipeline_overrides(task_type="text2img")["unet"], dtype=torch.bfloat16,
+                  device="cuda")
+    init_random_(unet, torch.Generator(device="cuda").manual_seed(20),
+                 Kandinsky2_2.residual_outputs)
+    unet.to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x0 = torch.randn((1, 96, 96, 4), generator=g, device="cuda") * 0.5
+    cond = torch.randn((1, unet.encoder_hid_dim), generator=g, device="cuda")
+    t_inj = torch.tensor([417], device="cuda")
+    noise = torch.randn((1, 96, 96, 4), generator=g, device="cuda")
+    loras = init_lora(unet, torch.Generator(device="cuda").manual_seed(22), rank=4)
+    for f in loras.values():
+        f["up"] = 0.01 * torch.randn(f["up"].shape, generator=g, device="cuda")
+    adam = lambda ps: torch.optim.Adam(ps, lr=1e-4)
+    acp = acp_decoder22(np)
+    eps_fn = tl.unet22_eps_fn(unet)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "build_s": time.perf_counter() - t0}
+    base0 = _tensor_digests(torch, unet.parameters())
+
+    def keep_grads(state):
+        kept = {}
+        hook = state.optimizer.register_step_pre_hook(lambda opt, a, kw: kept.update(
+            {n: p.grad.float().cpu() for n, p in state.params.items()}))
+        return hook, kept
+
+    if rank == 0:
+        ref = tl.init_lora_train_state(loras, adam)
+        hook, kept = keep_grads(ref)
+        out["ref_loss"] = float(tl.make_lora_train_step(eps_fn, unet, acp)(
+            ref, x0, cond, t_inj, noise)["loss"])
+        hook.remove()
+        out["ref_grads"] = kept
+        del ref
+        torch.cuda.empty_cache()
+    init_state, train_fn = tl.make_sp_lora_train_fn(eps_fn, unet, acp, adam, grid)
+    state = init_state(loras)
+    hook, kept = keep_grads(state)
+    inner, reduce_s = tl.pmean_grads, []
+
+    def timed_pmean(params, axis, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        inner(params, axis, *args, **kwargs)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t)
+
+    tl.pmean_grads = timed_pmean
+    digests = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_path_counts()
+        t0 = time.perf_counter()
+        out["loss"] = float(train_fn(state, x0, cond, t_inj, noise)["loss"])
+        torch.cuda.synchronize()
+        out["warm_s"] = time.perf_counter() - t0
+        out["warm_launches"] = launch_counts()
+        hook.remove()
+        out["grads"] = kept if rank == 0 else None
+        digests.append(_tensor_digests(torch, state.params.values()))
+        out["steps"] = []
+        for _ in range(steps):
+            reduce_s.clear()
+            reset_path_counts()
+            t0 = time.perf_counter()
+            loss = float(train_fn(state, x0, cond)["loss"])
+            torch.cuda.synchronize()
+            out["steps"].append(dict(seconds=time.perf_counter() - t0,
+                                     reduce_s=sum(reduce_s), loss=loss,
+                                     launches=launch_counts(),
+                                     plain_on_card=qkv_attention.plain_on_card))
+            digests.append(_tensor_digests(torch, state.params.values()))
+    finally:
+        tl.pmean_grads = inner
+    out["digests"] = digests
+    out["same_base"] = _tensor_digests(torch, unet.parameters()) == base0
+    out["n_factors"] = sum(v.numel() for v in state.params.values())
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del unet, state, init_state, train_fn, loras
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["small"] = _sp_lora_small(torch, np)
+    return out
+
+
+def _sp22_full_report(name, res, steps, decoder, smi, unsharded_note):
+    """Print and check a full-width sharded cell's results (every rank's)."""
+    r0 = res[0]
+    shape, finite, std, diff = r0["image"]
+    print(f"{name}: built the full pipeline on each rank in turn, "
+          f"{max(r['build_s'] for r in res):.2f} s at most; image {shape} finite {finite} "
+          f"std {std:.4f}, max |sharded - unsharded| {diff:.4e}; latents rel_l2 "
+          f"{r0['latent_rel_l2']:.4e} (tol {SP21_LATENT_TOL})")
+    check(finite and std > 0, f"{name} image")
+    check(r0["latent_rel_l2"] <= SP21_LATENT_TOL, f"{name} latents")
+    for i, r in enumerate(res):
+        check_full_launches(f"{name} rank {i}", r["launches"], steps, encoded=False,
+                            decoder=decoder)
+        check(r["plain_on_card"] == 0, f"{name} rank {i}: attention missed K3")
+    sec = max(r["seconds"] for r in res)
+    print(f"{name}: {sec:.4f} s/image on {SP_WORLD} ranks sharing the card; peak memory "
+          f"per rank " + ", ".join(f"{r['peak_gib']:.2f}" for r in res)
+          + f" GiB ({unsharded_note}); {smi}")
+    for case, rel in r0["small"].items():
+        print(f"{name} small fp32 {case}: sharded vs unsharded rel_l2 {rel:.4e} "
+              f"(tol {SP_FP32_TOL})")
+        check(rel <= SP_FP32_TOL, f"{name} small fp32 {case}")
+    return res[0]["launches"], sec
+
+
+def phase_sp22(torch, smi: str, t_script: float):
+    """22: row-sharded 2.2 and 2.0 inference and sharded LoRA tuning of the
+    UNet22 on 4 gloo ranks sharing the card (a fresh pool, every rank group
+    under a deadline).  22a K3, K5 and K4 timed at the new shard shapes in
+    this process and the sharded ``AddedKVAttention`` and its gradient on
+    the ranks; 22b sp22-768; 22c sp20-512; 22d sp-lora22-768.  Returns
+    ({cell: launches of rank 0}, the timed rows)."""
+    import torch.nn.functional as F
+
+    from kandinsky2_tpu_torch.parallel.launch import RankPool
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = t_phase - t_script > SP22_CUT_AT_S
+    steps = 5 if cut else SP22["decoder_steps"]
+    lora_steps = 1 if cut else 3
+    print(f"phase 22: {t_phase - t_script:.1f} s into the script; sp22-768 and sp20-512 at "
+          f"{steps} decoder steps, sp-lora22-768 {lora_steps} timed step(s) (5 and 1 past "
+          f"{SP22_CUT_AT_S} s); the card's memory in use: {smi_memory()}")
+    gloo = RankPool(SP_WORLD, "gloo", device="cuda", init_timeout=300)
+    gloo.start()
+    launches = {}
+    try:
+        # 22a
+        g = torch.Generator(device="cuda").manual_seed(23)
+        rows = {"flash_attention_fwd": _k3_rows(torch, F, g, SP22_K3_SHAPES)}
+        rows.update(_sp_backward_rows(torch, F, SP22_BWD_SHAPES, seed=24))
+        torch.cuda.empty_cache()
+        for r in gloo.run(sp_rank_added_kv, timeout=300):
+            for what, err, tol in r["checks"]:
+                print(f"sp 22a rank {r['rank']}: {what}: {err:.3e} (tol {tol:.3e})")
+                check(err <= tol, f"22a rank {r['rank']}: {what}")
+            print(f"sp 22a rank {r['rank']}: launches {json.dumps(r['launches'])}, "
+                  f"attention calls on the card by the plain route {r['plain_on_card']}")
+            check(all(v > 0 for v in r["launches"].values()),
+                  "22a: a kernel was not launched")
+            check(r["plain_on_card"] == 0, "22a: an attention missed the kernels")
+        print(f"time: phase 22a {time.perf_counter() - t_phase:.1f} s")
+
+        # 22b
+        t0 = time.perf_counter()
+        res = gloo.run(sp_rank_t2i22, steps, timeout=480)
+        launches["sp22"], _ = _sp22_full_report(
+            "sp22-768", res, steps, DECODER_LAUNCHES, smi,
+            f"768^2, prior 25, decoder DDPM {steps}, CFG 4 and 4, bf16; phase 10, "
+            "unsharded: 10.46 GiB")
+        print(f"time: phase 22b {time.perf_counter() - t0:.1f} s")
+
+        # 22c
+        t0 = time.perf_counter()
+        res = gloo.run(sp_rank_t2i20, steps, timeout=480)
+        launches["sp20"], _ = _sp22_full_report(
+            "sp20-512", res, steps, KL_DECODER_LAUNCHES, smi,
+            f"512^2, DDIM {steps} at eta 0.05, guidance 7, bf16")
+        print(f"time: phase 22c {time.perf_counter() - t0:.1f} s")
+
+        # 22d
+        t0 = time.perf_counter()
+        res = gloo.run(sp_rank_lora22, lora_steps, timeout=480)
+        r0 = res[0]
+        loss_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+        names = sorted(r0["ref_grads"])
+        a = torch.cat([r0["grads"][n].reshape(-1).double() for n in names])
+        b = torch.cat([r0["ref_grads"][n].reshape(-1).double() for n in names])
+        grad_err = ((a - b).norm() / b.norm()).item()
+        print(f"sp-lora22-768: UNet22 and {r0['n_factors']} factor values built in "
+              f"{max(r['build_s'] for r in res):.2f} s a rank; the unsharded step on rank 0: "
+              f"loss {r0['ref_loss']:.6f}; the sharded warm-up step "
+              f"{max(r['warm_s'] for r in res):.3f} s, loss {r0['loss']:.6f}, rel err "
+              f"{loss_err:.3e} (tol {SP_TRAIN_LOSS_TOL}); the factors' gradients rel_l2 "
+              f"{grad_err:.3e} (tol {SP_TRAIN_GRAD_TOL})")
+        check(loss_err <= SP_TRAIN_LOSS_TOL, "sp-lora22-768: the sharded loss")
+        check(grad_err <= SP_TRAIN_GRAD_TOL, "sp-lora22-768: the factors' gradients")
+        for i, r in enumerate(res):
+            check(r["digests"] == r0["digests"],
+                  f"sp-lora22-768: rank {i}'s factors differ from rank 0's")
+            check(r["same_base"], f"sp-lora22-768 rank {i}: the base changed")
+            check(r["warm_launches"] == SP_LORA22_LAUNCHES,
+                  f"sp-lora22-768 rank {i}: warm-up launches {r['warm_launches']}")
+            for s in r["steps"]:
+                check(s["launches"] == SP_LORA22_LAUNCHES and s["plain_on_card"] == 0,
+                      f"sp-lora22-768 rank {i}: launches {s['launches']}, plain route "
+                      f"{s['plain_on_card']}")
+                check(math.isfinite(s["loss"]), f"sp-lora22-768 rank {i}: loss not finite")
+            print(f"sp-lora22-768 rank {i}: steps " + ", ".join(
+                f"{s['seconds']:.3f} s (all-reduce {s['reduce_s']:.4f} s, loss "
+                f"{s['loss']:.5f})" for s in r["steps"]) + f"; peak {r['peak_gib']:.2f} GiB;"
+                f" launches a step {json.dumps(r['steps'][-1]['launches'])}")
+        n = len(r0["steps"])
+        step_s = sum(max(r["steps"][i]["seconds"] for r in res) for i in range(n)) / n
+        red_s = sum(max(r["steps"][i]["reduce_s"] for r in res) for i in range(n)) / n
+        print(f"sp-lora22-768: {step_s:.4f} s/step (the slowest rank, mean of {n}), the "
+              f"factors' all-reduce {red_s:.4f} s of it; 768², batch 1, mesh (data 1, sp "
+              f"{SP_WORLD}) sharing the card over gloo, bf16 base, rank-4 factors, Adam "
+              f"1e-4; the factors bitwise equal across the ranks after every step, the "
+              f"base unchanged; peak per rank " + ", ".join(
+                  f"{r['peak_gib']:.2f}" for r in res)
+              + f" GiB (lora22-768 unsharded: 6.14 GiB); {smi}")
+        small = r0["small"]
+        print(f"sp-lora22 small fp32 (data 2, sp 2): losses {small['losses'][0]} against "
+              f"unsharded {small['losses'][1]}; factors rel_l2 {small['rel_l2']:.3e} "
+              f"(tol 1e-5)")
+        check(small["rel_l2"] <= 1e-5, "sp-lora22 small fp32: factors")
+        check(all(r["small"]["digests"] == small["digests"] for r in res),
+              "sp-lora22 small fp32: factors differ across the ranks")
+        launches["sp_lora22"] = r0["steps"][-1]["launches"]
+        print(f"time: phase 22d {time.perf_counter() - t0:.1f} s")
+    finally:
+        gloo.close()
+    return launches, rows
 
 
 def phase_clock():
@@ -4586,9 +5302,9 @@ def main() -> int:
 
     # 20. spatial parallelism: the primitives, sp21-768 and highres-sp on 4
     # gloo ranks sharing the card (and the primitives on 1 NCCL rank); 20b
-    # at DDIM 5 where the script would otherwise pass 950 s (phase 20 takes
+    # at DDIM 5 where the script would otherwise pass 850 s (phase 20 takes
     # about a minute at DDIM 10)
-    sp_steps = SP21["num_steps"] if time.perf_counter() - t_script + 60 <= 950 else 5
+    sp_steps = SP21["num_steps"] if time.perf_counter() - t_script + 60 <= 850 else 5
     sp21_counts, highres_counts, sp_rows = phase_spatial(torch, smi, sp_steps)
     lap("phase 20")
 
@@ -4596,6 +5312,11 @@ def main() -> int:
     # sp-train-768 on 4 gloo ranks sharing the card
     sp_train_counts, sp_bwd_rows = phase_sp_train(torch, smi, t_script)
     lap("phase 21")
+
+    # 22. row-sharded 2.2 and 2.0 inference and sharded LoRA tuning of the
+    # UNet22 on a fresh pool of 4 gloo ranks sharing the card
+    sp22_counts, sp22_rows = phase_sp22(torch, smi, t_script)
+    lap("phase 22")
 
     meta = {
         "group_norm_stats": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
@@ -4638,6 +5359,7 @@ def main() -> int:
             "sp21_launches": sp21_counts[name],
             "highres_sp_launches": highres_counts[name],
             "sp_train_launches": sp_train_counts[name],
+            **{f"{cell}_launches": sp22_counts[cell][name] for cell in sp22_counts},
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4645,7 +5367,8 @@ def main() -> int:
             "timed_shape": f"{main_row['label']} {main_row['shape']}",
             "sp_timed": [{k: r[k] for k in ("label", "shape", "ms", "plain_ms",
                                             "library_ms", "bound_ms", "bound_by")}
-                         for r in sp_rows.get(name, []) + sp_bwd_rows.get(name, [])],
+                         for r in sp_rows.get(name, []) + sp_bwd_rows.get(name, [])
+                         + sp22_rows.get(name, [])],
         })
     print(f"slice: {seconds:.4f} s/image; " + "; ".join(
         f"{task}: {sec:.4f} s/image" for task, (_, sec) in tasks.items())

@@ -16,6 +16,19 @@ added-KV attention the flash-attention kernel K3 where
 carry the diffusers state_dict names (``down_blocks.{i}.resnets.{j}``,
 ``mid_block.attentions.0.to_out.0``, ``add_embedding.input_hint_block.14``),
 the JAX package's parameter paths.
+
+Spatial parallelism (``parallel/spatial.py``): with ``sp_axis`` set (a
+``parallel.mesh.MeshAxis``, by ``parallel.spatial.using_sp_axis``) the UNet
+takes this rank's rows of a row-sharded latent (``unet22.py:58-154,
+368-424`` of the JAX package): halo rows before every 3x3 convolution
+(``conv_in``, the resnets' and ``conv_out``), statistics over the whole
+image in every GroupNorm, and the local queries of each added-KV attention
+against the spatial K/V all-gathered along the tokens, after the image
+tokens (gathered, never ringed, as JAX's).  The nearest upsample and the
+2x2 average pool keep even row shards aligned.  The ControlNet hint is
+encoded whole on every rank and each rank takes its rows of the hint
+latent.  The parameters are the same either way, and the sharded forward
+is differentiable end to end (sharded LoRA tuning, ``train_lora``).
 """
 
 from __future__ import annotations
@@ -28,6 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import added_kv_attention
+from ..parallel import spatial as _sp
+from ..parallel.collectives import all_gather
 from .layers import (
     Container,
     Conv2d,
@@ -59,17 +74,22 @@ def timestep_embedding_22(timesteps: torch.Tensor, dim: int,
 class ResnetBlock22(nn.Module):
     """diffusers ResnetBlock2D with time_scale_shift "scale_shift" (the FiLM
     folded into norm2) and an optional internal up (nearest 2x, then conv1)
-    or down (2x2 average pool) step."""
+    or down (2x2 average pool) step.  On row shards both convolutions take
+    halo rows; the 2x2 window never crosses an even shard boundary."""
 
     def __init__(self, in_channels, out_channels, temb_channels, up=False,
-                 down=False, eps=1e-5, dtype=torch.float32, device=None):
+                 down=False, eps=1e-5, dtype=torch.float32, device=None,
+                 sp_axis=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.up, self.down = up, down
-        self.norm1 = GroupNorm32(in_channels, eps=eps, swish=1.0, device=device)
+        self.sp_axis = sp_axis
+        self.norm1 = GroupNorm32(in_channels, eps=eps, swish=1.0, device=device,
+                                 sp_axis=sp_axis)
         self.conv1 = Conv2d(in_channels, out_channels, **kw)
         self.time_emb_proj = Linear(temb_channels, 2 * out_channels, **kw)
-        self.norm2 = GroupNorm32(out_channels, eps=eps, swish=1.0, device=device)
+        self.norm2 = GroupNorm32(out_channels, eps=eps, swish=1.0, device=device,
+                                 sp_axis=sp_axis)
         self.conv2 = Conv2d(out_channels, out_channels, **kw)
         self.conv_shortcut = (Linear(in_channels, out_channels, **kw)
                               if in_channels != out_channels else None)
@@ -82,10 +102,10 @@ class ResnetBlock22(nn.Module):
         elif self.down:
             h = avg_pool_2x(h)
             x = avg_pool_2x(x)
-        h = self.conv1(h)
+        h = _sp.sp_conv3x3(self.conv1, h, self.sp_axis)
         emb = self.time_emb_proj(F.silu(temb)).to(h.dtype)[:, None, None, :]
         h = self.norm2(h, film=emb.chunk(2, dim=-1))
-        h = self.conv2(h)
+        h = _sp.sp_conv3x3(self.conv2, h, self.sp_axis)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -95,14 +115,17 @@ class AddedKVAttention(nn.Module):
     """diffusers Attention with AttnAddedKVProcessor: GroupNorm'd spatial
     tokens, separate q/k/v projections, and the encoder states' add_k/add_v
     projections prepended to the spatial K/V; one 1/√d scale and an fp32
-    softmax (``ops.attention.added_kv_attention``)."""
+    softmax (``ops.attention.added_kv_attention``).  On row shards the
+    local queries attend to the spatial K/V all-gathered along the tokens
+    (its backward a reduce-scatter), after the image tokens."""
 
     def __init__(self, channels, heads, cross_attention_dim, eps=1e-5,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, sp_axis=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.heads = heads
-        self.group_norm = GroupNorm32(channels, eps=eps, device=device)
+        self.sp_axis = sp_axis
+        self.group_norm = GroupNorm32(channels, eps=eps, device=device, sp_axis=sp_axis)
         self.to_q = Linear(channels, channels, **kw)
         self.to_k = Linear(channels, channels, **kw)
         self.to_v = Linear(channels, channels, **kw)
@@ -115,10 +138,13 @@ class AddedKVAttention(nn.Module):
         heads = (B, -1, self.heads, C // self.heads)
         h = self.group_norm(x).reshape(B, H * W, C)
         q = self.to_q(h).reshape(heads)
-        k = torch.cat([self.add_k_proj(encoder_states).reshape(heads),
-                       self.to_k(h).reshape(heads)], dim=1)
-        v = torch.cat([self.add_v_proj(encoder_states).reshape(heads),
-                       self.to_v(h).reshape(heads)], dim=1)
+        k, v = self.to_k(h).reshape(heads), self.to_v(h).reshape(heads)
+        if self.sp_axis is not None:
+            # exact softmax over the whole image: the local query rows
+            # against every rank's K/V (rank order is row order)
+            k, v = all_gather(k, self.sp_axis, dim=1), all_gather(v, self.sp_axis, dim=1)
+        k = torch.cat([self.add_k_proj(encoder_states).reshape(heads), k], dim=1)
+        v = torch.cat([self.add_v_proj(encoder_states).reshape(heads), v], dim=1)
         a = added_kv_attention(q, k, v).reshape(B, H * W, C)
         return x + self.to_out[0](a).reshape(B, H, W, C)
 
@@ -226,10 +252,12 @@ class UNet22(nn.Module):
             "SimpleCrossAttnUpBlock2D", "SimpleCrossAttnUpBlock2D",
             "SimpleCrossAttnUpBlock2D", "ResnetUpsampleBlock2D"),
         controlnet_hint=False, eps=1e-5, dtype=torch.float32, device=None,
+        sp_axis=None,
     ):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.dtype = dtype
+        self.sp_axis = sp_axis
         self.in_channels = in_channels
         self.block_out_channels = tuple(block_out_channels)
         self.encoder_hid_dim = encoder_hid_dim
@@ -245,11 +273,11 @@ class UNet22(nn.Module):
         self.conv_in = Conv2d(in_channels, ch0, **kw)
 
         def res(cin, cout, **extra):
-            return ResnetBlock22(cin, cout, tdim, eps=eps, **extra, **kw)
+            return ResnetBlock22(cin, cout, tdim, eps=eps, sp_axis=sp_axis, **extra, **kw)
 
         def attn(c):
             return AddedKVAttention(c, c // attention_head_dim, cross_attention_dim,
-                                    eps=eps, **kw)
+                                    eps=eps, sp_axis=sp_axis, **kw)
 
         n_levels = len(block_out_channels)
         skips, ch = [ch0], ch0
@@ -281,12 +309,14 @@ class UNet22(nn.Module):
             up.append(_Level(resnets, attns, "upsamplers", sampler))
         self.up_blocks = nn.ModuleList(up)
         # the output head stays fp32, as the JAX package's
-        self.conv_norm_out = GroupNorm32(ch, eps=eps, swish=1.0, device=device)
+        self.conv_norm_out = GroupNorm32(ch, eps=eps, swish=1.0, device=device,
+                                         sp_axis=sp_axis)
         self.conv_out = Conv2d(ch, out_channels, dtype=torch.float32, device=device)
 
     def encode_conditioning(self, image_embeds, hint=None):
         """(encoder_states, aug_emb, hint_latent), once per generation;
-        ``hint`` [B, H, W, 3] for the ControlNet variant."""
+        ``hint`` [B, H, W, 3] for the ControlNet variant, always the whole
+        image (on row shards too)."""
         image_embeds = image_embeds.to(self.dtype)
         encoder_states = self.encoder_hid_proj(image_embeds)
         if self.controlnet_hint:
@@ -310,12 +340,12 @@ class UNet22(nn.Module):
         resnets and the last up block) runs every call; everything deeper,
         from the first downsampler through the penultimate up block, runs
         only where ``refresh`` and is otherwise ``cache`` (shape
-        ``deep_cache_spec22``).  Returns (out, new_cache); ``denoise`` is
-        the call that always refreshes."""
+        ``deep_cache_spec22``; on row shards this rank's rows).  Returns
+        (out, new_cache); ``denoise`` is the call that always refreshes."""
         emb = self.embed_time(timesteps) + aug_emb.to(self.dtype)
         if self.controlnet_hint:
-            x = torch.cat([x, hint_latent.to(x.dtype)], dim=-1)
-        h = self.conv_in(x.to(self.dtype))
+            x = torch.cat([x, self._local_hint(x, hint_latent)], dim=-1)
+        h = _sp.sp_conv3x3(self.conv_in, x.to(self.dtype), self.sp_axis)
         hs = [h]
 
         def run(level, h, save=None, skips=None):
@@ -347,7 +377,16 @@ class UNet22(nn.Module):
             h = cache.to(self.dtype)
         new_cache = h
         h = run(self.up_blocks[-1], h, skips=hs)
-        return self.conv_out(self.conv_norm_out(h.float())), new_cache
+        out = _sp.sp_conv3x3(self.conv_out, self.conv_norm_out(h.float()), self.sp_axis)
+        return out, new_cache
+
+    def _local_hint(self, x, hint_latent):
+        """The hint latent in x's dtype; on row shards (the hint encoded
+        whole) this rank's block of its rows."""
+        hint = hint_latent.to(x.dtype)
+        if self.sp_axis is not None and hint.shape[1] != x.shape[1]:
+            hint = hint.narrow(1, self.sp_axis.index * x.shape[1], x.shape[1])
+        return hint
 
     def forward(self, x, timesteps, image_embeds, hint=None):
         encoder_states, aug_emb, hint_latent = self.encode_conditioning(image_embeds,

@@ -23,5 +23,6 @@ from .spatial import (
     sp_rows_ok,
     spatial_decode,
     spatial_encode,
+    using_sp_axes,
     using_sp_axis,
 )

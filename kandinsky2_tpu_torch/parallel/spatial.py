@@ -72,6 +72,17 @@ def using_sp_axis(module: nn.Module, axis: Optional[MeshAxis]):
             m.sp_axis = s
 
 
+@contextlib.contextmanager
+def using_sp_axes(axis: Optional[MeshAxis], *modules: nn.Module):
+    """``using_sp_axis(module, axis)`` on each of ``modules`` for the length
+    of the block; where ``axis`` is None every module keeps its own."""
+    with contextlib.ExitStack() as stack:
+        if axis is not None:
+            for module in modules:
+                stack.enter_context(using_sp_axis(module, axis))
+        yield
+
+
 def halo_exchange_rows(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """This rank's rows with one halo row from each neighbour: (B, Hl, W, C)
     -> (B, Hl + 2, W, C), zeros above the first rank and below the last;

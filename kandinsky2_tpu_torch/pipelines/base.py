@@ -4,8 +4,10 @@ random parameters, the weight bridge, the output images), the seeded
 parameter draw :func:`init_random_`, and the decoder half of the 2.0 and
 2.1 pipelines: classifier-free guidance over the CFG-doubled UNet
 (:func:`cfg_mix`) and the five decoder samplers' tables and loops
-(:func:`decoder_schedule`, :func:`sample_latents`), with the per-rank
-noise stream of a row-sharded run (:func:`rank_generator`).
+(:func:`decoder_schedule`, :func:`sample_latents`); and what the three
+pipelines' row-sharded runs share: the row check (:func:`sp_axis_for`,
+:func:`low_stage_mesh`) and the per-rank noise stream
+(:func:`rank_generator`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..diffusion import (
     plms_loop,
 )
 from ..models.layers import Conv2d, GroupNorm32, LayerNormF32, Linear
+from ..parallel.spatial import check_sp_rows, sp_rows_ok
 from ..utils import process_images
 from ..weights.from_jax import load_jax_params
 
@@ -162,6 +165,25 @@ def decoder_schedule(diff_cfg: dict, sampler: str, num_steps: int, device=None):
     base schedule."""
     dkw = schedule_kwargs(diff_cfg, str(num_steps) if sampler == "p_sampler" else "")
     return dkw, make_schedule(**dkw["make_schedule"], device=device)
+
+
+def sp_axis_for(sp_mesh, lat_h: int, levels: int):
+    """The "sp" axis of ``sp_mesh`` once ``lat_h`` latent rows keep equal
+    even shards across the UNet's ``levels`` (``check_sp_rows``, which
+    raises); None without a mesh."""
+    if sp_mesh is None:
+        return None
+    check_sp_rows(lat_h, sp_mesh.shape["sp"], levels)
+    return sp_mesh.axis("sp")
+
+
+def low_stage_mesh(sp_mesh, lat_h: int, levels: int):
+    """The mesh of a hires run's first stage: ``sp_mesh`` where that
+    stage's own ``lat_h`` keeps equal even shards, else None (the stage
+    runs whole on every rank; the full-size stage always shards)."""
+    if sp_mesh is not None and not sp_rows_ok(lat_h, sp_mesh.shape["sp"], levels):
+        return None
+    return sp_mesh
 
 
 def rank_generator(generator: torch.Generator, axis) -> torch.Generator:

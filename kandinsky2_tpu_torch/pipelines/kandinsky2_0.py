@@ -19,6 +19,21 @@ entry point takes ``output="float"`` for the float NHWC images in [-1, 1]
 (a numpy array) instead of PIL images.  Profiler ranges:
 ``k20.text_encoder1``, ``k20.text_encoder2``, ``k20.vae_encode``,
 ``k20.unet_<sampler>`` and ``k20.vae_decode``.
+
+``sp_mesh=`` (a ``parallel.mesh.Mesh`` with an ``"sp"`` axis; one process
+per shard, every rank calling with the same arguments) runs the denoise
+and the KL-VAE decode row-sharded over the mesh (``_build_gen_fn`` of the
+JAX pipeline): both text towers and the KL encode of an init image run
+whole on every rank; each rank takes its rows of x_T, of the inpainting
+latent and mask and of an injected ``noise_seq``; the dynamic threshold
+(the p_sampler's, and inpainting's ``denoised_type="dynamic_threshold"``)
+takes its percentile over the whole image; the stochastic samplers (the
+p_sampler, DDIM at eta != 0), where they draw their noise themselves, draw
+from the rank's own stream; every rank returns the whole image.  ``Text2ImUNet20`` adds nothing spatial to the
+sharded torso: its two token streams and its ``AttentionPooling`` are
+replicated, and its inpainting input is cut from sharded tensors.  The
+latent height must keep equal even row shards at every UNet level
+(``parallel.spatial.check_sp_rows``).
 """
 
 from __future__ import annotations
@@ -35,6 +50,8 @@ from ..diffusion.schedules import ddim_ladder
 from ..models.movq import AutoencoderKL
 from ..models.t5 import T5Encoder
 from ..models.text_encoders import TextEncoder
+from ..parallel.collectives import all_gather
+from ..parallel.spatial import shard_rows, spatial_decode, using_sp_axes
 from ..utils import (
     as_prompt_list,
     check_noise,
@@ -43,7 +60,15 @@ from ..utils import (
     prepare_mask,
     resolve_batch,
 )
-from .base import Pipeline, cfg_mix, check_sampler, decoder_schedule, sample_latents
+from .base import (
+    Pipeline,
+    cfg_mix,
+    check_sampler,
+    decoder_schedule,
+    rank_generator,
+    sample_latents,
+    sp_axis_for,
+)
 
 
 class Kandinsky2(Pipeline):
@@ -124,17 +149,37 @@ class Kandinsky2(Pipeline):
     # the decoder: sampler loop over the UNet, then KL-VAE decode
     # ------------------------------------------------------------------
 
-    def _sample_images(self, full1, pooled1, full2, x_T, *, sampler, num_steps,
-                       guidance_scale, init_step, inpaint_image, inpaint_mask,
-                       ddim_eta, denoised_type, dynamic_threshold_v, noise_seq,
-                       generator):
+    def _sample_images(self, full1, pooled1, full2, x_T, sp_axis=None, **kw):
         """``_build_gen_fn`` of the JAX pipeline: UNet conditioning once, the
         sampler's loop over the CFG-doubled UNet, KL-VAE decode of
         latents / scale.  Returns the float images [B, H8, W8, 3] in fp32.
         The p_sampler clips x0 with the dynamic threshold; inpainting
         thresholds (``denoised_type``) and blends x0 with the known latent
         there first.  The other samplers use neither, as in the
-        reference."""
+        reference.  ``sp_axis``: the latents, init latent, mask and
+        per-step noise are cut to this rank's rows, the UNet and the KL-VAE
+        run on the shards (the stochastic samplers, where they draw, from
+        this rank's own noise stream), and the decoded rows are gathered."""
+        if sp_axis is None:
+            return self._sample_local(full1, pooled1, full2, x_T, **kw)
+        x_T = shard_rows(x_T, sp_axis)
+        kw.update(inpaint_image=shard_rows(kw["inpaint_image"], sp_axis),
+                  inpaint_mask=shard_rows(kw["inpaint_mask"], sp_axis),
+                  noise_seq=shard_rows(kw["noise_seq"], sp_axis, dim=2))
+        stochastic = kw["sampler"] == "p_sampler" or (kw["sampler"] == "ddim_sampler"
+                                                      and kw["ddim_eta"] != 0.0)
+        if stochastic and kw["noise_seq"] is None:
+            kw["generator"] = rank_generator(kw["generator"], sp_axis)
+        with using_sp_axes(sp_axis, self.unet, self.image_encoder):
+            images = self._sample_local(full1, pooled1, full2, x_T, sp_axis=sp_axis, **kw)
+        return all_gather(images, sp_axis, dim=1)
+
+    def _sample_local(self, full1, pooled1, full2, x_T, *, sampler, num_steps,
+                      guidance_scale, init_step, inpaint_image, inpaint_mask, ddim_eta,
+                      denoised_type, dynamic_threshold_v, noise_seq, generator,
+                      sp_axis=None):
+        """``_sample_images`` on this rank's tensors: the whole latent, or
+        its row shard with the UNet and the KL-VAE set to ``sp_axis``."""
         inpainting = self.task_type == "inpainting"
         with record_function("k20.unet_" + sampler.removesuffix("_sampler")):
             B = x_T.shape[0]
@@ -156,13 +201,14 @@ class Kandinsky2(Pipeline):
                     if denoised_type == "clip_denoised":
                         x0 = torch.clamp(x0, -1, 1)
                     elif denoised_type == "dynamic_threshold":
-                        x0 = dynamic_threshold(x0, dynamic_threshold_v)
+                        x0 = dynamic_threshold(x0, dynamic_threshold_v, axis=sp_axis)
                     return x0 * (1 - inpaint_mask) + inpaint_image * inpaint_mask
 
             samples = sample_latents(
                 model_fn, x_T, sampler=sampler, diff_cfg=self._diff_cfg,
                 num_steps=num_steps, init_step=init_step, generator=generator,
-                eta=ddim_eta, denoised_fn=denoised_fn, noise_seq=noise_seq)
+                eta=ddim_eta, denoised_fn=denoised_fn, noise_seq=noise_seq,
+                sp_axis=sp_axis)
         return self._decode(samples)
 
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
@@ -175,7 +221,7 @@ class Kandinsky2(Pipeline):
         dynamic_threshold_v=99.5, denoised_type="dynamic_threshold", init_step=None,
         noise=None, init_img=None, img_mask=None, h=512, w=512,
         sampler="ddim_sampler", ddim_eta=0.8, noise_seq=None,
-        generator: Optional[torch.Generator] = None, output="pil",
+        generator: Optional[torch.Generator] = None, output="pil", sp_mesh=None,
     ):
         """kandinsky2_model.py:104-250.  ``noise`` is the starting latent x_T
         [B, h/8, w/8, 4]; ``noise_seq`` the per-step noise of the stochastic
@@ -184,7 +230,9 @@ class Kandinsky2(Pipeline):
         in respaced units, and one per entry of the (possibly truncated)
         DDIM ladder, whose ``init_step`` is in 1000-step units.
         ``init_img`` and ``img_mask`` are the inpainting latent and mask.
-        ``progress`` is accepted for the reference's signature."""
+        ``progress`` is accepted for the reference's signature.  ``sp_mesh``:
+        the denoise and decode row-sharded over the mesh's "sp" axis (see
+        the module docstring)."""
         check_sampler(sampler)
         stochastic = sampler == "p_sampler" or (
             sampler == "ddim_sampler" and ddim_eta != 0.0)
@@ -197,6 +245,7 @@ class Kandinsky2(Pipeline):
         dev = self.device
         generator = self._gen(generator)
         new_h, new_w = get_new_h_w(h, w)
+        sp_axis = sp_axis_for(sp_mesh, new_h, len(self.unet.channel_mult))
         full1, pooled1, full2 = self.encode_text(prompt, batch_size)
         x_T = check_noise(noise, (batch_size, new_h, new_w, 4), "noise", dev)
         if x_T is None:
@@ -216,7 +265,7 @@ class Kandinsky2(Pipeline):
             inpaint_mask=as_dev(img_mask, torch.zeros_like(x_T[..., :1])),
             ddim_eta=ddim_eta, denoised_type=denoised_type,
             dynamic_threshold_v=dynamic_threshold_v, noise_seq=nseq,
-            generator=generator)
+            generator=generator, sp_axis=sp_axis)
         return self._output(images, output, h, w)
 
     @torch.inference_mode()
@@ -224,7 +273,7 @@ class Kandinsky2(Pipeline):
         self, prompt, num_steps=100, batch_size=1, guidance_scale=7, progress=True,
         dynamic_threshold_v=99.5, denoised_type="dynamic_threshold", h=512, w=512,
         sampler="ddim_sampler", ddim_eta=0.05, noise=None, noise_seq=None,
-        generator: Optional[torch.Generator] = None, output="pil",
+        generator: Optional[torch.Generator] = None, output="pil", sp_mesh=None,
     ):
         """kandinsky2_model.py:252-285: ``generate_img`` with the reference's
         text2img defaults (100 steps, stochastic DDIM at eta 0.05)."""
@@ -232,7 +281,8 @@ class Kandinsky2(Pipeline):
             prompt=prompt, batch_size=batch_size, num_steps=num_steps,
             guidance_scale=guidance_scale, dynamic_threshold_v=dynamic_threshold_v,
             denoised_type=denoised_type, h=h, w=w, sampler=sampler, ddim_eta=ddim_eta,
-            noise=noise, noise_seq=noise_seq, generator=generator, output=output)
+            noise=noise, noise_seq=noise_seq, generator=generator, output=output,
+            sp_mesh=sp_mesh)
 
     def _vae_encode_sample(self, image, generator=None) -> torch.Tensor:
         """A draw from the KL posterior of NHWC images in [-1, 1], fp32 (not
@@ -251,7 +301,7 @@ class Kandinsky2(Pipeline):
         self, prompt, pil_img, strength=0.7, num_steps=100, guidance_scale=7,
         progress=True, dynamic_threshold_v=99.5, denoised_type="dynamic_threshold",
         sampler="ddim_sampler", ddim_eta=0.05, noise=None, noise_seq=None,
-        generator: Optional[torch.Generator] = None, output="pil",
+        generator: Optional[torch.Generator] = None, output="pil", sp_mesh=None,
     ):
         """kandinsky2_model.py:287-331 (batch 1, 512²): the init image's KL
         latent re-noised on the default linear schedule to the step
@@ -280,14 +330,14 @@ class Kandinsky2(Pipeline):
             guidance_scale=guidance_scale, dynamic_threshold_v=dynamic_threshold_v,
             denoised_type=denoised_type, noise=latent, init_step=start_step,
             sampler=sampler, ddim_eta=ddim_eta, noise_seq=noise_seq,
-            generator=generator, output=output)
+            generator=generator, output=output, sp_mesh=sp_mesh)
 
     @torch.inference_mode()
     def generate_inpainting(
         self, prompt, pil_img, img_mask, num_steps=100, guidance_scale=7,
         progress=True, dynamic_threshold_v=99.5, denoised_type="dynamic_threshold",
         sampler="ddim_sampler", ddim_eta=0.05, noise=None, noise_seq=None,
-        generator: Optional[torch.Generator] = None, output="pil",
+        generator: Optional[torch.Generator] = None, output="pil", sp_mesh=None,
     ):
         """kandinsky2_model.py:333-381 (batch 1, 512²): the init image's KL
         latent and the mask (1 = keep, at any size) resized nearest to the
@@ -306,13 +356,20 @@ class Kandinsky2(Pipeline):
             guidance_scale=guidance_scale, dynamic_threshold_v=dynamic_threshold_v,
             denoised_type=denoised_type, init_img=latent, img_mask=mask,
             sampler=sampler, ddim_eta=ddim_eta, noise=noise, noise_seq=noise_seq,
-            generator=generator, output=output)
+            generator=generator, output=output, sp_mesh=sp_mesh)
 
     @torch.inference_mode()
-    def decode_latents(self, latents, output="pil"):
-        """KL-VAE-decode raw sampler latents [B, h/8, w/8, 4] to images."""
-        images = self._decode(torch.as_tensor(latents, dtype=torch.float32,
-                                              device=self.device))
+    def decode_latents(self, latents, output="pil", sp_mesh=None, axis="sp"):
+        """KL-VAE-decode raw sampler latents [B, h/8, w/8, 4] to images.  With
+        ``sp_mesh`` the decode runs row-sharded over the mesh's ``axis``
+        (``parallel.spatial.spatial_decode``); every rank gets every
+        image."""
+        lat = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
+        if sp_mesh is None:
+            return self._output(self._decode(lat), output)
+        with record_function("k20.vae_decode"):
+            images = spatial_decode(self.image_encoder, (lat / self.scale).to(self.dtype),
+                                    sp_mesh, axis=axis, method="decode").float()
         return self._output(images, output)
 
 

@@ -43,13 +43,7 @@ from ..models.prior import PriorTransformer, prior_sample_fn
 from ..models.text_encoders import CLIPTextTower, CLIPViT, TextEncoder
 from ..models.unet import deep_cache_spec
 from ..parallel.collectives import all_gather
-from ..parallel.spatial import (
-    check_sp_rows,
-    shard_rows,
-    sp_rows_ok,
-    spatial_decode,
-    using_sp_axis,
-)
+from ..parallel.spatial import shard_rows, spatial_decode, using_sp_axes
 from ..utils import (
     as_prompt_list,
     check_noise,
@@ -63,8 +57,10 @@ from .base import (
     cfg_mix,
     check_sampler,
     decoder_schedule,
+    low_stage_mesh,
     rank_generator,
     sample_latents,
+    sp_axis_for,
 )
 
 CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -266,7 +262,7 @@ class Kandinsky2_1(Pipeline):
                   noise_seq=shard_rows(kw["noise_seq"], sp_axis, dim=2))
         if kw["sampler"] == "p_sampler":
             kw["generator"] = rank_generator(kw["generator"], sp_axis)
-        with using_sp_axis(self.unet, sp_axis), using_sp_axis(self.movq, sp_axis):
+        with using_sp_axes(sp_axis, self.unet, self.movq):
             images = self._sample_local(full_emb, pooled_emb, img_prompt, x_T,
                                         sp_axis=sp_axis, **kw)
         return all_gather(images, sp_axis, dim=1)
@@ -352,10 +348,7 @@ class Kandinsky2_1(Pipeline):
         dev = self.device
         generator = self._gen(generator)
         new_h, new_w = get_new_h_w(h, w)
-        sp_axis = None
-        if sp_mesh is not None:
-            check_sp_rows(new_h, sp_mesh.shape["sp"], len(self.unet.channel_mult))
-            sp_axis = sp_mesh.axis("sp")
+        sp_axis = sp_axis_for(sp_mesh, new_h, len(self.unet.channel_mult))
         C = self.config["model_config"]["in_channels"]
         full_emb, pooled_emb = self.encode_text(prompt, batch_size)
         x_T = check_noise(noise, (batch_size, new_h, new_w, C), "noise", dev)
@@ -442,11 +435,8 @@ class Kandinsky2_1(Pipeline):
             noise=prior_noise, generator=generator)
         image_emb = self._image_prompt(image_emb, "", batch_size)
         lo_h, lo_w = max(64, int(h * low_scale)), max(64, int(w * low_scale))
-        low_sp = sp_mesh
-        if sp_mesh is not None and not sp_rows_ok(
-                get_new_h_w(lo_h, lo_w)[0], sp_mesh.shape["sp"],
-                len(self.unet.channel_mult)):
-            low_sp = None
+        low_sp = low_stage_mesh(sp_mesh, get_new_h_w(lo_h, lo_w)[0],
+                                len(self.unet.channel_mult))
         low = self.generate_img(
             prompt=prompt, img_prompt=image_emb, batch_size=batch_size,
             guidance_scale=guidance_scale, h=lo_h, w=lo_w, sampler=sampler,

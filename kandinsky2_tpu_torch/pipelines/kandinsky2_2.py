@@ -22,6 +22,18 @@ never from torch's global one.  Every image entry point takes
 instead of PIL images.  Profiler ranges: ``k22.clip_text``, ``k22.prior``,
 ``k22.clip_vision``, ``k22.movq_encode``, ``k22.unet_<sampler>`` and
 ``k22.movq_decode``.
+
+``sp_mesh=`` (a ``parallel.mesh.Mesh`` with an ``"sp"`` axis; one process
+per shard, every rank calling with the same arguments) runs the decoder
+loop and the MoVQ decode row-sharded over the mesh (``_build_decoder_fn``
+of the JAX pipeline): the prior, the image encoder and the MoVQ encode of
+an init image run whole on every rank; each rank takes its rows of x_T,
+of the inpainting latent and mask and of an injected ``noise_seq``; the
+ControlNet hint stays whole; the ddpm decoder, where it draws its per-step
+noise itself, draws from the rank's own stream; every rank returns the
+whole image.  The
+latent height must keep equal even row shards at every UNet level
+(``parallel.spatial.check_sp_rows``).
 """
 
 from __future__ import annotations
@@ -40,6 +52,8 @@ from ..models.movq import MOVQ
 from ..models.prior22 import HFCLIPText, PriorTransformer22
 from ..models.text_encoders import HFCLIPVision
 from ..models.unet22 import UNet22, deep_cache_spec22
+from ..parallel.collectives import all_gather
+from ..parallel.spatial import shard_rows, spatial_decode, using_sp_axes
 from ..utils import (
     as_prompt_list,
     check_noise,
@@ -47,7 +61,7 @@ from ..utils import (
     process_images,
     resolve_batch,
 )
-from .base import Pipeline
+from .base import Pipeline, low_stage_mesh, rank_generator, sp_axis_for
 from .kandinsky2_1 import clip_preprocess
 
 TASKS = ("text2img", "img2img", "inpainting", "controlnet")
@@ -256,13 +270,16 @@ class Kandinsky2_2(Pipeline):
     def _decode_loop(self, image_embeds, batch_size, steps, guidance, h, w,
                      x_T=None, extra_a=None, extra_b=None, task=None, ladder=None,
                      turbo_interval=1, sampler="ddpm", noise_seq=None,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     sp_mesh=None) -> torch.Tensor:
         """The decoder: UNet conditioning once on the CFG-doubled
         ``image_embeds``, the sampler's loop over ``ladder`` (the whole DDPM
         ladder of ``steps`` by default; the deep cache every
         ``turbo_interval`` steps where it is above 1), MoVQ decode.
         ``extra_a``/``extra_b``: (masked latent, keep mask) for inpainting,
-        (hint, -) for ControlNet.  Returns float images [B, h, w, 3]."""
+        (hint, -) for ControlNet.  Returns float images [B, h, w, 3].
+        ``sp_mesh``: the loop and the decode row-sharded (see the module
+        docstring)."""
         task = task or self.task_type
         if sampler not in DECODER_SAMPLERS:
             raise ValueError("2.2 decoder samplers: 'ddpm' (parity), 'dpmpp' or "
@@ -272,11 +289,30 @@ class Kandinsky2_2(Pipeline):
                              f"{sampler} is deterministic given noise=")
         dev, B = self.device, batch_size
         lat_h, lat_w = h // 8, w // 8
+        sp_axis = sp_axis_for(sp_mesh, lat_h, len(self.unet.block_out_channels))
         ladder = ddpm_ladder(steps) if ladder is None else ladder
         if x_T is None:
             x_T = self._randn((B, lat_h, lat_w, 4), generator)
         nseq = check_noise(noise_seq, (len(ladder),) + tuple(x_T.shape), "noise_seq",
                            dev)
+        generator = self._gen(generator)
+        if sp_axis is not None:
+            x_T, nseq = shard_rows(x_T, sp_axis), shard_rows(nseq, sp_axis, dim=2)
+            if task == "inpainting":
+                extra_a, extra_b = shard_rows(extra_a, sp_axis), shard_rows(extra_b, sp_axis)
+            if sampler == "ddpm" and nseq is None:
+                generator = rank_generator(generator, sp_axis)
+        with using_sp_axes(sp_axis, self.unet, self.movq):
+            images = self._sample_local(image_embeds, guidance, x_T, extra_a, extra_b,
+                                        task, ladder, turbo_interval, sampler, nseq,
+                                        generator)
+        return images if sp_axis is None else all_gather(images, sp_axis, dim=1)
+
+    def _sample_local(self, image_embeds, guidance, x_T, extra_a, extra_b, task, ladder,
+                      turbo_interval, sampler, nseq, generator) -> torch.Tensor:
+        """``_decode_loop`` on this rank's tensors: the whole latent, or its
+        row shard with the UNet and the MoVQ set to the axis."""
+        dev, B = self.device, x_T.shape[0]
         unet = self.unet
         with record_function(f"k22.unet_{sampler}"):
             hint = None if task != "controlnet" else torch.cat([extra_a, extra_a])
@@ -311,12 +347,12 @@ class Kandinsky2_2(Pipeline):
             state, active_fn = None, model_fn
             if turbo_interval > 1:
                 ds, ch = deep_cache_spec22(unet)
-                state = torch.zeros((2 * B, lat_h // ds, lat_w // ds, ch),
+                state = torch.zeros((2 * B, x_T.shape[1] // ds, x_T.shape[2] // ds, ch),
                                     dtype=self.dtype, device=dev)
                 active_fn = model_fn_turbo
             if sampler == "ddpm":
                 lat = paired_ancestral_loop(
-                    active_fn, self._decoder_acp, ladder, x_T, self._gen(generator),
+                    active_fn, self._decoder_acp, ladder, x_T, generator,
                     prediction="epsilon", variance="learned_range", clip_range=2.0,
                     model_state=state, noise_seq=nseq)
             else:
@@ -385,14 +421,16 @@ class Kandinsky2_2(Pipeline):
         negative_prior_prompt="", negative_decoder_prompt="", turbo_interval=1,
         sampler="ddpm", prior_sampler="ddpm", noise=None, noise_seq=None,
         prior_noise=None, prior_noise_seq=None,
-        generator: Optional[torch.Generator] = None, output="pil",
+        generator: Optional[torch.Generator] = None, output="pil", sp_mesh=None,
     ):
         """``sampler``: "ddpm" (the diffusers scheduler), "dpmpp" or
         "dpmpp_karras" (DPM-Solver++(2M)); ``prior_sampler``: "ddpm" or
         "dpmpp".  ``noise`` is the decoder x_T [B, h/8, w/8, 4],
         ``noise_seq`` [decoder_steps, B, h/8, w/8, 4] its per-step noise
         (ddpm), ``prior_noise`` [B, D] and ``prior_noise_seq``
-        [prior_steps, B, D] the positive prior run's."""
+        [prior_steps, B, D] the positive prior run's.  ``sp_mesh``: the
+        decoder row-sharded over the mesh's "sp" axis (see the module
+        docstring), as on every image entry point."""
         batch_size = resolve_batch(prompt, batch_size)
         h, w = get_new_h_w_64(h, w)
         embs = self._embs_for(prompt, negative_prior_prompt, negative_decoder_prompt,
@@ -403,7 +441,7 @@ class Kandinsky2_2(Pipeline):
         return self._output(self._decode_loop(
             embs, batch_size, decoder_steps, decoder_guidance_scale, h, w, x_T=x_T,
             turbo_interval=turbo_interval, sampler=sampler, noise_seq=noise_seq,
-            generator=generator), output)
+            generator=generator, sp_mesh=sp_mesh), output)
 
     @torch.inference_mode()
     def generate_img2img(
@@ -412,7 +450,7 @@ class Kandinsky2_2(Pipeline):
         w=512, negative_prior_prompt="", negative_decoder_prompt="", sampler="ddpm",
         image_embeds=None, turbo_interval=1, noise=None, noise_seq=None,
         prior_noise=None, prior_noise_seq=None,
-        generator: Optional[torch.Generator] = None, output="pil",
+        generator: Optional[torch.Generator] = None, output="pil", sp_mesh=None,
     ):
         """``image``: one init image or a list of B; a CFG-doubled
         ``image_embeds`` skips the prior.  The last ``strength`` of the
@@ -430,8 +468,8 @@ class Kandinsky2_2(Pipeline):
         return self._output(self._decode_loop(
             image_embeds, batch_size, decoder_steps, decoder_guidance_scale, h, w,
             x_T=x_T, ladder=ladder, task="img2img", sampler=sampler,
-            turbo_interval=turbo_interval, noise_seq=noise_seq, generator=generator),
-            output)
+            turbo_interval=turbo_interval, noise_seq=noise_seq, generator=generator,
+            sp_mesh=sp_mesh), output)
 
     @torch.inference_mode()
     def generate_text2img_hires(
@@ -440,12 +478,15 @@ class Kandinsky2_2(Pipeline):
         low_scale=0.5, low_steps=None, strength=0.35, negative_prior_prompt="",
         negative_decoder_prompt="", sampler="ddpm", turbo_interval=1, noise=None,
         prior_noise=None, generator: Optional[torch.Generator] = None, output="pil",
+        sp_mesh=None,
     ):
         """Two stages: the whole ladder at ``low_scale`` of the size, a
         LANCZOS upsample of its 8-bit images, then img2img on the last
         ``strength`` of the ladder at full size; the prior runs once.
         ``noise`` is the refine stage's re-noising draw, ``prior_noise`` the
-        prior x_T."""
+        prior x_T.  With ``sp_mesh`` the full-size stage is row-sharded,
+        and the low stage too where its own latent height keeps equal even
+        shards."""
         from PIL import Image
 
         batch_size = resolve_batch(prompt, batch_size)
@@ -454,16 +495,17 @@ class Kandinsky2_2(Pipeline):
                               batch_size, prior_steps, prior_guidance_scale,
                               prior_noise=prior_noise, generator=generator)
         lh, lw = get_new_h_w_64(max(64, int(h * low_scale)), max(64, int(w * low_scale)))
+        low_sp = low_stage_mesh(sp_mesh, lh // 8, len(self.unet.block_out_channels))
         low = process_images(self._decode_loop(
             embs, batch_size, low_steps or decoder_steps, decoder_guidance_scale, lh,
             lw, sampler=sampler, turbo_interval=turbo_interval,
-            generator=generator).cpu().numpy())
+            generator=generator, sp_mesh=low_sp).cpu().numpy())
         ups = [im.resize((w, h), Image.LANCZOS) for im in low]
         return self.generate_img2img(
             prompt, ups, strength=strength, batch_size=batch_size,
             decoder_steps=decoder_steps, decoder_guidance_scale=decoder_guidance_scale,
             h=h, w=w, sampler=sampler, image_embeds=embs, turbo_interval=turbo_interval,
-            noise=noise, generator=generator, output=output)
+            noise=noise, generator=generator, output=output, sp_mesh=sp_mesh)
 
     @torch.inference_mode()
     def mix_images(
@@ -471,7 +513,7 @@ class Kandinsky2_2(Pipeline):
         decoder_guidance_scale=4, prior_guidance_scale=4, h=512, w=512,
         negative_prior_prompt="", negative_decoder_prompt="", sampler="ddpm",
         noise=None, noise_seq=None, generator: Optional[torch.Generator] = None,
-        output="pil",
+        output="pil", sp_mesh=None,
     ):
         """The weighted sum of image embeddings (texts through the prior, PIL
         images through ViT-bigG) as the decoder's positive embedding
@@ -497,8 +539,8 @@ class Kandinsky2_2(Pipeline):
         x_T = check_noise(noise, (batch_size, h // 8, w // 8, 4), "noise", self.device)
         return self._output(self._decode_loop(
             torch.cat([neg, emb]), batch_size, decoder_steps, decoder_guidance_scale,
-            h, w, x_T=x_T, sampler=sampler, noise_seq=noise_seq, generator=generator),
-            output)
+            h, w, x_T=x_T, sampler=sampler, noise_seq=noise_seq, generator=generator,
+            sp_mesh=sp_mesh), output)
 
     @torch.inference_mode()
     def generate_inpainting(
@@ -506,7 +548,7 @@ class Kandinsky2_2(Pipeline):
         prior_steps=25, decoder_guidance_scale=4, prior_guidance_scale=4, h=512,
         w=512, negative_prior_prompt="", negative_decoder_prompt="", sampler="ddpm",
         noise=None, noise_seq=None, prior_noise=None, prior_noise_seq=None,
-        generator: Optional[torch.Generator] = None, output="pil",
+        generator: Optional[torch.Generator] = None, output="pil", sp_mesh=None,
     ):
         """``img_mask``: 1 = repaint (the diffusers >= 0.19 convention), one
         or a list of B at the image's size; ``pil_img`` one or a list of B.
@@ -540,7 +582,7 @@ class Kandinsky2_2(Pipeline):
         return self._output(self._decode_loop(
             embs, batch_size, decoder_steps, decoder_guidance_scale, h, w, x_T=x_T,
             extra_a=lat * keep, extra_b=keep, task="inpainting", sampler=sampler,
-            noise_seq=noise_seq, generator=generator), output)
+            noise_seq=noise_seq, generator=generator, sp_mesh=sp_mesh), output)
 
     @torch.inference_mode()
     def generate_controlnet(
@@ -549,7 +591,7 @@ class Kandinsky2_2(Pipeline):
         negative_prior_prompt="", negative_decoder_prompt="", sampler="ddpm",
         image=None, strength=0.5, image_embeds=None, noise=None, noise_seq=None,
         prior_noise=None, prior_noise_seq=None,
-        generator: Optional[torch.Generator] = None, output="pil",
+        generator: Optional[torch.Generator] = None, output="pil", sp_mesh=None,
     ):
         """ControlNet-depth: ``hint`` is an [H, W, 3] (or [1 or B, H, W, 3])
         array in [0, 1], such as a depth map.  With ``image`` the init image
@@ -583,10 +625,18 @@ class Kandinsky2_2(Pipeline):
         return self._output(self._decode_loop(
             image_embeds, batch_size, decoder_steps, decoder_guidance_scale, h, w,
             extra_a=hint, task="controlnet", sampler=sampler, x_T=x_T, ladder=ladder,
-            noise_seq=noise_seq, generator=generator), output)
+            noise_seq=noise_seq, generator=generator, sp_mesh=sp_mesh), output)
 
     @torch.inference_mode()
-    def decode_latents(self, latents, output="pil"):
-        """MoVQ-decode raw decoder latents [B, h/8, w/8, 4] to images."""
-        return self._output(self._decode(torch.as_tensor(
-            latents, dtype=torch.float32, device=self.device)), output)
+    def decode_latents(self, latents, output="pil", sp_mesh=None, axis="sp"):
+        """MoVQ-decode raw decoder latents [B, h/8, w/8, 4] to images.  With
+        ``sp_mesh`` the decode runs row-sharded over the mesh's ``axis``
+        (``parallel.spatial.spatial_decode``), for sizes whose decoder
+        activations do not fit one card; every rank gets every image."""
+        lat = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
+        if sp_mesh is None:
+            return self._output(self._decode(lat), output)
+        with record_function("k22.movq_decode"):
+            images = spatial_decode(self.movq, lat.to(self.dtype), sp_mesh, axis=axis,
+                                    method="decode").float()
+        return self._output(images, output)

@@ -160,6 +160,20 @@ def _shard_generators(generator: torch.Generator, data_axis, sp_axis):
     return make(base), make(base * 8191 + s + 1)
 
 
+def shard_example_rows(v: torch.Tensor, data_axis, sp_axis) -> torch.Tensor:
+    """This rank's shard of a whole batch tensor: its examples over
+    ``data_axis`` (None: all of them) and, over ``sp_axis`` (None: all),
+    its block of rows (dim 1)."""
+    v = torch.as_tensor(v)
+    if data_axis is not None:
+        if v.shape[0] % data_axis.size:
+            raise ValueError(f"batch size {v.shape[0]} not divisible by the "
+                             f"data axis size {data_axis.size}")
+        b = v.shape[0] // data_axis.size
+        v = v.narrow(0, data_axis.index * b, b)
+    return v if sp_axis is None else _sp.shard_rows(v, sp_axis)
+
+
 def make_unclip_train_step(
     unet: nn.Module,
     diffusion_config: dict,
@@ -313,15 +327,7 @@ def make_spdp_train_fn(
         unet, diffusion_config, optimizer_factory, data_axis=data, sp_axis=sp,
         **step_kwargs)
     levels = len(unet.channel_mult)
-
-    def shard(v: torch.Tensor, rows: bool) -> torch.Tensor:
-        if data is not None:
-            if v.shape[0] % data.size:
-                raise ValueError(f"batch size {v.shape[0]} not divisible by the "
-                                 f"data axis size {data.size}")
-            b = v.shape[0] // data.size
-            v = v.narrow(0, data.index * b, b)
-        return _sp.shard_rows(v, sp) if rows else v
+    shard = lambda v, rows: shard_example_rows(v, data, sp if rows else None)
 
     def train_fn(state: TrainState, batch: dict, t=None, noise=None,
                  sharded: bool = False) -> dict:

@@ -61,15 +61,38 @@ def test_port_imports_no_jax():
 def test_entry_points_default_to_the_card():
     """The rank launcher and the entry points that spawn ranks run on the
     card unless the caller asks for the CPU: a rank fails where there is
-    no card rather than falling back."""
+    no card rather than falling back.  The row-sharded entry points
+    (``sp_mesh=`` on every image entry point of the three pipelines) run
+    where their pipeline is, the card unless built with ``device="cpu"``,
+    and the sharded trainers (``make_sp_lora_train_fn``,
+    ``make_spdp_train_fn``) where their UNet is: neither takes a device of
+    its own."""
     import inspect
 
     from kandinsky2_tpu_torch.parallel import launch
-    from kandinsky2_tpu_torch.train import train_2_1_unclip
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2, Kandinsky2_1, Kandinsky2_2
+    from kandinsky2_tpu_torch.train import train_2_1_unclip, train_lora, train_unclip
 
     for fn in (launch.RankPool, launch.run_ranks, train_2_1_unclip.run,
-               train_2_1_unclip.run_parallel):
+               train_2_1_unclip.run_parallel, Kandinsky2, Kandinsky2_1, Kandinsky2_2):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    sharded = {
+        Kandinsky2_2: ("generate_text2img", "generate_img2img", "generate_text2img_hires",
+                       "mix_images", "generate_inpainting", "generate_controlnet",
+                       "decode_latents", "_decode_loop"),
+        Kandinsky2: ("generate_img", "generate_text2img", "generate_img2img",
+                     "generate_inpainting", "decode_latents"),
+        Kandinsky2_1: ("generate_img", "generate_text2img", "generate_text2img_hires",
+                       "mix_images", "generate_img2img", "generate_inpainting",
+                       "decode_latents"),
+    }
+    for cls, names in sharded.items():
+        for name in names:
+            params = inspect.signature(getattr(cls, name)).parameters
+            assert params["sp_mesh"].default is None and "device" not in params, name
+    for fn in (train_lora.make_sp_lora_train_fn, train_lora.make_lora_train_step,
+               train_unclip.make_spdp_train_fn):
+        assert "device" not in inspect.signature(fn).parameters, fn
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "kernel_ab.py"])
