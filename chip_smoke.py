@@ -64,8 +64,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 5b. tasks, full width: on the slice's pipeline, img2img of a seeded 768²
    image at strength 0.7 over the DDIM 50 ladder (the steps at or below
    t = 300 run); then, the slice's pipeline freed, a task_type="inpainting"
-   pipeline (9 input channels) inpaints the right half of the image in 50
-   DDIM steps.  Each: one warm-up and one timed call (host clock, ending
+   pipeline (9 input channels) inpaints the right half of the image in 25
+   DDIM steps (50 before: a depth cut for the script's time limit).
+   Each: one warm-up and one timed call (host clock, ending
    in a synchronize), K1, K2 and K3 launched during it, peak memory, a
    finite, non-constant image; then one call under the profiler (device
    ops and time, idle share, the ``k21.*`` stages' device time).  The MoVQ
@@ -161,8 +162,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 15. serve21-768 (run after phase 5b's img2img, on phase 5's pipeline):
    ``serving.GenerationServer(pipe, max_batch=4)``; its warmup runs
    buckets 1, 2 and 4; each bucket's call, as the server makes it (768²,
-   prior "25", DDIM 25: a depth cut for the script's time limit), with
-   K1 = K2 = 25 x 95 + 33 and K3 = 25 x 22 + 4 pinned a call (batch lives
+   prior "25", DDIM 10: a depth cut for the script's time limit, from 50
+   and then 25), with
+   K1 = K2 = 10 x 95 + 33 and K3 = 10 x 22 + 4 pinned a call (batch lives
    in the grids) and no attention call on the card by the plain route, s/call,
    s/image, peak memory and one profiled call's device time and idle
    share; 9 requests queued before ``start()`` (buckets 4, 4, 1, no
@@ -236,7 +238,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``kandinsky2_tpu_torch.examples`` with --small --device cuda in-process
    (``examples.run_all``): finite images of the JAX script's size or its
    steps, seconds and launches of each.
-20. spatial parallelism (last): 20a the primitives on 4 gloo ranks that
+20. spatial parallelism: 20a the primitives on 4 gloo ranks that
    share the card (``parallel.launch.RankPool``; what gloo cannot carry
    is staged through pinned host memory) and on 1 NCCL rank: halo rows
    against a zero pad, the sharded GroupNorm (K1's moments on every shard,
@@ -257,7 +259,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    4096² (262,144 latent tokens: the ring) with its launches, seconds and
    peak memory per rank, and at 2048² the gathered and the ring images
    agreeing.  Every rank group has a deadline.
-21. row-sharded training (last, on a fresh pool of 4 gloo ranks sharing
+21. row-sharded training (after 23, on a fresh pool of 4 gloo ranks sharing
    the card, and 1 NCCL rank): 21a in bf16 at the 768² path's shard shapes
    the sharded GroupNorm's gradient (x, scale, bias, FiLM) against the
    unsharded op's, K5 + K4 on local query rows against gathered K/V
@@ -274,7 +276,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    at 5e-6, the loss-second-moment sampler, no EMA, remat: rank 0's
    unsharded step with the same injected t and noise first (loss within
    1e-2, named gradients within 5e-2), then a warm-up and three timed
-   steps (one where the script would pass 850 s there), the parameters
+   steps (one where the script would pass 810 s there), the parameters
    bitwise equal across the ranks after every step (digests) and every
    one moved, K1 = K2 = 190, K3 = 44 and K4 = K5 = 22 a step a rank,
    s/step, the all-reduce's seconds and the peak memory per rank.
@@ -315,6 +317,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-5 of the unsharded steps at batch 2.  Past ``SP22_CUT_AT_S`` seconds
    of the script at its start, 22b and 22c run 5 decoder steps and 22d
    one timed step (depth only).
+23. tensor-parallel inference (after phase 20, before 21, on a fresh pool
+   of 4 gloo ranks sharing the card): 23a the small 2.1, 2.2 and 2.0
+   pipelines in fp32, text2img unsharded and after ``pipe.shard(
+   min_size=64)`` on (data 1, model 4) and (data 2, model 2): within 1e-4
+   relative L2, every rank's image bitwise equal.  23b tp21-768: phase 5's
+   text2img (768², prior 25, CFG 4, bf16) at sp21-768's depth (DDIM 10)
+   with the noise injected, unsharded on rank 0, then ``shard(
+   model_parallel=4, min_size=1024)`` on every rank: the coverage report
+   (no fallbacks, candidate_frac >= 0.9), the latents within 5e-2 relative
+   L2 of the unsharded ones and bitwise equal across the ranks, the image
+   finite and not constant, each rank's K1/K2/K3 launches pinned and equal
+   to the unsharded call's, none by the plain route; s/image (the slowest
+   rank's), the weights and peak memory per rank, the collectives by UNet
+   call, prior call and image.
+Phases 20b and 23b run DDIM 5, and 21b one timed step, past
+``LATE_CUT_AT_S`` seconds of the script (20b with its minute ahead).
 Phases 15-17 time their stages with ``observability.StageReport``.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
@@ -352,8 +370,13 @@ KL_DECODER_LAUNCHES, KL_ENCODER_LAUNCHES = (30, 1), (22, 1)
 T2I20_STEPS, T2I20_SIZE = 50, 512
 T2I20 = dict(num_steps=T2I20_STEPS, output="float")
 # phase 5b's full-width tasks: 768², DDIM 50, prior "25", CFG 4 and 4
+# (inpainting at DDIM 25, ``INPAINT_TASK``)
 FULL_TASK = dict(num_steps=50, guidance_scale=4, h=768, w=768, sampler="ddim_sampler",
                  prior_cf_scale=4, prior_steps="25", output="float")
+# phase 5b's inpainting at DDIM 25 (50 before), a depth cut for the
+# script's time limit: its profiled call took most of its 62.1 s at DDIM 50
+# (an H100 80GB HBM3 at 700 W)
+INPAINT_TASK = dict(FULL_TASK, num_steps=25)
 # phase 10's full-width 2.2 text2img: 768², prior 25 and decoder 50 DDPM
 # steps, CFG 4 and 4, batch 1
 T2I22 = dict(decoder_steps=50, prior_steps=25, decoder_guidance_scale=4,
@@ -1161,7 +1184,7 @@ def phase_img2img_full(torch, np, smi: str, pipe):
 
 def phase_inpainting_full(torch, np, smi: str):
     """Inpainting of the right half of a seeded 768² image on a fresh
-    task_type="inpainting" pipeline at full width, DDIM 50, bf16, batch 1."""
+    task_type="inpainting" pipeline at full width, DDIM 25, bf16, batch 1."""
     from kandinsky2_tpu_torch.pipelines import Kandinsky2_1
     from kandinsky2_tpu_torch.utils import stub_tokenizers
 
@@ -1178,7 +1201,7 @@ def phase_inpainting_full(torch, np, smi: str):
     mask[:, 384:] = 0.0  # keep the left half, inpaint the right
     return _timed_task(torch, np, "inpainting", lambda seed: pipe.generate_inpainting(
         PROMPT, img, mask, generator=torch.Generator(device="cuda").manual_seed(seed),
-        **FULL_TASK), smi, unet_calls=FULL_TASK["num_steps"])
+        **INPAINT_TASK), smi, unet_calls=INPAINT_TASK["num_steps"])
 
 def phase_slice(torch, np, smi: str):
     from kandinsky2_tpu_torch.ops import launch_counts
@@ -2488,10 +2511,11 @@ def phase_prior_train_full(torch, np, smi: str, name="prior-train", optim_params
 
 # phases 15 and 17's 2.1 serving set: phase 5b's full-width task without
 # its output choice (the server hands back PIL images)
-# phase 15's and 17's served calls: FULL_TASK at DDIM 25, a depth cut that
-# keeps the whole script within its time limit (at DDIM 50 phase 15 took
-# 115-173 s on an H100 80GB HBM3 at 700 W, its profiled calls most of it)
-SERVE21 = dict({k: v for k, v in FULL_TASK.items() if k != "output"}, num_steps=25)
+# phase 15's and 17's served calls: FULL_TASK at DDIM 10, a depth cut that
+# keeps the whole script within its time limit (phase 15 took 115-173 s at
+# DDIM 50 and 95.7 s at DDIM 25 on an H100 80GB HBM3 at 700 W, its
+# profiled calls most of it)
+SERVE21 = dict({k: v for k, v in FULL_TASK.items() if k != "output"}, num_steps=10)
 # phase 15: a bf16 row of a batch-4 call may stand as far from the same
 # prompt alone as bf16 stands from fp32 on that row, and half as far again
 # (1.02 and 1.04 times on an H100 80GB HBM3 at 700 W; a row that took
@@ -3425,6 +3449,11 @@ def phase_examples(torch):
 # --- phase 20: spatial parallelism ---------------------------------------------
 
 SP_WORLD = 4
+# past this many seconds of the script, 20b and 23b run DDIM 5 (with 20b's
+# minute ahead) and 21b one timed step; phase 22 cuts past SP22_CUT_AT_S.
+# Phases 1-19 took 726.3 s on an H100 80GB HBM3 at 700 W, and about a
+# tenth longer on a slower host, which therefore cuts
+LATE_CUT_AT_S = 810
 # K3 at a rank's shard shapes (B, T, S, H, d) of the 768² 2.1 path on 4
 # ranks (the local query rows against the gathered K/V after the 87 text
 # tokens), of its MoVQ's mid attention, and at the 4096² ring's block
@@ -4389,8 +4418,9 @@ def phase_sp_train(torch, smi: str, t_script: float):
 
         # 21b
         t0 = time.perf_counter()
-        steps = 3 if t0 - t_script <= 850 else 1
-        print(f"sp-train-768: {steps} timed step(s) (one where the script passes 850 s "
+        steps = 3 if t0 - t_script <= LATE_CUT_AT_S else 1
+        print(f"sp-train-768: {steps} timed step(s) (one where the script passes "
+              f"{LATE_CUT_AT_S} s "
               f"here; {t0 - t_script:.1f} s so far); the card's memory in use: "
               f"{smi_memory()}")
         res = gloo.run(sp_rank_train768, steps, timeout=900)
@@ -4453,7 +4483,7 @@ def phase_sp_train(torch, smi: str, t_script: float):
 # would otherwise pass SP22_CUT_AT_S at phase 22's start)
 SP22 = dict(T2I22, decoder_steps=10)
 SP20_STEPS = 10
-SP22_CUT_AT_S = 900
+SP22_CUT_AT_S = 820
 # K3 at a rank's shard shapes (B, T, S, H, d), 4 ranks, batch 1 (CFG 2): the
 # UNet22's local query rows against the gathered K/V after the 10 image
 # tokens at 768², the UNet20's after the 154 text tokens at 512², the
@@ -5094,6 +5124,275 @@ def phase_sp22(torch, smi: str, t_script: float):
     return launches, rows
 
 
+# --- phase 23: tensor-parallel inference ----------------------------------------
+
+# tp21-768: phase 5's 2.1 text2img (768², prior 25, CFG 4, bf16, batch 1) at
+# DDIM 10, sp21-768's depth cut, with every weight that the rule takes
+# (min_size 1024) sharded over the model axis of a (data 1, model 4) mesh of
+# the 4 ranks; 23a the small width in fp32 at model-parallel 4 and on
+# (data 2, model 2), min_size 64
+TP_MESHES = ((1, 4), (2, 2))
+TP_MIN_SIZE, TP_SMALL_MIN_SIZE = 1024, 64
+
+
+def _tp_small_pipes(torch):
+    """23a's small pipelines in fp32 on the card, each a fresh one from
+    seed 0: (build(version), call(version, pipe)), ``call`` text2img at
+    128² (DDIM 4, or 2.2's 2 decoder steps; 2 prior steps), after
+    ``set_seed(3)`` (every draw from the pipeline's own generator)."""
+    from kandinsky2_tpu_torch.configs import small_config, small_config20, small_overrides22
+    from kandinsky2_tpu_torch.pipelines import Kandinsky2, Kandinsky2_1, Kandinsky2_2
+    from kandinsky2_tpu_torch.utils import stub_tokenizer22, stub_tokenizers
+
+    tok1, tok2 = stub_tokenizers()
+    tok20, _ = stub_tokenizers(64)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    builds = {
+        "2.1": lambda: Kandinsky2_1(config=small_config(head_channels=64), tokenizer1=tok1,
+                                    tokenizer2=tok2, **f32),
+        "2.2": lambda: Kandinsky2_2(tokenizer=stub_tokenizer22(64),
+                                    overrides=small_overrides22(), **f32),
+        "2.0": lambda: Kandinsky2(config=small_config20(64), tokenizer1=tok20,
+                                  tokenizer2=tok20, **f32),
+    }
+    calls = {
+        "2.1": lambda p: p.generate_text2img(PROMPT, num_steps=4, guidance_scale=4, h=128,
+                                             w=128, prior_steps="2", output="float"),
+        "2.2": lambda p: p.generate_text2img(PROMPT, decoder_steps=2, prior_steps=2, h=128,
+                                             w=128, output="float"),
+        "2.0": lambda p: p.generate_text2img(PROMPT, num_steps=4, h=128, w=128,
+                                             output="float"),
+    }
+
+    def build(version):
+        pipe = builds[version]()
+        pipe.init_random_params(torch.Generator(device="cuda").manual_seed(0))
+        return pipe
+
+    def call(version, pipe):
+        pipe.set_seed(3)
+        return calls[version](pipe)
+
+    return build, call
+
+
+def tp_rank_small(mesh):
+    """23a on one rank: text2img of the small 2.1, 2.2 and 2.0 pipelines in
+    fp32, unsharded and after ``shard(min_size=64)`` on each mesh of
+    ``TP_MESHES`` (a fresh pipeline each): {case: sharded against
+    unsharded relative L2, the sharded images' largest difference from
+    rank 0's}."""
+    import numpy as np
+    import torch
+
+    from kandinsky2_tpu_torch.parallel.collectives import all_gather
+    from kandinsky2_tpu_torch.parallel.mesh import make_mesh
+
+    _sp_rank_setup(torch)
+    build, call = _tp_small_pipes(torch)
+    out = {}
+    with torch.no_grad():
+        for version in ("2.1", "2.2", "2.0"):
+            whole = np.asarray(call(version, build(version)), np.float64)
+            check(np.isfinite(whole).all() and whole.std() > 1e-3, f"23a {version} image")
+            for data, model in TP_MESHES:
+                pipe = build(version)
+                grid = make_mesh(model_parallel=model)
+                pipe.shard(grid, min_size=TP_SMALL_MIN_SIZE, verbose=False)
+                got = np.asarray(call(version, pipe), np.float64)
+                every = all_gather(torch.from_numpy(got).cuda()[None], mesh.axis(), dim=0)
+                out[f"{version} (data {data}, model {model})"] = (
+                    float(np.linalg.norm(got - whole) / np.linalg.norm(whole)),
+                    float((every - every[:1]).abs().max()))
+                del pipe
+            torch.cuda.empty_cache()
+    return out
+
+
+def _tp_call_counts(pipe) -> dict:
+    """The sharded layers' collectives in each UNet call and each prior
+    call of ``pipe``, and each call's host seconds (the collectives wait
+    for the card, so these are the call's own): {"unet": [...], "prior":
+    [...], "unet_s": [...], "prior_s": [...]}, appended as the calls run."""
+    from kandinsky2_tpu_torch.parallel import tensor_parallel as tp
+
+    calls = {"unet": [], "prior": [], "unet_s": [], "prior_s": []}
+
+    def total():
+        return sum(tp.collective_counts().values())
+
+    inner = pipe.unet.denoise
+
+    def denoise(*args, **kw):
+        n, t0 = total(), time.perf_counter()
+        out = inner(*args, **kw)
+        calls["unet_s"].append(time.perf_counter() - t0)
+        calls["unet"].append(total() - n)
+        return out
+
+    pipe.unet.denoise = denoise
+    start = []
+    pipe.prior.register_forward_pre_hook(
+        lambda mod, args: start.append((total(), time.perf_counter())))
+
+    def after(mod, args, y):
+        n, t0 = start.pop()
+        calls["prior_s"].append(time.perf_counter() - t0)
+        calls["prior"].append(total() - n)
+
+    pipe.prior.register_forward_hook(after)
+    return calls
+
+
+def tp_rank_t2i21(mesh, steps: int):
+    """23b on one rank: tp21-768.  The full-width 2.1 pipeline (bf16, seed
+    0, as 20b's), unsharded on rank 0 first with the noise injected (its
+    latents and launches kept), then ``shard(model_parallel=4,
+    min_size=1024)`` on every rank and the same call sharded, a warm-up and
+    a timed call: seconds, peak memory, the weights this rank holds,
+    launches, the collectives by UNet call, prior call and image, the
+    coverage report, the latents against the unsharded ones and against
+    every other rank's."""
+    import numpy as np
+    import torch
+
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+    from kandinsky2_tpu_torch.parallel import tensor_parallel as tp
+    from kandinsky2_tpu_torch.parallel.collectives import all_gather
+    from kandinsky2_tpu_torch.parallel.mesh import make_mesh
+
+    _sp_rank_setup(torch)
+    ax = mesh.axis()
+    rng = np.random.RandomState(20)
+    kw = dict(SP21, num_steps=steps, noise=rng.randn(1, 96, 96, 4).astype(np.float32),
+              prior_noise=rng.randn(1, 768).astype(np.float32),
+              prior_noise_seq=rng.randn(25, 1, 768).astype(np.float32))
+    t0 = time.perf_counter()
+    pipe = _sp_pipe(torch)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    seen = _sp_latents(pipe)
+    nbytes = lambda: sum(p.numel() * p.element_size() for m in pipe.models().values()
+                         for p in m.parameters())
+    out["weights_gib_unsharded"] = nbytes() / 2**30
+    # warm-ups at 2 decoder and 2 prior steps: the same shapes, a fifth of the
+    # work (the sharded call is the collectives' to the last)
+    warm = dict(kw, num_steps=2, prior_steps="2", prior_noise_seq=kw["prior_noise_seq"][:2])
+    if ax.index == 0:
+        pipe.generate_text2img(PROMPT, **warm)
+        reset_path_counts()
+        ref_img = pipe.generate_text2img(PROMPT, **kw)
+        out["unsharded_launches"] = launch_counts()
+        ref_lat = seen[-1]
+    grid = make_mesh(model_parallel=ax.size)
+    t0 = time.perf_counter()
+    pipe.shard(grid, min_size=TP_MIN_SIZE, verbose=ax.index == 0)
+    torch.cuda.synchronize()
+    out["shard_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = pipe.sharding_report
+    out["report"] = dict(summary=rep.summary(), fallbacks=list(rep.fallbacks),
+                         candidate_frac=rep.candidate_frac, sharded_frac=rep.sharded_frac)
+    out["weights_gib"] = nbytes() / 2**30
+    calls = _tp_call_counts(pipe)
+    pipe.generate_text2img(PROMPT, **warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_path_counts()
+    tp.reset_collective_counts()
+    for v in calls.values():
+        v.clear()
+    t0 = time.perf_counter()
+    img = pipe.generate_text2img(PROMPT, **kw)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    out["plain_on_card"] = qkv_attention.plain_on_card
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["collectives"] = tp.collective_counts()
+    out["calls"] = {k: list(v) for k, v in calls.items()}
+    every = all_gather(seen[-1][None].contiguous(), ax, dim=0)
+    out["ranks_max_diff"] = float((every.float() - every[:1].float()).abs().max())
+    if ax.index == 0:
+        out["latent_rel_l2"] = _sp_rel(torch, seen[-1], ref_lat)
+        out["image"] = (img.shape, bool(np.isfinite(img).all()), float(img.std()),
+                        float(np.abs(img - ref_img).max()))
+    del pipe, seen, every
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(torch, smi: str, steps: int) -> dict:
+    """23: tensor-parallel inference on 4 gloo ranks sharing the card (a
+    fresh pool under a deadline): 23a the small width in fp32, 23b
+    tp21-768.  Returns tp21-768's launches on rank 0."""
+    from kandinsky2_tpu_torch.parallel.launch import RankPool
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 23: tp21-768 at DDIM {steps}; the card's memory in use: {smi_memory()}")
+    gloo = RankPool(SP_WORLD, "gloo", device="cuda", init_timeout=300)
+    gloo.start()
+    try:
+        # 23a
+        res = gloo.run(tp_rank_small, timeout=300)
+        for case, (rel, spread) in res[0].items():
+            print(f"tp 23a small fp32 {case}: sharded vs unsharded rel_l2 {rel:.4e} (tol "
+                  f"{SP_FP32_TOL}); the ranks' images differ by at most "
+                  f"{max(r[case][1] for r in res):.3e}")
+            check(rel <= SP_FP32_TOL, f"23a {case}")
+            check(all(r[case][1] == 0.0 for r in res), f"23a {case}: the ranks differ")
+        print(f"time: phase 23a {time.perf_counter() - t_phase:.1f} s")
+
+        # 23b
+        t0 = time.perf_counter()
+        res = gloo.run(tp_rank_t2i21, steps, timeout=600)
+        r0 = res[0]
+        rep = r0["report"]
+        shape, finite, std, diff = r0["image"]
+        print(f"tp21-768: built the full pipeline on each rank in "
+              f"{max(r['build_s'] for r in res):.2f} s, sharded it in "
+              f"{max(r['shard_s'] for r in res):.2f} s; shard(): {rep['summary']}; "
+              f"fallbacks {rep['fallbacks'][:8]}")
+        check(not rep["fallbacks"] and rep["candidate_frac"] >= 0.9, "tp21-768: coverage")
+        print(f"tp21-768: image {shape} finite {finite} std {std:.4f}, max |sharded - "
+              f"unsharded| {diff:.4e}; latents rel_l2 {r0['latent_rel_l2']:.4e} (tol "
+              f"{SP21_LATENT_TOL}); the ranks' latents differ by at most "
+              f"{max(r['ranks_max_diff'] for r in res):.3e}")
+        check(finite and std > 0 and shape == (1, 768, 768, 3), "tp21-768 image")
+        check(r0["latent_rel_l2"] <= SP21_LATENT_TOL, "tp21-768 latents")
+        check_full_launches("tp21-768 rank 0 unsharded", r0["unsharded_launches"], steps,
+                            encoded=False)
+        for i, r in enumerate(res):
+            check_full_launches(f"tp21-768 rank {i}", r["launches"], steps, encoded=False)
+            check(r["launches"] == r0["unsharded_launches"],
+                  f"tp21-768 rank {i}: launches differ from the unsharded call's")
+            check(r["plain_on_card"] == 0, f"tp21-768 rank {i}: attention missed K3")
+            check(r["ranks_max_diff"] == 0.0, f"tp21-768 rank {i}: latents differ")
+        unet, prior = r0["calls"]["unet"], r0["calls"]["prior"]
+        print(f"tp21-768: collectives an image {json.dumps(r0['collectives'])}; "
+              f"{sorted(set(unet))} a UNet call ({len(unet)} calls), "
+              f"{sorted(set(prior))} a prior call ({len(prior)} calls), "
+              f"{sum(r0['collectives'].values()) - sum(unet) - sum(prior)} in the text "
+              f"encoders, the CLIP towers and the MoVQ; host seconds in the UNet calls "
+              f"{sum(r0['calls']['unet_s']):.3f}, in the prior calls "
+              f"{sum(r0['calls']['prior_s']):.3f}")
+        sec = max(r["seconds"] for r in res)
+        print(f"tp21-768: {sec:.4f} s/image on {SP_WORLD} ranks sharing the card (768^2, "
+              f"DDIM {steps}, prior 25, CFG 4, bf16, mesh (data 1, model {SP_WORLD})); "
+              f"weights per rank " + ", ".join(f"{r['weights_gib']:.2f}" for r in res)
+              + f" GiB of {r0['weights_gib_unsharded']:.2f}; peak memory per rank "
+              + ", ".join(f"{r['peak_gib']:.2f}" for r in res)
+              + f" GiB (phase 5, unsharded: 7.37 GiB); {smi}")
+        print(f"time: phase 23b {time.perf_counter() - t0:.1f} s")
+    finally:
+        gloo.close()
+    return r0["launches"]
+
+
 def phase_clock():
     """A function that prints the seconds since its last call (the phase
     just run) and since the first, under a label."""
@@ -5302,11 +5601,17 @@ def main() -> int:
 
     # 20. spatial parallelism: the primitives, sp21-768 and highres-sp on 4
     # gloo ranks sharing the card (and the primitives on 1 NCCL rank); 20b
-    # at DDIM 5 where the script would otherwise pass 850 s (phase 20 takes
-    # about a minute at DDIM 10)
-    sp_steps = SP21["num_steps"] if time.perf_counter() - t_script + 60 <= 850 else 5
+    # at DDIM 5 where the script would otherwise pass LATE_CUT_AT_S (phase 20
+    # takes about a minute at DDIM 10)
+    sp_steps = SP21["num_steps"] if time.perf_counter() - t_script + 60 <= LATE_CUT_AT_S else 5
     sp21_counts, highres_counts, sp_rows = phase_spatial(torch, smi, sp_steps)
     lap("phase 20")
+
+    # 23. tensor-parallel inference: the small width and tp21-768 on a fresh
+    # pool of 4 gloo ranks sharing the card, at sp21-768's depth (before 21
+    # and 22, whose depth follows the script's clock)
+    tp21_counts = phase_tp(torch, smi, sp_steps)
+    lap("phase 23")
 
     # 21. row-sharded training: the backward primitives, the small width and
     # sp-train-768 on 4 gloo ranks sharing the card
@@ -5360,6 +5665,7 @@ def main() -> int:
             "highres_sp_launches": highres_counts[name],
             "sp_train_launches": sp_train_counts[name],
             **{f"{cell}_launches": sp22_counts[cell][name] for cell in sp22_counts},
+            "tp21_launches": tp21_counts[name],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

@@ -45,6 +45,9 @@ def init_lora(module: nn.Module, generator: torch.Generator, rank: int = 4,
         w = mod.weight
         if w.dim() != 2 or not target(name, w):
             continue
+        if hasattr(w, "tp_shard"):
+            raise ValueError(f"init_lora: {name} is tensor-parallel sharded; draw the "
+                             "factors on the unsharded module")
         out_f, in_f = w.shape
         down = torch.randn((in_f, rank), generator=generator, device=w.device)
         loras[name] = {"down": down / in_f ** 0.5,
@@ -56,11 +59,16 @@ def merge_lora(params: Mapping[str, torch.Tensor], loras: Mapping[str, dict],
                scale: float = 1.0) -> Dict[str, torch.Tensor]:
     """A new {name: tensor} dict: ``params`` with W + scale·(down @ up)ᵀ in
     place of every factored weight, computed in fp32 and cast to W's dtype
-    (differentiable in the factors)."""
+    (differentiable in the factors).  Raises where the factors do not
+    make W's shape: a tensor-parallel shard takes its slice of the factors
+    (``parallel.tensor_parallel.local_lora``)."""
     out = dict(params)
     for name, f in loras.items():
         w = out[name]
         delta = (f["down"].float() @ f["up"].float()).t()
+        if delta.shape != w.shape:
+            raise ValueError(f"merge_lora: the factors of {name} make "
+                             f"{tuple(delta.shape)}, the weight is {tuple(w.shape)}")
         out[name] = (w.float() + scale * delta).to(w.dtype)
     return out
 

@@ -36,6 +36,7 @@ from ..parallel.spatial import (
     sp_attention_rows,
     sp_conv3x3,
 )
+from ..parallel.tensor_parallel import full_weight
 from .layers import (
     Container,
     Conv2d,
@@ -288,7 +289,7 @@ class VectorQuantizer(nn.Module):
     def forward(self, z):
         """z NHWC with C = e_dim -> (z_q, indices [B, H, W]): argmin of
         |z|² + |e|² − 2 z·e in fp32."""
-        emb = self.embedding.weight.float()
+        emb = full_weight(self.embedding).float()
         flat = z.reshape(-1, self.e_dim).float()
         d = (flat.pow(2).sum(1, keepdim=True) + emb.pow(2).sum(1)[None]
              - 2.0 * flat @ emb.t())

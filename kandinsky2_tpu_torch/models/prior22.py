@@ -147,7 +147,8 @@ class HFCLIPText(nn.Module):
         tm = self.text_model
         L = tokens.shape[1]
         x = tm.embeddings.token_embedding(tokens).to(self.dtype)
-        x = x + tm.embeddings.position_embedding.weight[:L].to(x.dtype)[None]
+        pos = torch.arange(L, device=tokens.device)
+        x = x + tm.embeddings.position_embedding(pos).to(x.dtype)[None]
         causal = torch.triu(torch.full((L, L), NEG_INF, device=x.device), diagonal=1)
         for layer in tm.encoder.layers:
             x = layer(x, causal)

@@ -379,7 +379,8 @@ class HFCLIPVision(nn.Module):
         x = vm.embeddings.patch_embedding(images.to(self.dtype)).reshape(B, -1, self.hidden)
         cls = vm.embeddings.class_embedding.to(x.dtype).expand(B, 1, self.hidden)
         x = torch.cat([cls, x], dim=1)
-        x = x + vm.embeddings.position_embedding.weight.to(x.dtype)[None]
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = x + vm.embeddings.position_embedding(pos).to(x.dtype)[None]
         x = vm.pre_layrnorm(x)
         for layer in vm.encoder.layers:
             x = layer(x)

@@ -1,15 +1,31 @@
-"""Spatial (row) and data parallelism over ``torch.distributed``, the
-counterpart of ``kandinsky2_tpu/parallel/`` (its spatial half and the
-mesh's axis names): ``mesh`` (the one-axis mesh of the ranks, or the
-``(data, sp)`` mesh of sharded training), ``collectives`` (ppermute, psum,
-pmean, all_gather, each differentiable through its transpose, and the
-bucketed gradient all-reduce ``pmean_grads``; gloo staging of CUDA
-tensors), ``spatial`` (halo convolutions, sharded attention with the
-ring's K5/K4 backward, ``spatial_decode`` / ``spatial_encode``) and
-``launch`` (one process per shard, with a deadline).
+"""Spatial (row), data and tensor parallelism over ``torch.distributed``,
+the counterpart of ``kandinsky2_tpu/parallel/`` but its FSDP half:
+``mesh`` (the one-axis mesh of the ranks, the ``(data, sp)`` mesh of
+sharded training, and the ``(data, model)`` mesh of ``make_mesh`` with the
+tensor-parallel rule, its audit, ``shard_params`` and ``shard_pipeline``),
+``tensor_parallel`` (the column- and row-parallel layers),
+``collectives`` (ppermute, psum, pmean, all_gather, each differentiable
+through its transpose, and the bucketed gradient all-reduce
+``pmean_grads``; gloo staging of CUDA tensors), ``spatial`` (halo
+convolutions, sharded attention with the ring's K5/K4 backward,
+``spatial_decode`` / ``spatial_encode``) and ``launch`` (one process per
+shard, with a deadline).
 """
 
-from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, MeshAxis, axis_index, axis_size
+from .mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    MeshAxis,
+    ShardingReport,
+    axis_index,
+    axis_size,
+    data_sharding,
+    make_mesh,
+    replicate,
+    shard_params,
+    shard_pipeline,
+)
 from .spatial import (
     RING_THRESHOLD_TOKENS,
     SPATIAL_AXIS,

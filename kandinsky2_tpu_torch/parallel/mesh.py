@@ -1,35 +1,54 @@
-"""The device mesh of the port: the counterpart of the mesh half of
-``kandinsky2_tpu/parallel/mesh.py`` that spatial and data parallelism need.
+"""The device mesh of the port and its tensor-parallel placement: the
+counterpart of ``kandinsky2_tpu/parallel/mesh.py``.
 
-JAX runs a ``shard_map`` in one process over a ``jax.sharding.Mesh``; the
-port runs one process per shard, joined by a ``torch.distributed`` process
-group.  :class:`Mesh` names that group's axes, and :meth:`Mesh.axis` hands
-out the :class:`MeshAxis` that the collectives and the sharded modules
-take where JAX takes an axis name.  Two forms:
+JAX runs a ``shard_map`` (or a jitted program over sharded arrays) in one
+process over a ``jax.sharding.Mesh``; the port runs one process per shard,
+joined by a ``torch.distributed`` process group.  :class:`Mesh` names that
+group's axes, and :meth:`Mesh.axis` hands out the :class:`MeshAxis` that
+the collectives and the sharded modules take where JAX takes an axis name.
+Two forms:
 
 * one axis, ``Mesh(group)`` (``"sp"`` for the row shards, as the JAX tests'
   ``Mesh(devices, ("sp",))``): every rank of the group one shard;
-* two axes, ``Mesh(group, ("data", "sp"), shape=(d, s))``: the ``(data,
+* two axes, ``Mesh(group, (first, second), shape=(d, s))``: the ``(data,
   sp)`` mesh of ``make_spdp_train_fn`` and ``train_unclip(mesh_shape=)``,
-  the group's ranks laid out row-major as JAX's ``devs.reshape(d, s)``,
-  with one sub-group for each row (an ``sp`` axis) and each column (a
-  ``data`` axis).  Making a group is collective: every rank of the default
-  group builds the same mesh, in the same order.
+  or the ``(data, model)`` mesh of :func:`make_mesh`, the group's ranks
+  laid out row-major as JAX's ``devs.reshape(d, s)``, with one sub-group
+  for each row (a ``second`` axis) and each column (a ``first`` axis).
+  Making a group is collective: every rank of the default group builds
+  the same mesh, in the same order.
 
 Every rank of the group builds the same mesh and calls the same entry point
 with the same arguments.
 
-The tensor-parallel and FSDP half of the JAX module (``make_mesh``,
-``shard_params``, ``audit_sharding``, ``fsdp_state_shardings``,
-``shard_pipeline``) is not ported yet; only its axis names are.
+Tensor parallelism (``make_mesh``, ``shard_params``, ``audit_sharding``,
+``shard_pipeline``): JAX's rule (:func:`_param_spec`) picks, by flax path,
+leaf name and JAX shape, the large kernels whose output features (or, for
+the second projections, input features) shard over the ``model`` axis;
+:func:`jax_view` names each of the port's parameters as JAX does, so the
+port applies the same rule and keeps the same ``ShardingReport``.  Where
+JAX places the array and lets XLA insert the collectives, the port keeps
+only this rank's slice of each sharded weight and turns its layer into the
+sharded form of ``parallel/tensor_parallel.py``, which gathers or sums
+the output over the model axis.  Ranks that differ only on the data axis
+compute the same thing, as JAX's placement replicates the work there.
+
+The FSDP half of the JAX module (``fsdp_state_shardings``,
+``_fsdp_augment``) is not ported yet.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import logging
+import math
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
+import torch
 import torch.distributed as dist
+from torch import nn
+
+logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -64,6 +83,7 @@ class Mesh:
         n = dist.get_world_size(self.group)
         ranks = tuple(dist.get_global_rank(self.group, i) for i in range(n))
         backend = str(dist.get_backend(self.group))
+        self.ranks, self.backend = ranks, backend
         if len(self.axis_names) == 1:
             if shape is not None and tuple(shape) != (n,):
                 raise ValueError(f"mesh shape {tuple(shape)} over a group of {n} ranks")
@@ -80,10 +100,8 @@ class Mesh:
                              f"the group has {n}")
         me = dist.get_rank(self.group)
         r, c = divmod(me, cols)
-        # every rank makes every sub-group, in one order (groups are collective)
-        row_groups = [ranks[i * cols:(i + 1) * cols] for i in range(rows)]
-        col_groups = [ranks[j::cols] for j in range(cols)]
-        made = {g: dist.new_group(list(g)) for g in row_groups + col_groups}
+        row_groups, col_groups = _axis_groups(ranks, rows, cols)
+        made = _new_groups(row_groups + col_groups)
         first, second = self.axis_names
         self._axes = {
             first: MeshAxis(first, made[col_groups[c]], rows, r, col_groups[c], backend),
@@ -106,6 +124,25 @@ class Mesh:
         return self._axes[name]
 
 
+def _axis_groups(ranks: Sequence[int], rows: int, cols: int):
+    """(row groups, column groups) of ``ranks`` laid out row-major as a
+    ``rows`` x ``cols`` grid."""
+    ranks = tuple(ranks)
+    return ([ranks[i * cols:(i + 1) * cols] for i in range(rows)],
+            [ranks[j::cols] for j in range(cols)])
+
+
+def _new_groups(groups) -> dict:
+    """{ranks: process group} for each distinct tuple of ``groups``, made in
+    order: every rank of the default group makes every group, members or
+    not, since ``new_group`` is collective."""
+    made = {}
+    for g in groups:
+        if g not in made:
+            made[g] = dist.new_group(list(g))
+    return made
+
+
 def axis_size(axis: MeshAxis) -> int:
     """``jax.lax.axis_size``: the number of shards along ``axis``."""
     return axis.size
@@ -114,3 +151,337 @@ def axis_size(axis: MeshAxis) -> int:
 def axis_index(axis: MeshAxis) -> int:
     """``jax.lax.axis_index``: this rank's shard along ``axis``."""
     return axis.index
+
+
+# --- tensor parallelism -----------------------------------------------------------
+
+
+def make_mesh(n_devices: Optional[int] = None, model_parallel: Optional[int] = None,
+              devices: Optional[Sequence[int]] = None) -> Optional[Mesh]:
+    """A ``(data, model)`` mesh over the ranks of the default group (or the
+    global ranks ``devices``, in rank order, as a process group keeps them;
+    or the first ``n_devices`` of either), laid out as JAX's
+    ``reshape(n // model_parallel, model_parallel)``: the model axis is the
+    fast one.  ``model_parallel`` defaults to min(n, 4) and is halved while
+    it does not divide n.  Collective: every rank of the default group calls
+    it; a rank outside the mesh gets None."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs torch.distributed.init_process_group "
+                           "first (one process per rank)")
+    world = dist.get_world_size()
+    ranks = sorted(devices) if devices is not None else list(range(world))
+    if n_devices is not None:
+        ranks = ranks[:n_devices]
+    n = len(ranks)
+    if model_parallel is None:
+        model_parallel = min(n, 4)
+    while n % model_parallel:
+        model_parallel //= 2
+    shape = (n // model_parallel, model_parallel)
+    if ranks == list(range(world)):
+        return Mesh(None, (DATA_AXIS, MODEL_AXIS), shape=shape)
+    group = dist.new_group(ranks)
+    if dist.get_rank() not in ranks:
+        _new_groups(sum(_axis_groups(ranks, *shape), []))
+        return None
+    return Mesh(group, (DATA_AXIS, MODEL_AXIS), shape=shape)
+
+
+class PartitionSpec(tuple):
+    """``jax.sharding.PartitionSpec``: for each dimension of an array the
+    mesh axis it is sharded over, or None."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return "PartitionSpec(" + ", ".join(map(repr, self)) + ")"
+
+
+P = PartitionSpec
+
+
+def replicate(mesh: Mesh) -> PartitionSpec:
+    """The spec of a tensor whole on every rank.  JAX wraps it in a
+    ``NamedSharding`` that XLA places arrays by; the port has no placement
+    object (each rank holds its own tensors), so the spec is all of it."""
+    return P()
+
+
+def data_sharding(mesh: Mesh, ndim: int = 1) -> PartitionSpec:
+    """The spec of a tensor whose leading (batch) axis is sharded over the
+    data axis.  As for :func:`replicate`, JAX's ``NamedSharding`` has no
+    counterpart: a rank that holds a data shard holds only its rows."""
+    return P(DATA_AXIS, *([None] * (ndim - 1)))
+
+
+def _param_spec(path: tuple, arr, min_size: int = 1024) -> PartitionSpec:
+    """Tensor-parallel sharding rule for one parameter (JAX's, word for
+    word, on JAX's path, leaf name and shape: :func:`jax_view`).
+
+    Heuristic matched to this model family: shard the *output features* of
+    large Dense/conv kernels over the model axis (qkv, MLPs, emb projections),
+    and the *input features* of the following projection, so each matmul pair
+    becomes a reduce-scatter-friendly column/row-parallel split.  Small
+    params (norms, biases, time embeddings) replicate.
+    """
+    name = path[-1]
+    leaf = "/".join(path)
+    if name not in ("kernel", "embedding") or arr.ndim < 2:
+        return P()
+    out_dim = arr.shape[-1]
+    in_dim = arr.shape[-2]
+    # row-parallel for second projections (attention out / MLP down / decoders)
+    row_markers = ("c_proj", "proj_out", "out.2", "attention.output", "fc2",
+                   "out_proj", "output.dense")
+    if any(m in leaf for m in row_markers) and in_dim >= min_size:
+        if arr.ndim == 2:
+            return P(MODEL_AXIS, None)
+        return P(*([None] * (arr.ndim - 2)), MODEL_AXIS, None)
+    if out_dim >= min_size:
+        return P(*([None] * (arr.ndim - 1)), MODEL_AXIS)
+    return P()
+
+
+@dataclass(frozen=True)
+class JaxParam:
+    """A parameter as the JAX package holds it: its shape in JAX's layout
+    and its element size (what the rule and the report read)."""
+
+    shape: tuple
+    itemsize: int
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
+def jax_view(name: str, param: torch.Tensor, owner: nn.Module):
+    """(JAX path, :class:`JaxParam`, torch dim of each JAX dim) of the
+    port's parameter ``name`` (its dotted state-dict key) held by module
+    ``owner``: the inverse of ``weights/from_jax.py``'s ``torch_key_for``
+    and ``_layout``.  A ``Linear``'s weight is a Dense ``kernel`` [in, out],
+    a ``Conv2d``'s a ``kernel`` in HWIO (a 1x1 convolution that JAX holds
+    as a 2-D Dense shards the same torch dims, so its spec is the same), an
+    ``nn.Embedding``'s an ``embedding``, a norm's a ``scale``; a bias is a
+    ``bias`` and any other leaf keeps its name and shape.
+
+    The path is (dotted parents, leaf): the flax names of these models
+    carry the reference's dotted names (``"out.2"``, ``"in_layers.0"``,
+    ``"attention.output.dense"``), so JAX's ``/``-joined leaf and the
+    port's dotted key differ only where a marker would span two flax
+    modules; ``tests/test_torch_tensor_parallel.py`` holds every
+    parameter's spec against JAX's on the full-size trees."""
+    from ..models.layers import Conv2d, Linear
+
+    *parents, leaf = name.split(".")
+    shape = tuple(param.shape)
+    itemsize = param.element_size()
+    dims = tuple(range(len(shape)))
+    if leaf == "weight":
+        if isinstance(owner, nn.Embedding):
+            leaf = "embedding"
+        elif isinstance(owner, (Linear, nn.Linear)) and len(shape) == 2:
+            leaf, shape, dims = "kernel", (shape[1], shape[0]), (1, 0)
+        elif isinstance(owner, (Conv2d, nn.Conv2d)) and len(shape) == 4:
+            leaf = "kernel"
+            shape, dims = (shape[2], shape[3], shape[1], shape[0]), (2, 3, 1, 0)
+        elif len(shape) == 1:
+            leaf = "scale"
+        else:
+            raise ValueError(f"{name}: no JAX layout known for the weight of a "
+                             f"{type(owner).__name__} of shape {shape}")
+    return (".".join(parents), leaf), JaxParam(shape, itemsize), dims
+
+
+@dataclass
+class ShardingReport:
+    """Coverage accounting for one ``shard_params`` call (VERDICT round-1
+    weak-item 8: the substring heuristic must fail loudly, not silently
+    replicate)."""
+
+    sharded_params: int = 0
+    replicated_params: int = 0
+    sharded_bytes: int = 0
+    total_bytes: int = 0
+    candidate_bytes: int = 0          # large-kernel bytes the rules target
+    fallbacks: list = field(default_factory=list)  # divisibility un-shards
+
+    @property
+    def sharded_frac(self) -> float:
+        return self.sharded_bytes / max(self.total_bytes, 1)
+
+    @property
+    def candidate_frac(self) -> float:
+        """Fraction of *candidate* (large-kernel) bytes actually sharded —
+        the number that catches a renamed module silently replicating."""
+        return self.sharded_bytes / max(self.candidate_bytes, 1)
+
+    def summary(self) -> str:
+        return (
+            f"sharded {self.sharded_params} params "
+            f"({self.sharded_bytes / 1e6:.1f} MB, "
+            f"{100 * self.sharded_frac:.1f}% of {self.total_bytes / 1e6:.1f} MB; "
+            f"{100 * self.candidate_frac:.1f}% of candidate kernel bytes), "
+            f"{self.replicated_params} replicated, "
+            f"{len(self.fallbacks)} divisibility fallbacks"
+        )
+
+
+def _account_spec(names: tuple, arr, axis_sizes: dict, min_size: int,
+                  rep: ShardingReport) -> PartitionSpec:
+    """Resolve the sharding spec for one parameter and record it in ``rep``
+    (``arr`` only needs ``.shape``, ``.ndim`` and ``.itemsize``: a
+    :class:`JaxParam`, so the full-size models are audited on the meta
+    device without allocating a byte)."""
+    spec = _param_spec(names, arr, min_size)
+    nbytes = int(math.prod(arr.shape)) * int(arr.itemsize)
+    rep.total_bytes += nbytes
+    is_candidate = (
+        names[-1] in ("kernel", "embedding")
+        and arr.ndim >= 2
+        and max(arr.shape[-1], arr.shape[-2]) >= min_size
+    )
+    if is_candidate:
+        rep.candidate_bytes += nbytes
+    # guard: axis size must divide the sharded dim
+    ok = all(
+        arr.shape[i] % axis_sizes[ax] == 0
+        for i, ax in enumerate(spec)
+        if ax is not None
+    )
+    if not ok:
+        rep.fallbacks.append(("/".join(names), tuple(arr.shape)))
+        spec = P()
+    if spec != P():
+        rep.sharded_params += 1
+        rep.sharded_bytes += nbytes
+    else:
+        rep.replicated_params += 1
+    return spec
+
+
+def _named_params(module: nn.Module):
+    """(dotted name, parameter, owning module) of every parameter of
+    ``module``, in ``named_parameters`` order."""
+    for mname, mod in module.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            yield (f"{mname}.{pname}" if mname else pname), p, mod
+
+
+def _torch_spec(spec: PartitionSpec, dims: tuple) -> Optional[int]:
+    """The torch dim that a JAX spec shards (None where it shards none)."""
+    sharded = [dims[i] for i, ax in enumerate(spec) if ax is not None]
+    return sharded[0] if sharded else None
+
+
+def param_specs(module: nn.Module, model_parallel: int, min_size: int = 1024,
+                report: Optional[ShardingReport] = None) -> dict:
+    """{dotted name: the torch dim sharded over the model axis, or None}
+    for every parameter of ``module`` at ``model_parallel``, each recorded
+    in ``report`` (the rule of :func:`shard_params`, placing nothing)."""
+    rep = report if report is not None else ShardingReport()
+    axis_sizes = {DATA_AXIS: 1, MODEL_AXIS: model_parallel}
+    out = {}
+    for name, p, owner in _named_params(module):
+        path, arr, dims = jax_view(name, p, owner)
+        out[name] = _torch_spec(_account_spec(path, arr, axis_sizes, min_size, rep),
+                                dims)
+    return out
+
+
+def audit_sharding(module: nn.Module, model_parallel: int,
+                   min_size: int = 1024) -> ShardingReport:
+    """Dry-run ``shard_params`` coverage of ``module`` (built on the meta
+    device, so nothing is allocated) for a hypothetical mesh with
+    ``model_parallel`` ranks on the model axis: the cheap check that the
+    full-size models neither silently replicate nor hit divisibility
+    fallbacks at real dims."""
+    rep = ShardingReport()
+    param_specs(module, model_parallel, min_size, rep)
+    return rep
+
+
+def shard_params(module: nn.Module, mesh: Mesh, min_size: int = 1024,
+                 report: Optional[ShardingReport] = None,
+                 min_candidate_frac: float = 0.0) -> nn.Module:
+    """Tensor-parallel sharding of ``module``'s large kernels over the
+    mesh's model axis, in place; returns the module.  Each parameter that
+    the rule shards keeps only this rank's slice (the rest is freed) and
+    its layer turns into its sharded form
+    (``parallel.tensor_parallel.shard_layer_``); everything else stays
+    whole on every rank.
+
+    ``report`` accumulates coverage across calls; ``min_candidate_frac`` > 0
+    raises if less than that fraction of candidate kernel bytes ended up
+    sharded (catches renamed modules falling back to replication)."""
+    from .tensor_parallel import shard_layer_
+
+    if MODEL_AXIS not in mesh.axis_names:
+        raise ValueError(f"shard_params needs a mesh with a {MODEL_AXIS!r} axis "
+                         f"(make_mesh); this one has {mesh.axis_names}")
+    rep = report if report is not None else ShardingReport()
+    axis_sizes = mesh.shape
+    model = mesh.axis(MODEL_AXIS)
+    todo = []
+    for name, p, owner in _named_params(module):
+        path, arr, dims = jax_view(name, p, owner)
+        spec = _account_spec(path, arr, axis_sizes, min_size, rep)
+        dim = _torch_spec(spec, dims)
+        if dim is not None:
+            todo.append((owner, name, dim))
+    if model.size > 1:
+        for owner, name, dim in todo:
+            shard_layer_(owner, dim, model, name)
+    if report is None:
+        logger.info("shard_params: %s", rep.summary())
+        if rep.fallbacks:
+            logger.warning(
+                "shard_params: %d kernels fell back to replication "
+                "(axis does not divide): %s",
+                len(rep.fallbacks), rep.fallbacks[:8],
+            )
+        if min_candidate_frac > 0 and rep.candidate_frac < min_candidate_frac:
+            raise ValueError(
+                f"sharding coverage too low: {rep.summary()} — expected at "
+                f"least {100 * min_candidate_frac:.0f}% of candidate kernel "
+                "bytes sharded; did a module rename break the marker rules?"
+            )
+    return module
+
+
+def shard_pipeline(pipe, mesh: Optional[Mesh] = None,
+                   model_parallel: Optional[int] = None,
+                   min_size: int = 1024, min_candidate_frac: float = 0.5,
+                   verbose: bool = True) -> Mesh:
+    """Tensor-parallel sharding of every model of a pipeline
+    (``pipe.models()``, the JAX pipeline's ``params``) over a ``(data,
+    model)`` mesh (the ``pipe.shard()`` shared by the 2.0/2.1/2.2
+    pipelines): large kernels shard on the model axis, everything else
+    stays whole.  Call after the parameters are loaded and cast; every call
+    that follows computes what the unsharded call does.  Sets ``pipe.mesh``
+    and ``pipe.sharding_report``.
+
+    Prints a coverage report and raises if under ``min_candidate_frac`` of
+    the large-kernel bytes actually sharded (a module rename silently
+    replicating is exactly the failure mode that matters)."""
+    mesh = mesh or make_mesh(model_parallel=model_parallel)
+    pipe.mesh = mesh
+    report = ShardingReport()
+    for model in pipe.models().values():
+        shard_params(model, mesh, min_size=min_size, report=report)
+    pipe.sharding_report = report
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+    if verbose:
+        print(f"[kandinsky2_tpu_torch] shard(): {report.summary()}")
+    if report.fallbacks and verbose:
+        print(f"[kandinsky2_tpu_torch] shard(): divisibility fallbacks: "
+              f"{report.fallbacks[:8]}")
+    if min_candidate_frac > 0 and report.candidate_frac < min_candidate_frac:
+        raise ValueError(
+            f"sharding coverage too low: {report.summary()} — expected "
+            f">= {100 * min_candidate_frac:.0f}% of candidate kernel "
+            "bytes sharded; did a module rename break the marker rules?"
+        )
+    return mesh

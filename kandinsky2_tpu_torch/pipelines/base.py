@@ -7,7 +7,7 @@ parameter draw :func:`init_random_`, and the decoder half of the 2.0 and
 (:func:`decoder_schedule`, :func:`sample_latents`); and what the three
 pipelines' row-sharded runs share: the row check (:func:`sp_axis_for`,
 :func:`low_stage_mesh`) and the per-rank noise stream
-(:func:`rank_generator`).
+(:func:`rank_generator`); and tensor parallelism, :meth:`Pipeline.shard`.
 """
 
 from __future__ import annotations
@@ -88,6 +88,9 @@ class Pipeline:
     # (the JAX pipelines' default PRNGKey(0))
     _seed = 0
     _generator: Optional[torch.Generator] = None
+    # set by ``shard``: the (data, model) mesh and its coverage report
+    mesh = None
+    sharding_report = None
 
     def models(self) -> dict:
         """The models under the names of the JAX pipeline's params."""
@@ -130,6 +133,35 @@ class Pipeline:
         if self._generator is None:
             self.set_seed(self._seed)
         return self._generator
+
+    def shard(self, mesh=None, model_parallel: Optional[int] = None,
+              min_size: int = 1024, min_candidate_frac: float = 0.5,
+              verbose: bool = True):
+        """Tensor-parallel sharding of every model over a ``(data, model)``
+        mesh (``parallel.make_mesh(model_parallel=...)`` over the default
+        process group where no mesh is given): each rank keeps its slice of
+        the large kernels and every call that follows computes what the
+        unsharded call does, the sharded layers gathering or summing over
+        the model axis.  Every rank builds the same pipeline with the same
+        parameters, then calls this (collective where it makes the mesh).
+        Returns the mesh; see ``parallel.shard_pipeline``.  Runs where the
+        pipeline is (the card unless it was built on the CPU)."""
+        from ..parallel.mesh import shard_pipeline
+
+        return shard_pipeline(
+            self, mesh=mesh, model_parallel=model_parallel, min_size=min_size,
+            min_candidate_frac=min_candidate_frac, verbose=verbose)
+
+    def _sp_axis(self, sp_mesh, lat_h: int, levels: int):
+        """``sp_axis_for`` on this pipeline: raises where it is sharded by
+        :meth:`shard` too."""
+        self._check_sp(sp_mesh)
+        return sp_axis_for(sp_mesh, lat_h, levels)
+
+    def _check_sp(self, sp_mesh) -> None:
+        if sp_mesh is not None and self.mesh is not None:
+            raise ValueError("sp_mesh= on a pipeline sharded by shard(): row "
+                             "sharding and tensor parallelism do not compose")
 
     def load_jax_params(self, params: dict):
         """Load the JAX pipeline's params (one nested dict of arrays per

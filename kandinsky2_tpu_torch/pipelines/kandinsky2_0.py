@@ -67,7 +67,6 @@ from .base import (
     decoder_schedule,
     rank_generator,
     sample_latents,
-    sp_axis_for,
 )
 
 
@@ -245,7 +244,7 @@ class Kandinsky2(Pipeline):
         dev = self.device
         generator = self._gen(generator)
         new_h, new_w = get_new_h_w(h, w)
-        sp_axis = sp_axis_for(sp_mesh, new_h, len(self.unet.channel_mult))
+        sp_axis = self._sp_axis(sp_mesh, new_h, len(self.unet.channel_mult))
         full1, pooled1, full2 = self.encode_text(prompt, batch_size)
         x_T = check_noise(noise, (batch_size, new_h, new_w, 4), "noise", dev)
         if x_T is None:
@@ -364,6 +363,7 @@ class Kandinsky2(Pipeline):
         ``sp_mesh`` the decode runs row-sharded over the mesh's ``axis``
         (``parallel.spatial.spatial_decode``); every rank gets every
         image."""
+        self._check_sp(sp_mesh)
         lat = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
         if sp_mesh is None:
             return self._output(self._decode(lat), output)

@@ -60,7 +60,6 @@ from .base import (
     low_stage_mesh,
     rank_generator,
     sample_latents,
-    sp_axis_for,
 )
 
 CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -348,7 +347,7 @@ class Kandinsky2_1(Pipeline):
         dev = self.device
         generator = self._gen(generator)
         new_h, new_w = get_new_h_w(h, w)
-        sp_axis = sp_axis_for(sp_mesh, new_h, len(self.unet.channel_mult))
+        sp_axis = self._sp_axis(sp_mesh, new_h, len(self.unet.channel_mult))
         C = self.config["model_config"]["in_channels"]
         full_emb, pooled_emb = self.encode_text(prompt, batch_size)
         x_T = check_noise(noise, (batch_size, new_h, new_w, C), "noise", dev)
@@ -582,6 +581,7 @@ class Kandinsky2_1(Pipeline):
         ``sp_mesh`` the decode runs row-sharded over the mesh's ``axis``
         (``parallel.spatial.spatial_decode``), for sizes whose decoder
         activations do not fit one card; every rank gets every image."""
+        self._check_sp(sp_mesh)
         lat = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
         if sp_mesh is None:
             return self._output(self._decode(lat), output)

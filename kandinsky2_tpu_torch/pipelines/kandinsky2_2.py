@@ -61,7 +61,7 @@ from ..utils import (
     process_images,
     resolve_batch,
 )
-from .base import Pipeline, low_stage_mesh, rank_generator, sp_axis_for
+from .base import Pipeline, low_stage_mesh, rank_generator
 from .kandinsky2_1 import clip_preprocess
 
 TASKS = ("text2img", "img2img", "inpainting", "controlnet")
@@ -289,7 +289,7 @@ class Kandinsky2_2(Pipeline):
                              f"{sampler} is deterministic given noise=")
         dev, B = self.device, batch_size
         lat_h, lat_w = h // 8, w // 8
-        sp_axis = sp_axis_for(sp_mesh, lat_h, len(self.unet.block_out_channels))
+        sp_axis = self._sp_axis(sp_mesh, lat_h, len(self.unet.block_out_channels))
         ladder = ddpm_ladder(steps) if ladder is None else ladder
         if x_T is None:
             x_T = self._randn((B, lat_h, lat_w, 4), generator)
@@ -633,6 +633,7 @@ class Kandinsky2_2(Pipeline):
         ``sp_mesh`` the decode runs row-sharded over the mesh's ``axis``
         (``parallel.spatial.spatial_decode``), for sizes whose decoder
         activations do not fit one card; every rank gets every image."""
+        self._check_sp(sp_mesh)
         lat = torch.as_tensor(latents, dtype=torch.float32, device=self.device)
         if sp_mesh is None:
             return self._output(self._decode(lat), output)

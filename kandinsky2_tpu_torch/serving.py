@@ -31,12 +31,26 @@ hot-swap, the counterpart of ``kandinsky2_tpu/serving.py``.
   transient is one fp32 weight.  The adapter name is part of the batch
   key, so the rows of one call always share one set of weights.
 
+* Over a tensor-parallel pipeline (``pipeline.shard()``: one process per
+  rank, each rank serving the same requests in the same order) every rank
+  must make the same calls, or the ranks would meet in different
+  collectives and hang: coalescing by timing differs from rank to rank.
+  So rank 0 of ``pipeline.mesh`` forms each batch by timing as above and
+  broadcasts it (the requests' submission numbers) over the mesh; the
+  other ranks run exactly those requests, taking them from their own
+  queues.  Rank 0 broadcasts an empty batch while idle and a stop when it
+  stops; the other ranks' workers end on that stop.  A sharded weight
+  takes its slice of an adapter's factors at attach time
+  (``parallel.tensor_parallel.local_lora``).  (The JAX package runs one
+  process over the mesh, so its server needs none of this.)
+
 Device work stays on one thread (one stream owner); the host side is
 thread-safe.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from concurrent.futures import Future
@@ -45,8 +59,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .models.lora import merge_lora
+from .parallel.tensor_parallel import local_lora
 
 
 def _content_descriptor(v) -> Optional[Tuple]:
@@ -69,6 +85,7 @@ class _Request:
     image_mask: Any = None
     lora: Optional[str] = None
     future: Future = field(default_factory=Future)
+    seq: int = -1  # submission number (the batch a sharded server broadcasts)
 
     @property
     def coalescable(self) -> bool:
@@ -120,6 +137,10 @@ class GenerationServer:
         self._pristine: Dict[Tuple[str, str], torch.Tensor] = {}
         self._active_lora: Optional[str] = None
         self._folded: Optional[Tuple[dict, float, str]] = None
+        # a tensor-parallel pipeline: every rank runs rank 0's batches
+        self._mesh = getattr(pipeline, "mesh", None)
+        self._seq = itertools.count()
+        self._held: Dict[int, _Request] = {}
 
     def stats(self) -> Dict[str, float]:
         """Serving counters since start: requests served, device batches
@@ -160,7 +181,8 @@ class GenerationServer:
                 if key not in self._pristine:
                     # not yet snapshotted => never folded => pristine
                     self._pristine[key] = weights[n].detach().clone()
-            on_device = {n: {k: v.to(weights[n].device) for k, v in f.items()}
+            on_device = {n: local_lora(weights[n], {k: v.to(weights[n].device)
+                                                    for k, v in f.items()})
                          for n, f in loras.items()}
             self._loras[name] = (on_device, float(scale), module)
 
@@ -290,7 +312,7 @@ class GenerationServer:
                 )
         req = _Request(
             prompt=prompt, kwargs=kwargs, task=task, image=image,
-            image_mask=image_mask, lora=lora,
+            image_mask=image_mask, lora=lora, seq=next(self._seq),
         )
         self._queue.put(req)
         return req.future
@@ -322,52 +344,99 @@ class GenerationServer:
             self._queue.put(req)
         return batch
 
+    def _broadcast_batch(self, batch: Optional[List[_Request]]) -> List[int]:
+        """Rank 0 of the mesh sends its batch's submission numbers ([]
+        while idle, None to stop); every rank returns them ([-1] for a
+        stop)."""
+        mesh = self._mesh
+        msg = torch.full((self.max_batch + 1,), -2, dtype=torch.int64)
+        if batch is None:
+            msg[0] = -1
+        elif batch:
+            msg[0] = len(batch)
+            msg[1:len(batch) + 1] = torch.tensor([r.seq for r in batch])
+        else:
+            msg[0] = 0
+        if mesh.backend == "nccl":
+            msg = msg.cuda()
+        dist.broadcast(msg, src=mesh.ranks[0], group=mesh.group)
+        n = int(msg[0])
+        return [-1] if n < 0 else [int(s) for s in msg[1:n + 1]]
+
+    def _take(self, seq: int, timeout: float = 600.0) -> _Request:
+        """This rank's request number ``seq``, from the queue where it has
+        not been drawn yet."""
+        while seq not in self._held:
+            req = self._queue.get(timeout=timeout)
+            self._held[req.seq] = req
+        return self._held.pop(seq)
+
+    def _lockstep_worker(self) -> None:
+        """The worker over a tensor-parallel pipeline (module docstring)."""
+        lead = dist.get_rank() == self._mesh.ranks[0]
+        while True:
+            if lead:
+                stopping = self._stop.is_set()
+                batch = None if stopping else self._collect_batch()
+                seqs = self._broadcast_batch(batch)
+            else:
+                seqs = self._broadcast_batch([])
+                batch = [self._take(s) for s in seqs if s >= 0]
+            if seqs == [-1]:
+                return
+            if batch:
+                self._run_batch(batch)
+
     def _worker(self) -> None:
+        if self._mesh is not None:
+            return self._lockstep_worker()
         while not self._stop.is_set():
             batch = self._collect_batch()
-            if not batch:
-                continue
-            try:
-                # one pipeline call serves the whole batch, distinct prompts
-                # included; pad to the warmed bucket so coalesced sizes 3,
-                # 5, 6... run at the 4- and 8-wide shapes
-                task = batch[0].task
-                kw = batch[0].kwargs
-                self._ensure_lora(batch[0].lora)
-                with self._stats_lock:
-                    self._stats["requests"] += len(batch)
-                    self._stats["batches"] += 1
-                    if len(batch) > 1:
-                        self._stats["coalesced"] += len(batch)
-                    if batch[0].coalescable:
-                        self._stats["padded"] += (
-                            self._bucket_for(len(batch)) - len(batch))
-                b = self._bucket_for(len(batch))
-                prompts = [r.prompt for r in batch]
-                prompts += [prompts[-1]] * (b - len(batch))
-                if task == "inpainting":
-                    inits = [r.image for r in batch]
-                    inits += [inits[-1]] * (b - len(batch))
-                    masks = [r.image_mask for r in batch]
-                    masks += [masks[-1]] * (b - len(batch))
-                    images = self.pipeline.generate_inpainting(
-                        prompts, inits, masks, batch_size=b, **kw
-                    )
-                elif task == "img2img":
-                    inits = [r.image for r in batch]
-                    inits += [inits[-1]] * (b - len(batch))
-                    images = self.pipeline.generate_img2img(
-                        prompts, inits, batch_size=b, **kw
-                    )
-                else:
-                    images = self.pipeline.generate_text2img(
-                        prompts, batch_size=b, **kw
-                    )
-                for req, img in zip(batch, images):
-                    req.future.set_result([img])
-            except Exception as e:  # pragma: no cover - error propagation
-                with self._stats_lock:
-                    self._stats["errors"] += 1
-                for req in batch:
-                    if not req.future.done():
-                        req.future.set_exception(e)
+            if batch:
+                self._run_batch(batch)
+
+    def _run_batch(self, batch: List[_Request]) -> None:
+        try:
+            # one pipeline call serves the whole batch, distinct prompts
+            # included; pad to the warmed bucket so coalesced sizes 3,
+            # 5, 6... run at the 4- and 8-wide shapes
+            task = batch[0].task
+            kw = batch[0].kwargs
+            self._ensure_lora(batch[0].lora)
+            with self._stats_lock:
+                self._stats["requests"] += len(batch)
+                self._stats["batches"] += 1
+                if len(batch) > 1:
+                    self._stats["coalesced"] += len(batch)
+                if batch[0].coalescable:
+                    self._stats["padded"] += (
+                        self._bucket_for(len(batch)) - len(batch))
+            b = self._bucket_for(len(batch))
+            prompts = [r.prompt for r in batch]
+            prompts += [prompts[-1]] * (b - len(batch))
+            if task == "inpainting":
+                inits = [r.image for r in batch]
+                inits += [inits[-1]] * (b - len(batch))
+                masks = [r.image_mask for r in batch]
+                masks += [masks[-1]] * (b - len(batch))
+                images = self.pipeline.generate_inpainting(
+                    prompts, inits, masks, batch_size=b, **kw
+                )
+            elif task == "img2img":
+                inits = [r.image for r in batch]
+                inits += [inits[-1]] * (b - len(batch))
+                images = self.pipeline.generate_img2img(
+                    prompts, inits, batch_size=b, **kw
+                )
+            else:
+                images = self.pipeline.generate_text2img(
+                    prompts, batch_size=b, **kw
+                )
+            for req, img in zip(batch, images):
+                req.future.set_result([img])
+        except Exception as e:  # pragma: no cover - error propagation
+            with self._stats_lock:
+                self._stats["errors"] += 1
+            for req in batch:
+                if not req.future.done():
+                    req.future.set_exception(e)

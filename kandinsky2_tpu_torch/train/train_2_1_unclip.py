@@ -144,7 +144,7 @@ def run(cfg: dict, device="cuda"):
         if "fsdp" in par:
             raise NotImplementedError(
                 "parallel: {fsdp: N}: the ZeRO-sharded train state is not ported to "
-                "PyTorch yet (ROADMAP.md Queue 1 item 4, part 3); use "
+                "PyTorch yet (ROADMAP.md Queue 1 item 4, part 3, slice b); use "
                 "parallel: {data: D, sp: S}")
         return run_parallel(cfg, (int(par.get("data", 1)), int(par.get("sp", 1))),
                             device)

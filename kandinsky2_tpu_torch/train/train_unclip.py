@@ -405,7 +405,7 @@ def train_unclip(
     if fsdp is not None:
         raise NotImplementedError(
             "fsdp: the ZeRO-sharded train state (make_fsdp_train_fn) is not ported "
-            "to PyTorch yet (ROADMAP.md Queue 1 item 4, part 3); use "
+            "to PyTorch yet (ROADMAP.md Queue 1 item 4, part 3, slice b); use "
             "parallel: {data: D, sp: S}")
     kw = dict(schedule_sampler=schedule_sampler, ema_decay=ema_decay, remat=remat,
               accum_steps=accum_steps)

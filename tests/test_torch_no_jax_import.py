@@ -54,7 +54,8 @@ def test_port_imports_no_jax():
                  "weights.load_kandinsky", "weights.load_kandinsky22", "models.dpt",
                  "examples.common", "examples.train_lora_22", "examples.run_all",
                  "parallel.mesh", "parallel.collectives", "parallel.spatial",
-                 "parallel.launch", "examples.highres_sp_decode", "examples.train_sp"):
+                 "parallel.launch", "examples.highres_sp_decode", "examples.train_sp",
+                 "parallel.tensor_parallel"):
         assert f"kandinsky2_tpu_torch.{name}" in proc.stdout.split(), name
 
 
@@ -66,10 +67,12 @@ def test_entry_points_default_to_the_card():
     where their pipeline is, the card unless built with ``device="cpu"``,
     and the sharded trainers (``make_sp_lora_train_fn``,
     ``make_spdp_train_fn``) where their UNet is: neither takes a device of
-    its own."""
+    its own.  Tensor parallelism (``make_mesh``, ``shard_params``,
+    ``shard_pipeline`` and every pipeline's ``shard``) runs where the
+    pipeline is too: none takes a device."""
     import inspect
 
-    from kandinsky2_tpu_torch.parallel import launch
+    from kandinsky2_tpu_torch.parallel import launch, mesh
     from kandinsky2_tpu_torch.pipelines import Kandinsky2, Kandinsky2_1, Kandinsky2_2
     from kandinsky2_tpu_torch.train import train_2_1_unclip, train_lora, train_unclip
 
@@ -91,7 +94,9 @@ def test_entry_points_default_to_the_card():
             params = inspect.signature(getattr(cls, name)).parameters
             assert params["sp_mesh"].default is None and "device" not in params, name
     for fn in (train_lora.make_sp_lora_train_fn, train_lora.make_lora_train_step,
-               train_unclip.make_spdp_train_fn):
+               train_unclip.make_spdp_train_fn, mesh.make_mesh, mesh.shard_params,
+               mesh.shard_pipeline, Kandinsky2.shard, Kandinsky2_1.shard,
+               Kandinsky2_2.shard):
         assert "device" not in inspect.signature(fn).parameters, fn
 
 
