@@ -259,8 +259,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    4096² (262,144 latent tokens: the ring) with its launches, seconds and
    peak memory per rank, and at 2048² the gathered and the ring images
    agreeing.  Every rank group has a deadline.
-21. row-sharded training (after 23, on a fresh pool of 4 gloo ranks sharing
-   the card, and 1 NCCL rank): 21a in bf16 at the 768² path's shard shapes
+21. row-sharded training (after 23, on the 4 gloo ranks and the NCCL rank
+   of phase 20): 21a in bf16 at the 768² path's shard shapes
    the sharded GroupNorm's gradient (x, scale, bias, FiLM) against the
    unsharded op's, K5 + K4 on local query rows against gathered K/V
    against the plain backward, and the gradients through the gathered
@@ -281,8 +281,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    one moved, K1 = K2 = 190, K3 = 44 and K4 = K5 = 22 a step a rank,
    s/step, the all-reduce's seconds and the peak memory per rank.
 22. row-sharded 2.2 and 2.0 inference and sharded LoRA tuning of the
-   UNet22 (last, on a fresh pool of 4 gloo ranks sharing the card, the
-   pipelines of phases 1-21 freed): 22a in this process K3 at a rank's
+   UNet22 (last, after 24, on phase 20's 4 gloo ranks, the pipelines of
+   phases 1-21 freed): 22a in this process K3 at a rank's
    shard shapes of the 768² UNet22 (local query rows against the gathered
    K/V after its 10 image tokens), of the 512² UNet20 (after its 154 text
    tokens) and of the 512² KL-VAE's mid attention, and K5 and K4 at the
@@ -317,7 +317,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-5 of the unsharded steps at batch 2.  Past ``SP22_CUT_AT_S`` seconds
    of the script at its start, 22b and 22c run 5 decoder steps and 22d
    one timed step (depth only).
-23. tensor-parallel inference (after phase 20, before 21, on a fresh pool
+23. tensor-parallel inference (after phase 20, before 21, on phase 20's pool
    of 4 gloo ranks sharing the card): 23a the small 2.1, 2.2 and 2.0
    pipelines in fp32, text2img unsharded and after ``pipe.shard(
    min_size=64)`` on (data 1, model 4) and (data 2, model 2): within 1e-4
@@ -331,8 +331,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the unsharded call's, none by the plain route; s/image (the slowest
    rank's), the weights and peak memory per rank, the collectives by UNet
    call, prior call and image.
-Phases 20b and 23b run DDIM 5, and 21b one timed step, past
-``LATE_CUT_AT_S`` seconds of the script (20b with its minute ahead).
+24. ZeRO-3 (FSDP) training of the 2.1 decoder (after phase 21, on its
+   4 gloo ranks, before phase 22): 24a
+   ``tests/test_fsdp_accum.py``'s tiny UNet in fp32, two steps of
+   ``make_fsdp_train_fn`` against the same two steps unsharded on the whole
+   batch of 8 (AdamW with EMA and the loss-aware sampler on (data 4);
+   Adafactor with factored leaves, clipping, parameter scale and momentum
+   on (data 4); ``tp`` on (data 2, model 2)): losses, parameters and EMA
+   within 1e-5.  24b fsdp-train-768: CONFIG_2_1's UNet with
+   train-adamw-768's settings and remat, latents [4, 96, 96, 4], one
+   example a rank, ``fsdp=4``; rank 0 first runs the same step unsharded
+   (``accum_steps=4``) with the same t and noise: the loss within 1e-2, the
+   gathered trainable parameters and their update within 5e-2 relative L2,
+   frozen slices bitwise unchanged, K1 = K2 = 190, K3 = 44, K4
+   = K5 = 22 a rank (the unsharded step's per example), none by the plain
+   route; the state's bytes at rest and peak memory per rank, s/step (the
+   slowest rank's), the gathers' and reduce-scatters' seconds and counts.
+Phases 20b and 23b run DDIM 5, 21b one timed step and 24b only its
+checked step, past ``LATE_CUT_AT_S`` seconds of the script (20b with its
+minute ahead); past ``TIGHT_AT_S``, 23b runs its prior at 5 steps, 21b
+only its checked step and 22b and 22c 2 decoder steps.  Phases 20-24 run on one pool of 4 gloo ranks
+(and 20a and 21a on one NCCL rank), started once.
 Phases 15-17 time their stages with ``observability.StageReport``.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
@@ -3454,6 +3473,11 @@ SP_WORLD = 4
 # Phases 1-19 took 726.3 s on an H100 80GB HBM3 at 700 W, and about a
 # tenth longer on a slower host, which therefore cuts
 LATE_CUT_AT_S = 810
+# past this many seconds at their start, tp21-768 runs its prior at 5 steps,
+# sp-train-768 only its checked step and sp22-768 / sp20-512 2 decoder steps: phases 1-19 took 870.2 s on
+# the slowest host seen (H100 80GB HBM3, 700 W), and the parallel phases
+# about 440 s more there even at LATE_CUT_AT_S's depths
+TIGHT_AT_S = 900
 # K3 at a rank's shard shapes (B, T, S, H, d) of the 768² 2.1 path on 4
 # ranks (the local query rows against the gathered K/V after the 87 text
 # tokens), of its MoVQ's mid attention, and at the 4096² ring's block
@@ -3821,98 +3845,84 @@ def _k3_rows(torch, F, g, shapes) -> list:
     return out
 
 
-def phase_spatial(torch, smi: str, sp_steps: int):
-    """20: spatial parallelism on the card.  20a the primitives on 4 gloo
-    ranks sharing the card and on 1 NCCL rank, and the kernels' times at
-    the shard shapes in this process; 20b sp21-768; 20c highres-sp.
-    Every rank group runs under a deadline (killed and failed if it
-    hangs).  Returns (sp21 launches per rank, highres launches per rank,
-    the timed rows)."""
+def phase_spatial(torch, smi: str, sp_steps: int, gloo, nccl):
+    """20: spatial parallelism on the card.  20a the primitives on
+    ``gloo``, 4 gloo ranks sharing the card, and on ``nccl``, 1 NCCL rank,
+    and the kernels' times at the shard shapes in this process; 20b
+    sp21-768; 20c highres-sp.  Every rank group runs under a deadline
+    (killed and failed if it hangs).  Returns (sp21 launches per rank,
+    highres launches per rank, the timed rows)."""
     import torch.nn.functional as F
 
-    from kandinsky2_tpu_torch.parallel.launch import RankPool
-
     t_phase = time.perf_counter()
-    # the ranks' allocators grow their segments in place (less fragmentation
-    # where four ranks fill the card at 4096²); this process's is set already
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    gloo = RankPool(SP_WORLD, "gloo", device="cuda", init_timeout=300)
-    nccl = RankPool(1, "nccl", device="cuda", init_timeout=300)
-    gloo.start()
-    nccl.start()
-    try:
-        # 20a
-        sp_rows = _sp_kernel_rows(torch, F)
-        for name, pool in (("gloo x4", gloo), ("nccl x1", nccl)):
-            res = pool.run(sp_rank_primitives, timeout=300)
-            for r in res:
-                for what, err, tol in r["checks"]:
-                    print(f"sp 20a {name} rank {r['rank']}: {what}: {err:.3e} (tol {tol:.3e})")
-                    check(err <= tol, f"20a {name} rank {r['rank']}: {what}")
-                print(f"sp 20a {name} rank {r['rank']}: launches {json.dumps(r['launches'])}, "
-                      f"attention calls on the card by the plain route {r['plain_on_card']}")
-                check(all(r["launches"][k] > 0 for k in FORWARD_KERNELS),
-                      f"20a {name}: a kernel was not launched")
-                check(r["plain_on_card"] == 0, f"20a {name}: attention missed K3")
-            if "gloo_probe" in res[0]:
-                print(f"sp 20a gloo with CUDA tensors: {json.dumps(res[0]['gloo_probe'])}")
-        nccl.close()
-        print(f"time: phase 20a {time.perf_counter() - t_phase:.1f} s")
-
-        # 20b
-        t0 = time.perf_counter()
-        res = gloo.run(sp_rank_t2i, sp_steps, timeout=420)
-        r0 = res[0]
-        shape, finite, std, diff = r0["image"]
-        print(f"sp21-768: built the full pipeline on each rank in "
-              f"{max(r['build_s'] for r in res):.2f} s; image {shape} finite {finite} "
-              f"std {std:.4f}, max |sharded - unsharded| {diff:.4e}; latents rel_l2 "
-              f"{r0['latent_rel_l2']:.4e} (tol {SP21_LATENT_TOL}); small fp32 image "
-              f"rel_l2 {r0['small_fp32_rel_l2']:.4e} (tol {SP_FP32_TOL})")
-        check(finite and std > 0 and shape == (1, 768, 768, 3), "sp21-768 image")
-        check(r0["latent_rel_l2"] <= SP21_LATENT_TOL, "sp21-768 latents")
-        check(r0["small_fp32_rel_l2"] <= SP_FP32_TOL, "sp21 small fp32 image")
+    # 20a
+    sp_rows = _sp_kernel_rows(torch, F)
+    for name, pool in (("gloo x4", gloo), ("nccl x1", nccl)):
+        res = pool.run(sp_rank_primitives, timeout=300)
         for r in res:
-            check_full_launches(f"sp21-768 rank {res.index(r)}", r["launches"], sp_steps,
-                                encoded=False)
-            check(r["plain_on_card"] == 0, "sp21-768: attention missed K3")
-        sec = max(r["seconds"] for r in res)
-        print(f"sp21-768: {sec:.4f} s/image on {SP_WORLD} ranks sharing the card "
-              f"(768^2, DDIM {sp_steps}, prior 25, CFG 4, bf16); peak memory per rank "
-              + ", ".join(f"{r['peak_gib']:.2f}" for r in res)
-              + f" GiB (phase 5, unsharded: 7.37 GiB); {smi}")
-        sp21_launches = res[0]["launches"]
-        print(f"time: phase 20b {time.perf_counter() - t0:.1f} s")
-
-        # 20c
-        t0 = time.perf_counter()
-        print(f"highres-sp: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
-              f"GiB; the card's memory in use: {smi_memory()}")
-        res = gloo.run(sp_rank_highres, timeout=420)
-        full = [r["4096"] for r in res]
-        for i, r in enumerate(full):
-            print(f"highres-sp rank {i}: 4096^2 {r['shape']} finite {r['finite']} "
-                  f"std {r['std']:.4f} in {r['seconds']:.3f} s, peak "
-                  f"{r['peak_bytes'] / 2**30:.2f} GiB; launches "
-                  f"{json.dumps(r['launches'])}, plain route {r['plain_on_card']}")
-            check(r["finite"] and r["std"] > 0 and r["shape"] == (1, 4096, 4096, 3),
-                  "highres-sp 4096^2 image")
+            for what, err, tol in r["checks"]:
+                print(f"sp 20a {name} rank {r['rank']}: {what}: {err:.3e} (tol {tol:.3e})")
+                check(err <= tol, f"20a {name} rank {r['rank']}: {what}")
+            print(f"sp 20a {name} rank {r['rank']}: launches {json.dumps(r['launches'])}, "
+                  f"attention calls on the card by the plain route {r['plain_on_card']}")
             check(all(r["launches"][k] > 0 for k in FORWARD_KERNELS),
-                  "highres-sp: a kernel was not launched")
-            check(r["plain_on_card"] == 0, "highres-sp: attention missed K3")
-        rel = res[0]["2048 ring vs gathered rel_l2"]
-        print(f"highres-sp: 2048^2 gathered {res[0]['2048 gathered']['seconds']:.3f} s, "
-              f"ring {res[0]['2048 ring']['seconds']:.3f} s, finite "
-              f"{res[0]['2048 finite']}, ring against gathered rel_l2 {rel:.4e} "
-              f"(tol {SP21_LATENT_TOL}); 4096^2 {max(r['seconds'] for r in full):.3f} s "
-              f"on {SP_WORLD} ranks; {smi}")
-        check(res[0]["2048 finite"] and rel <= SP21_LATENT_TOL,
-              "highres-sp: 2048^2 ring and gathered disagree")
-        highres_launches = full[0]["launches"]
-        print(f"time: phase 20c {time.perf_counter() - t0:.1f} s")
-    finally:
-        gloo.close()
-        nccl.close()
+                  f"20a {name}: a kernel was not launched")
+            check(r["plain_on_card"] == 0, f"20a {name}: attention missed K3")
+        if "gloo_probe" in res[0]:
+            print(f"sp 20a gloo with CUDA tensors: {json.dumps(res[0]['gloo_probe'])}")
+    print(f"time: phase 20a {time.perf_counter() - t_phase:.1f} s")
+
+    # 20b
+    t0 = time.perf_counter()
+    res = gloo.run(sp_rank_t2i, sp_steps, timeout=420)
+    r0 = res[0]
+    shape, finite, std, diff = r0["image"]
+    print(f"sp21-768: built the full pipeline on each rank in "
+          f"{max(r['build_s'] for r in res):.2f} s; image {shape} finite {finite} "
+          f"std {std:.4f}, max |sharded - unsharded| {diff:.4e}; latents rel_l2 "
+          f"{r0['latent_rel_l2']:.4e} (tol {SP21_LATENT_TOL}); small fp32 image "
+          f"rel_l2 {r0['small_fp32_rel_l2']:.4e} (tol {SP_FP32_TOL})")
+    check(finite and std > 0 and shape == (1, 768, 768, 3), "sp21-768 image")
+    check(r0["latent_rel_l2"] <= SP21_LATENT_TOL, "sp21-768 latents")
+    check(r0["small_fp32_rel_l2"] <= SP_FP32_TOL, "sp21 small fp32 image")
+    for r in res:
+        check_full_launches(f"sp21-768 rank {res.index(r)}", r["launches"], sp_steps,
+                            encoded=False)
+        check(r["plain_on_card"] == 0, "sp21-768: attention missed K3")
+    sec = max(r["seconds"] for r in res)
+    print(f"sp21-768: {sec:.4f} s/image on {SP_WORLD} ranks sharing the card "
+          f"(768^2, DDIM {sp_steps}, prior 25, CFG 4, bf16); peak memory per rank "
+          + ", ".join(f"{r['peak_gib']:.2f}" for r in res)
+          + f" GiB (phase 5, unsharded: 7.37 GiB); {smi}")
+    sp21_launches = res[0]["launches"]
+    print(f"time: phase 20b {time.perf_counter() - t0:.1f} s")
+
+    # 20c
+    t0 = time.perf_counter()
+    print(f"highres-sp: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"GiB; the card's memory in use: {smi_memory()}")
+    res = gloo.run(sp_rank_highres, timeout=420)
+    full = [r["4096"] for r in res]
+    for i, r in enumerate(full):
+        print(f"highres-sp rank {i}: 4096^2 {r['shape']} finite {r['finite']} "
+              f"std {r['std']:.4f} in {r['seconds']:.3f} s, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; launches "
+              f"{json.dumps(r['launches'])}, plain route {r['plain_on_card']}")
+        check(r["finite"] and r["std"] > 0 and r["shape"] == (1, 4096, 4096, 3),
+              "highres-sp 4096^2 image")
+        check(all(r["launches"][k] > 0 for k in FORWARD_KERNELS),
+              "highres-sp: a kernel was not launched")
+        check(r["plain_on_card"] == 0, "highres-sp: attention missed K3")
+    rel = res[0]["2048 ring vs gathered rel_l2"]
+    print(f"highres-sp: 2048^2 gathered {res[0]['2048 gathered']['seconds']:.3f} s, "
+          f"ring {res[0]['2048 ring']['seconds']:.3f} s, finite "
+          f"{res[0]['2048 finite']}, ring against gathered rel_l2 {rel:.4e} "
+          f"(tol {SP21_LATENT_TOL}); 4096^2 {max(r['seconds'] for r in full):.3f} s "
+          f"on {SP_WORLD} ranks; {smi}")
+    check(res[0]["2048 finite"] and rel <= SP21_LATENT_TOL,
+          "highres-sp: 2048^2 ring and gathered disagree")
+    highres_launches = full[0]["launches"]
+    print(f"time: phase 20c {time.perf_counter() - t0:.1f} s")
     return sp21_launches, highres_launches, sp_rows
 
 
@@ -4324,6 +4334,7 @@ def sp_rank_train768(mesh, steps: int, device="cuda", config=None, res=768):
         metrics = train_fn(state, batch, t_inj, noise)
         sync()
         out["warm_s"] = time.perf_counter() - t0
+        out["warm_reduce_s"] = sum(reduce_s)
         out["warm_launches"] = launch_counts()
         out["loss"] = float(metrics["loss"])
         handle.remove()
@@ -4353,126 +4364,421 @@ def sp_rank_train768(mesh, steps: int, device="cuda", config=None, res=768):
     return out
 
 
-def phase_sp_train(torch, smi: str, t_script: float):
-    """21: row-sharded training on 4 gloo ranks sharing the card (and the
-    primitives on 1 NCCL rank).  21a the backward primitives on the ranks
-    and K5 and K4 timed at the shard shapes in this process; 21c the small
-    width (fp32 (data 2, sp 2) against unsharded; bf16 with the ring
-    forced); 21b sp-train-768.  Returns (a step's launches on rank 0 of
-    sp-train-768, the timed rows)."""
+def phase_sp_train(torch, smi: str, t_script: float, gloo, nccl):
+    """21: row-sharded training on ``gloo``, 4 gloo ranks sharing the card,
+    and the primitives on ``nccl``, 1 NCCL rank.  21a the backward
+    primitives on the ranks and K5 and K4 timed at the shard shapes in this
+    process; 21c the small width (fp32 (data 2, sp 2) against unsharded;
+    bf16 with the ring forced); 21b sp-train-768.  Returns (a step's
+    launches on rank 0 of sp-train-768, the timed rows)."""
     import torch.nn.functional as F
 
-    from kandinsky2_tpu_torch.parallel.launch import RankPool
-
     t_phase = time.perf_counter()
-    gloo = RankPool(SP_WORLD, "gloo", device="cuda", init_timeout=300)
-    nccl = RankPool(1, "nccl", device="cuda", init_timeout=300)
-    gloo.start()
-    nccl.start()
-    try:
-        # 21a
-        rows = _sp_backward_rows(torch, F)
-        for name, pool in (("gloo x4", gloo), ("nccl x1", nccl)):
-            for r in pool.run(sp_rank_backward, timeout=300):
-                for what, err, tol in r["checks"]:
-                    print(f"sp 21a {name} rank {r['rank']}: {what}: {err:.3e} (tol {tol:.3e})")
-                    check(err <= tol, f"21a {name} rank {r['rank']}: {what}")
-                print(f"sp 21a {name} rank {r['rank']}: launches {json.dumps(r['launches'])}, "
-                      f"attention calls on the card by the plain route {r['plain_on_card']}")
-                check(all(v > 0 for v in r["launches"].values()),
-                      f"21a {name}: a kernel was not launched")
-                check(r["plain_on_card"] == 0, f"21a {name}: an attention missed the kernels")
-        nccl.close()
-        print(f"time: phase 21a {time.perf_counter() - t_phase:.1f} s")
+    # 21a
+    rows = _sp_backward_rows(torch, F)
+    for name, pool in (("gloo x4", gloo), ("nccl x1", nccl)):
+        for r in pool.run(sp_rank_backward, timeout=300):
+            for what, err, tol in r["checks"]:
+                print(f"sp 21a {name} rank {r['rank']}: {what}: {err:.3e} (tol {tol:.3e})")
+                check(err <= tol, f"21a {name} rank {r['rank']}: {what}")
+            print(f"sp 21a {name} rank {r['rank']}: launches {json.dumps(r['launches'])}, "
+                  f"attention calls on the card by the plain route {r['plain_on_card']}")
+            check(all(v > 0 for v in r["launches"].values()),
+                  f"21a {name}: a kernel was not launched")
+            check(r["plain_on_card"] == 0, f"21a {name}: an attention missed the kernels")
+    nccl.close()
+    print(f"time: phase 21a {time.perf_counter() - t_phase:.1f} s")
 
-        # 21c
-        t0 = time.perf_counter()
-        res = gloo.run(sp_rank_train_small, timeout=300)
-        r0 = res[0]
-        print(f"sp-train small fp32 (data 2, sp 2): losses {r0['fp32 losses'][0]} against "
-              f"unsharded {r0['fp32 losses'][1]}; parameters rel_l2 "
-              f"{r0['fp32 params rel_l2']:.3e} (tol 1e-5), the update's "
-              f"{r0['fp32 update rel_l2']:.3e} (recorded)")
-        check(r0["fp32 params rel_l2"] <= 1e-5, "sp-train small fp32: parameters")
-        check(all(r["fp32 digests"] == r0["fp32 digests"] for r in res),
-              "sp-train small fp32: parameters differ across the ranks")
-        n_attn, n_norm = r0["n_attn"], r0["n_norm"]
-        steps_ring = 1 + SP_WORLD  # the text prefix, then one a ring step
-        want = {"group_norm_stats": n_norm, "group_norm_apply": n_norm,
-                "flash_attention_fwd": n_attn * steps_ring,
-                "flash_attention_bwd_dq": n_attn * steps_ring,
-                "flash_attention_bwd_dkv": n_attn * steps_ring}
-        for r in res:
-            b = r["bf16 ring"]
-            print(f"sp-train small bf16 ring rank {res.index(r)}: loss {b['loss']:.5f} "
-                  f"against gathered {b['gathered_loss']:.5f}; gradients rel_l2 "
-                  f"{b['grads_rel_l2']:.3e} (tol {SP_TRAIN_GRAD_TOL}); launches "
-                  f"{json.dumps(b['launches'])} (pinned at {json.dumps(want)}), plain "
-                  f"route {b['plain_on_card']}")
-            check(b["finite"] and abs(b["loss"] - b["gathered_loss"])
-                  <= SP_TRAIN_LOSS_TOL * abs(b["gathered_loss"]), "sp-train bf16 ring loss")
-            check(b["grads_rel_l2"] <= SP_TRAIN_GRAD_TOL, "sp-train bf16 ring gradients")
-            check(b["launches"] == want, "sp-train bf16 ring: launches")
-            check(b["plain_on_card"] == 0, "sp-train bf16 ring: the plain route ran")
-        print(f"time: phase 21c {time.perf_counter() - t0:.1f} s")
+    # 21c
+    t0 = time.perf_counter()
+    res = gloo.run(sp_rank_train_small, timeout=300)
+    r0 = res[0]
+    print(f"sp-train small fp32 (data 2, sp 2): losses {r0['fp32 losses'][0]} against "
+          f"unsharded {r0['fp32 losses'][1]}; parameters rel_l2 "
+          f"{r0['fp32 params rel_l2']:.3e} (tol 1e-5), the update's "
+          f"{r0['fp32 update rel_l2']:.3e} (recorded)")
+    check(r0["fp32 params rel_l2"] <= 1e-5, "sp-train small fp32: parameters")
+    check(all(r["fp32 digests"] == r0["fp32 digests"] for r in res),
+          "sp-train small fp32: parameters differ across the ranks")
+    n_attn, n_norm = r0["n_attn"], r0["n_norm"]
+    steps_ring = 1 + SP_WORLD  # the text prefix, then one a ring step
+    want = {"group_norm_stats": n_norm, "group_norm_apply": n_norm,
+            "flash_attention_fwd": n_attn * steps_ring,
+            "flash_attention_bwd_dq": n_attn * steps_ring,
+            "flash_attention_bwd_dkv": n_attn * steps_ring}
+    for r in res:
+        b = r["bf16 ring"]
+        print(f"sp-train small bf16 ring rank {res.index(r)}: loss {b['loss']:.5f} "
+              f"against gathered {b['gathered_loss']:.5f}; gradients rel_l2 "
+              f"{b['grads_rel_l2']:.3e} (tol {SP_TRAIN_GRAD_TOL}); launches "
+              f"{json.dumps(b['launches'])} (pinned at {json.dumps(want)}), plain "
+              f"route {b['plain_on_card']}")
+        check(b["finite"] and abs(b["loss"] - b["gathered_loss"])
+              <= SP_TRAIN_LOSS_TOL * abs(b["gathered_loss"]), "sp-train bf16 ring loss")
+        check(b["grads_rel_l2"] <= SP_TRAIN_GRAD_TOL, "sp-train bf16 ring gradients")
+        check(b["launches"] == want, "sp-train bf16 ring: launches")
+        check(b["plain_on_card"] == 0, "sp-train bf16 ring: the plain route ran")
+    print(f"time: phase 21c {time.perf_counter() - t0:.1f} s")
 
-        # 21b
-        t0 = time.perf_counter()
-        steps = 3 if t0 - t_script <= LATE_CUT_AT_S else 1
-        print(f"sp-train-768: {steps} timed step(s) (one where the script passes "
-              f"{LATE_CUT_AT_S} s "
-              f"here; {t0 - t_script:.1f} s so far); the card's memory in use: "
-              f"{smi_memory()}")
-        res = gloo.run(sp_rank_train768, steps, timeout=900)
-        r0 = res[0]
-        loss_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
-        print(f"sp-train-768: UNet {r0['n_params']} parameters built in "
-              f"{max(r['build_s'] for r in res):.2f} s a rank; unsharded step on rank 0 "
-              f"(peak {r0['unsharded_peak_gib']:.2f} GiB): loss {r0['ref_loss']:.6f}; "
-              f"sharded warm-up step {max(r['warm_s'] for r in res):.3f} s, loss "
-              f"{r0['loss']:.6f}, rel err {loss_err:.3e} (tol {SP_TRAIN_LOSS_TOL})")
-        check(loss_err <= SP_TRAIN_LOSS_TOL, "sp-train-768: the sharded loss")
-        check(set(r0["ref_grads"]) == set(SP_TRAIN_GRADS), "sp-train-768: a named tensor")
-        for n in SP_TRAIN_GRADS:
-            a, b = r0["grads"][n], r0["ref_grads"][n]
-            err = float((a - b).norm() / b.norm())
-            print(f"sp-train-768: d {n} {list(b.shape)} rel_l2 {err:.3e} "
-                  f"(tol {SP_TRAIN_GRAD_TOL})")
-            check(err <= SP_TRAIN_GRAD_TOL, f"sp-train-768: gradient of {n}")
-        for i, r in enumerate(res):
-            check(r["digests"] == r0["digests"],
-                  f"sp-train-768: rank {i}'s parameters differ from rank 0's")
-            moved = sum(a != b for a, b in zip(r["digests"][0], r["digests"][-1]))
-            check(moved == len(r["digests"][0]),
-                  f"sp-train-768 rank {i}: {len(r['digests'][0]) - moved} tensors unmoved")
-            check(r["finite"], f"sp-train-768 rank {i}: parameters not finite")
-            check(r["warm_launches"] == SP_TRAIN_LAUNCHES,
-                  f"sp-train-768 rank {i}: warm-up launches {r['warm_launches']}")
-            for s in r["steps"]:
-                check(s["launches"] == SP_TRAIN_LAUNCHES and s["plain_on_card"] == 0,
-                      f"sp-train-768 rank {i}: launches {s['launches']}, plain route "
-                      f"{s['plain_on_card']}")
-                check(math.isfinite(s["loss"]), f"sp-train-768 rank {i}: loss not finite")
-            print(f"sp-train-768 rank {i}: steps " + ", ".join(
-                f"{s['seconds']:.3f} s (all-reduce {s['reduce_s']:.3f} s, loss "
-                f"{s['loss']:.5f})" for s in r["steps"]) + f"; peak {r['peak_gib']:.2f} GiB;"
-                f" launches a step {json.dumps(r['steps'][-1]['launches'])}")
-        n = len(r0["steps"])
+    # 21b
+    t0 = time.perf_counter()
+    steps = (3 if t0 - t_script <= LATE_CUT_AT_S else 1 if t0 - t_script <= TIGHT_AT_S
+             else 0)
+    print(f"sp-train-768: {steps} timed step(s) (one where the script passes "
+          f"{LATE_CUT_AT_S} s here, none past {TIGHT_AT_S} s; {t0 - t_script:.1f} s so "
+          f"far); the card's memory in use: {smi_memory()}")
+    res = gloo.run(sp_rank_train768, steps, timeout=900)
+    r0 = res[0]
+    loss_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    print(f"sp-train-768: UNet {r0['n_params']} parameters built in "
+          f"{max(r['build_s'] for r in res):.2f} s a rank; unsharded step on rank 0 "
+          f"(peak {r0['unsharded_peak_gib']:.2f} GiB): loss {r0['ref_loss']:.6f}; "
+          f"sharded warm-up step {max(r['warm_s'] for r in res):.3f} s, loss "
+          f"{r0['loss']:.6f}, rel err {loss_err:.3e} (tol {SP_TRAIN_LOSS_TOL})")
+    check(loss_err <= SP_TRAIN_LOSS_TOL, "sp-train-768: the sharded loss")
+    check(set(r0["ref_grads"]) == set(SP_TRAIN_GRADS), "sp-train-768: a named tensor")
+    for n in SP_TRAIN_GRADS:
+        a, b = r0["grads"][n], r0["ref_grads"][n]
+        err = float((a - b).norm() / b.norm())
+        print(f"sp-train-768: d {n} {list(b.shape)} rel_l2 {err:.3e} "
+              f"(tol {SP_TRAIN_GRAD_TOL})")
+        check(err <= SP_TRAIN_GRAD_TOL, f"sp-train-768: gradient of {n}")
+    for i, r in enumerate(res):
+        check(r["digests"] == r0["digests"],
+              f"sp-train-768: rank {i}'s parameters differ from rank 0's")
+        moved = sum(a != b for a, b in zip(r["digests"][0], r["digests"][-1]))
+        check(moved == len(r["digests"][0]),
+              f"sp-train-768 rank {i}: {len(r['digests'][0]) - moved} tensors unmoved")
+        check(r["finite"], f"sp-train-768 rank {i}: parameters not finite")
+        check(r["warm_launches"] == SP_TRAIN_LAUNCHES,
+              f"sp-train-768 rank {i}: warm-up launches {r['warm_launches']}")
+        for s in r["steps"]:
+            check(s["launches"] == SP_TRAIN_LAUNCHES and s["plain_on_card"] == 0,
+                  f"sp-train-768 rank {i}: launches {s['launches']}, plain route "
+                  f"{s['plain_on_card']}")
+            check(math.isfinite(s["loss"]), f"sp-train-768 rank {i}: loss not finite")
+        print(f"sp-train-768 rank {i}: steps " + ", ".join(
+            f"{s['seconds']:.3f} s (all-reduce {s['reduce_s']:.3f} s, loss "
+            f"{s['loss']:.5f})" for s in r["steps"]) + f"; peak {r['peak_gib']:.2f} GiB;"
+            f" launches a step {json.dumps(r['warm_launches'])}")
+    n = len(r0["steps"])
+    if n:
         step_s = sum(max(r["steps"][i]["seconds"] for r in res) for i in range(n)) / n
         reduce_s = sum(max(r["steps"][i]["reduce_s"] for r in res) for i in range(n)) / n
-        print(f"sp-train-768: {step_s:.4f} s/step (the slowest rank, mean of {n}), the "
-              f"gradient all-reduce {reduce_s:.4f} s of it; 768², batch 1, mesh (data 1, "
-              f"sp {SP_WORLD}) sharing the card over gloo, fp32 parameters, bf16 compute, "
-              f"Adafactor 5e-6, remat, no EMA; every parameter bitwise equal across the "
-              f"ranks after each step and every one moved; peak per rank " + ", ".join(
-                  f"{r['peak_gib']:.2f}" for r in res)
-              + f" GiB (train-768 unsharded, EMA, no remat: 24.94 GiB); {smi}")
-        print(f"time: phase 21b {time.perf_counter() - t0:.1f} s")
-        sp_train_launches = r0["steps"][-1]["launches"]
+    else:
+        step_s = max(r["warm_s"] for r in res)
+        reduce_s = max(r["warm_reduce_s"] for r in res)
+    print(f"sp-train-768: {step_s:.4f} s/step (the slowest rank, "
+          + (f"mean of {n}" if n else "the warm-up step") + "), the "
+          f"gradient all-reduce {reduce_s:.4f} s of it; 768², batch 1, mesh (data 1, "
+          f"sp {SP_WORLD}) sharing the card over gloo, fp32 parameters, bf16 compute, "
+          f"Adafactor 5e-6, remat, no EMA; every parameter bitwise equal across the "
+          f"ranks after each step and every one moved; peak per rank " + ", ".join(
+              f"{r['peak_gib']:.2f}" for r in res)
+          + f" GiB (train-768 unsharded, EMA, no remat: 24.94 GiB); {smi}")
+    print(f"time: phase 21b {time.perf_counter() - t0:.1f} s")
+    return r0["warm_launches"], rows
+
+
+# --- phase 24: ZeRO-3 (FSDP) training of the 2.1 decoder ------------------------
+
+# 24a: tests/test_fsdp_accum.py's tiny CONFIG_2_1 UNet, 8 examples of 16^2
+# latents, min_elems 1 << 10; Adam's and Adafactor's eps raised from
+# rounding level so that the first update is a smooth function of the
+# gradient (it is the gradient's sign otherwise, which the order of the sums
+# decides where a gradient is at rounding level)
+FSDP_TINY = dict(num_channels=32, num_res_blocks=1, channel_mult="1,2",
+                 attention_resolutions="32", num_head_channels=16, model_dim=32,
+                 text_encoder_in_dim1=16, text_encoder_in_dim2=32, image_encoder_in_dim=32,
+                 num_image_embs=2, inpainting=False)
+FSDP_SMALL_ADAMW = {"name": "optax.adamw", "params": {"learning_rate": 1e-3, "eps": 1e-3}}
+FSDP_SMALL_CASES = {
+    "adamw, EMA, loss-aware sampler (data 4)": (
+        (SP_WORLD, 1), FSDP_SMALL_ADAMW,
+        dict(schedule_sampler="loss-second-moment", ema_decay=0.999)),
+    "adafactor factored, clip, parameter scale, momentum (data 4)": (
+        (SP_WORLD, 1), {"name": "optax.adafactor", "params": {
+            "learning_rate": 1e-2, "min_dim_size_to_factor": 8, "momentum": 0.9,
+            "clipping_threshold": 1.0, "multiply_by_parameter_scale": True, "eps": 1e-6}},
+        dict(ema_decay=None)),
+    "tp (data 2, model 2), adamw, EMA": (
+        (2, 2), FSDP_SMALL_ADAMW,
+        dict(tp=True, tp_min_size=64, schedule_sampler="loss-second-moment",
+             ema_decay=0.999)),
+}
+FSDP_SMALL_TOL = 1e-5
+# 24b fsdp-train-768: the timesteps of the 4 examples (one a rank)
+FSDP_T = (417, 52, 803, 250)
+
+
+def fsdp_rank_small(mesh, device="cuda"):
+    """24a on one rank: for each of FSDP_SMALL_CASES, two steps of
+    ``make_fsdp_train_fn`` (fp32, the YAML's freeze rules, draws from the
+    shared generator) on its mesh of the 4 ranks, then rank 0 runs the same
+    two steps unsharded on the whole batch from the same weights and seed:
+    the losses, and the largest difference of the gathered parameters and
+    EMA from the unsharded ones; the launches and the unit collectives."""
+    import torch
+    import torch.distributed as dist
+
+    from kandinsky2_tpu_torch.configs import CONFIG_2_1, deep_copy_config
+    from kandinsky2_tpu_torch.parallel import fsdp
+    from kandinsky2_tpu_torch.parallel.mesh import make_mesh
+    from kandinsky2_tpu_torch.train import train_unclip as tu
+    from kandinsky2_tpu_torch.train.optim import decoder_freeze_mask, optimizer_from_config
+
+    _sp_rank_setup(torch)
+    cfg = deep_copy_config(CONFIG_2_1)
+    cfg["model_config"].update(FSDP_TINY)
+    mc, dcfg = cfg["model_config"], cfg["diffusion_config"]
+    batch, _ = _sp_train_batch(torch, mc, 8, 16, device, 40)
+    out = {}
+    for name, (shape, optim, kw) in FSDP_SMALL_CASES.items():
+        grid = make_mesh(shape[0] * shape[1], model_parallel=shape[1])
+        unet = _sp_train_model(torch, cfg, torch.float32, device, seed=41)
+        mask = decoder_freeze_mask(unet, freeze_resblocks=True)
+        init_fn, train_fn, _ = tu.make_fsdp_train_fn(
+            unet, dcfg, optimizer_from_config(optim), grid, min_elems=1 << 10, **kw)
+        state = init_fn(mask, seed=0)
+        fsdp.reset_collective_counts()
+        losses = [float(train_fn(state, batch)["loss"]) for _ in range(2)]
+        r = {"losses": losses, "collectives": fsdp.collective_counts(),
+             "cut": sum(bool(fsdp.cuts(p)) for p in unet.parameters()),
+             "both": sum(len(fsdp.cuts(p)) == 2 for p in unet.parameters())}
+        whole = state.state_dict()
+        if dist.get_rank() == 0:
+            ref = _sp_train_model(torch, cfg, torch.float32, device, seed=41)
+            init_u, step_u = tu.make_unclip_train_step(
+                ref, dcfg, optimizer_from_config(optim),
+                **{k: v for k, v in kw.items() if k not in ("tp", "tp_min_size")})
+            st = init_u(mask, seed=0)
+            r["ref_losses"] = [float(step_u(st, batch)["loss"]) for _ in range(2)]
+            want = st.state_dict()
+            for key in ("params", "ema"):
+                if want[key] is not None:
+                    r[f"{key}_max_diff"] = max(
+                        float((whole[key][n].to(device) - w).abs().max())
+                        for n, w in want[key].items())
+            del ref, st, want
+        out[name] = r
+        del unet, state, whole
+        gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_rank_train768(mesh, steps: int, device="cuda", config=None, res=768):
+    """24b fsdp-train-768 on one rank: CONFIG_2_1's UNet (``config`` for a
+    rehearsal) with train-adamw-768's settings (fp32 parameters, bf16
+    compute, the YAML's freeze rules, ``optax.adamw`` 1e-4, EMA 0.9999) and
+    remat, latents [4, res/8, res/8, 4], ``fsdp=4``.  Rank 0 first runs the
+    same step unsharded (``accum_steps=4``, one example a microbatch) with
+    the same t and noise, keeps its loss, launches and updated trainable
+    parameters, and puts the trainable parameters back.  Then every rank
+    takes the FSDP step (its gathers, reduce-scatters and uncut all-reduces
+    timed, synchronized), rank 0 gathers the trainable parameters and
+    compares, and ``steps`` timed steps follow: seconds, launches, the
+    state's bytes at rest, peak memory, frozen slices' digests."""
+    import torch
+    import torch.distributed as dist
+
+    from kandinsky2_tpu_torch.configs import CONFIG_2_1
+    from kandinsky2_tpu_torch.ops import launch_counts, qkv_attention
+    from kandinsky2_tpu_torch.parallel import fsdp
+    from kandinsky2_tpu_torch.parallel.mesh import make_mesh
+    from kandinsky2_tpu_torch.train import train_unclip as tu
+    from kandinsky2_tpu_torch.train.optim import decoder_freeze_mask, optimizer_from_config
+
+    _sp_rank_setup(torch)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    grid = make_mesh(SP_WORLD, model_parallel=1)
+    rank = grid.axis("data").index
+    cfg = config or CONFIG_2_1
+    dcfg = cfg["diffusion_config"]
+    t0 = time.perf_counter()
+    unet = _sp_train_model(torch, cfg, torch.bfloat16, device)
+    batch, noise = _sp_train_batch(torch, cfg["model_config"], SP_WORLD, res // 8, device, 23)
+    t_inj = torch.tensor(FSDP_T[:SP_WORLD], device=device)
+    mask = decoder_freeze_mask(unet, freeze_resblocks=True, freeze_attention=False)
+    sync()
+    out = {"rank": rank, "build_s": time.perf_counter() - t0,
+           "n_params": sum(p.numel() for p in unet.parameters()),
+           "n_trainable": sum(p.numel() for n, p in unet.named_parameters() if mask[n])}
+    if rank == 0:
+        start = {n: p.detach().clone() for n, p in unet.named_parameters() if mask[n]}
+        init_u, step_u = tu.make_unclip_train_step(
+            unet, dcfg, optimizer_from_config(ADAMW), ema_decay=0.9999, remat=True,
+            accum_steps=SP_WORLD)
+        st = init_u(mask, seed=0)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_path_counts()
+        t0 = time.perf_counter()
+        out["ref_loss"] = float(step_u(st, batch, t_inj, noise)["loss"])
+        sync()
+        out["ref_s"] = time.perf_counter() - t0
+        out["ref_launches"] = launch_counts()
+        out["ref_state_bytes"] = fsdp.state_bytes(st)
+        out["unsharded_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0
+        ref = {n: p.detach().to("cpu", torch.float32, copy=True)
+               for n, p in unet.named_parameters() if mask[n]}
+        with torch.no_grad():
+            for n, p in unet.named_parameters():
+                if mask[n]:
+                    p.copy_(start[n])
+        start = {n: v.float().cpu() for n, v in start.items()}
+        del st, init_u, step_u
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    init_fn, train_fn, _ = tu.make_fsdp_train_fn(
+        unet, dcfg, optimizer_from_config(ADAMW), grid, ema_decay=0.9999, remat=True)
+    state = init_fn(mask, seed=0)
+    frozen = [p for n, p in unet.named_parameters() if not mask[n]]
+    frozen0 = _tensor_digests(torch, frozen)
+    secs = {"all_gather": 0.0, "reduce_scatter": 0.0, "uncut all-reduce": 0.0}
+    inner = {"all_gather": fsdp._gather_flat, "reduce_scatter": fsdp._reduce_scatter_flat,
+             "uncut all-reduce": fsdp.pmean_grads}
+
+    def timed(key):
+        def call(*args, **kwargs):
+            sync()
+            t = time.perf_counter()
+            result = inner[key](*args, **kwargs)
+            sync()
+            secs[key] += time.perf_counter() - t
+            return result
+        return call
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    fsdp._gather_flat, fsdp._reduce_scatter_flat = timed("all_gather"), timed("reduce_scatter")
+    fsdp.pmean_grads = timed("uncut all-reduce")
+    try:
+        fsdp.reset_collective_counts()
+        reset_path_counts()
+        t0 = time.perf_counter()
+        out["loss"] = float(train_fn(state, batch, t_inj, noise)["loss"])
+        sync()
+        out["checked_s"] = time.perf_counter() - t0
     finally:
-        gloo.close()
-        nccl.close()
-    return sp_train_launches, rows
+        fsdp._gather_flat, fsdp._reduce_scatter_flat = inner["all_gather"], inner["reduce_scatter"]
+        fsdp.pmean_grads = inner["uncut all-reduce"]
+    out["launches"] = launch_counts()
+    out["plain_on_card"] = qkv_attention.plain_on_card
+    out["collectives"] = fsdp.collective_counts()
+    out["collective_s"] = secs
+    out["state_bytes"] = fsdp.state_bytes(state)
+    out["frozen_same"] = _tensor_digests(torch, frozen) == frozen0
+    trained = [(n, p) for n, p in unet.named_parameters() if mask[n]]
+    got = fsdp._gather_whole([(p.detach(), fsdp.cuts(p)) for _, p in trained], rank == 0)
+    if rank == 0:
+        num = den = upd = upd_den = 0.0
+        for (n, _), g in zip(trained, got):
+            g = g.float()
+            num += float((g - ref[n]).double().norm() ** 2)
+            den += float(ref[n].double().norm() ** 2)
+            upd_den += float((ref[n] - start[n]).double().norm() ** 2)
+        out["params_rel_l2"] = math.sqrt(num / den)
+        out["update_rel_l2"] = math.sqrt(num / upd_den)
+        out["finite"] = all(bool(torch.isfinite(g).all()) for g in got)
+        del ref, start
+    del got
+    out["steps"] = []
+    for _ in range(steps):
+        reset_path_counts()
+        t0 = time.perf_counter()
+        loss = float(train_fn(state, batch, t_inj, noise)["loss"])
+        sync()
+        out["steps"].append(dict(seconds=time.perf_counter() - t0, loss=loss,
+                                 launches=launch_counts()))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0
+    del unet, state, init_fn, train_fn, batch, noise, frozen
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def phase_fsdp(torch, smi: str, t_script: float, gloo) -> dict:
+    """24: ZeRO-3 (FSDP) training on phase 21's pool of 4 gloo ranks sharing
+    the card: 24a the small width in fp32 against unsharded; 24b
+    fsdp-train-768.  Returns 24b's launches on rank 0 (the checked step)."""
+    t_phase = time.perf_counter()
+    # 24a
+    res = gloo.run(fsdp_rank_small, timeout=300)
+    for name, r in res[0].items():
+        diffs = {k: r[k] for k in ("params_max_diff", "ema_max_diff") if k in r}
+        print(f"fsdp 24a {name}: losses {r['losses']} against unsharded "
+              f"{r['ref_losses']}; max |sharded - unsharded| {json.dumps(diffs)} (tol "
+              f"{FSDP_SMALL_TOL}); {r['cut']} tensors cut ({r['both']} on two axes); "
+              f"unit collectives in the two steps {json.dumps(r['collectives'])}")
+        check(all(abs(a - b) <= FSDP_SMALL_TOL * max(1.0, abs(b))
+                  for a, b in zip(r["losses"], r["ref_losses"])), f"24a {name}: losses")
+        check(diffs and all(v <= FSDP_SMALL_TOL for v in diffs.values()), f"24a {name}")
+        check(r["cut"] > 0 and (r["both"] > 0) == ("tp" in name), f"24a {name}: cuts")
+    print(f"time: phase 24a {time.perf_counter() - t_phase:.1f} s")
+
+    # 24b
+    t0 = time.perf_counter()
+    steps = 1 if t0 - t_script <= LATE_CUT_AT_S else 0
+    print(f"fsdp-train-768: {steps} timed step(s) after the checked one (none where the "
+          f"script passes {LATE_CUT_AT_S} s here; {t0 - t_script:.1f} s so far); the card's "
+          f"memory in use: {smi_memory()}")
+    res = gloo.run(fsdp_rank_train768, steps, timeout=900)
+    r0 = res[0]
+    loss_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    ref_per_example = {k: v / SP_WORLD for k, v in r0["ref_launches"].items()}
+    print(f"fsdp-train-768: UNet {r0['n_params']} parameters ({r0['n_trainable']} "
+          f"trainable) built in {max(r['build_s'] for r in res):.2f} s a rank; unsharded "
+          f"step on rank 0 (accum 4, remat) {r0['ref_s']:.3f} s, peak "
+          f"{r0['unsharded_peak_gib']:.2f} GiB, loss {r0['ref_loss']:.6f}, launches "
+          f"{json.dumps(r0['ref_launches'])}, state {json.dumps(r0['ref_state_bytes'])} B; "
+          f"FSDP loss {r0['loss']:.6f}, rel err {loss_err:.3e} (tol {SP_TRAIN_LOSS_TOL}); "
+          f"gathered trainable parameters rel_l2 {r0['params_rel_l2']:.3e} (tol "
+          f"{SP_TRAIN_GRAD_TOL}), their update's rel_l2 {r0['update_rel_l2']:.3e} (tol "
+          f"{SP_TRAIN_GRAD_TOL})")
+    check(loss_err <= SP_TRAIN_LOSS_TOL, "fsdp-train-768: the sharded loss")
+    check(r0["params_rel_l2"] <= SP_TRAIN_GRAD_TOL and r0["finite"],
+          "fsdp-train-768: the gathered parameters")
+    check(r0["update_rel_l2"] <= SP_TRAIN_GRAD_TOL, "fsdp-train-768: the update")
+    check(ref_per_example == SP_TRAIN_LAUNCHES,
+          f"fsdp-train-768: the unsharded step's launches {r0['ref_launches']}")
+    for i, r in enumerate(res):
+        check(r["frozen_same"], f"fsdp-train-768 rank {i}: a frozen slice changed")
+        check(r["launches"] == SP_TRAIN_LAUNCHES and r["plain_on_card"] == 0,
+              f"fsdp-train-768 rank {i}: launches {r['launches']}, plain route "
+              f"{r['plain_on_card']}")
+        for s in r["steps"]:
+            check(s["launches"] == SP_TRAIN_LAUNCHES and math.isfinite(s["loss"]),
+                  f"fsdp-train-768 rank {i}: a timed step's launches or loss")
+        print(f"fsdp-train-768 rank {i}: checked step {r['checked_s']:.3f} s, of it "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in r["collective_s"].items())
+              + f" ({json.dumps(r['collectives'])} unit collectives); timed steps "
+              + ", ".join(f"{s['seconds']:.3f} s" for s in r["steps"])
+              + f"; state at rest {json.dumps(r['state_bytes'])} B; peak "
+              f"{r['peak_gib']:.2f} GiB; launches a step {json.dumps(r['launches'])}")
+    timed = [max(r["steps"][i]["seconds"] for r in res) for i in range(len(r0["steps"]))]
+    step_s = sum(timed) / len(timed) if timed else max(r["checked_s"] for r in res)
+    print(f"fsdp-train-768: {step_s:.4f} s/step (the slowest rank, "
+          + (f"mean of {len(timed)} timed" if timed else "the checked step, collectives "
+             "synchronized") + f"); the checked step's gathers "
+          f"{max(r['collective_s']['all_gather'] for r in res):.3f} s and reduce-scatters "
+          f"{max(r['collective_s']['reduce_scatter'] for r in res):.3f} s (slowest rank), "
+          f"{r0['collectives']['all_gather']} and {r0['collectives']['reduce_scatter']} a "
+          f"step; 768², 4 examples, one a rank, fsdp {SP_WORLD} sharing the card over gloo, "
+          f"fp32 parameters, bf16 compute, optax.adamw 1e-4, EMA 0.9999, remat; per rank "
+          f"at rest parameters / EMA / optimizer " + ", ".join(
+              f"{r['state_bytes']['params']} / {r['state_bytes']['ema']} / "
+              f"{r['state_bytes']['optimizer']} B" for r in res)
+          + f" (unsharded {json.dumps(r0['ref_state_bytes'])} B); peak per rank "
+          + ", ".join(f"{r['peak_gib']:.2f}" for r in res) + f" GiB; {smi}")
+    print(f"time: phase 24b {time.perf_counter() - t0:.1f} s")
+    return r0["launches"]
 
 
 # --- phase 22: row-sharded 2.2 and 2.0 inference and sharded LoRA -------------
@@ -5011,116 +5317,111 @@ def _sp22_full_report(name, res, steps, decoder, smi, unsharded_note):
     return res[0]["launches"], sec
 
 
-def phase_sp22(torch, smi: str, t_script: float):
+def phase_sp22(torch, smi: str, t_script: float, gloo):
     """22: row-sharded 2.2 and 2.0 inference and sharded LoRA tuning of the
-    UNet22 on 4 gloo ranks sharing the card (a fresh pool, every rank group
-    under a deadline).  22a K3, K5 and K4 timed at the new shard shapes in
+    UNet22 on ``gloo``, 4 gloo ranks sharing the card (every run under a
+    deadline).  22a K3, K5 and K4 timed at the new shard shapes in
     this process and the sharded ``AddedKVAttention`` and its gradient on
     the ranks; 22b sp22-768; 22c sp20-512; 22d sp-lora22-768.  Returns
     ({cell: launches of rank 0}, the timed rows)."""
     import torch.nn.functional as F
 
-    from kandinsky2_tpu_torch.parallel.launch import RankPool
-
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     cut = t_phase - t_script > SP22_CUT_AT_S
-    steps = 5 if cut else SP22["decoder_steps"]
+    tight = t_phase - t_script > TIGHT_AT_S
+    steps = 2 if tight else 5 if cut else SP22["decoder_steps"]
     lora_steps = 1 if cut else 3
     print(f"phase 22: {t_phase - t_script:.1f} s into the script; sp22-768 and sp20-512 at "
           f"{steps} decoder steps, sp-lora22-768 {lora_steps} timed step(s) (5 and 1 past "
-          f"{SP22_CUT_AT_S} s); the card's memory in use: {smi_memory()}")
-    gloo = RankPool(SP_WORLD, "gloo", device="cuda", init_timeout=300)
-    gloo.start()
+          f"{SP22_CUT_AT_S} s, 2 decoder steps past {TIGHT_AT_S} s); the card's memory in "
+          f"use: {smi_memory()}")
     launches = {}
-    try:
-        # 22a
-        g = torch.Generator(device="cuda").manual_seed(23)
-        rows = {"flash_attention_fwd": _k3_rows(torch, F, g, SP22_K3_SHAPES)}
-        rows.update(_sp_backward_rows(torch, F, SP22_BWD_SHAPES, seed=24))
-        torch.cuda.empty_cache()
-        for r in gloo.run(sp_rank_added_kv, timeout=300):
-            for what, err, tol in r["checks"]:
-                print(f"sp 22a rank {r['rank']}: {what}: {err:.3e} (tol {tol:.3e})")
-                check(err <= tol, f"22a rank {r['rank']}: {what}")
-            print(f"sp 22a rank {r['rank']}: launches {json.dumps(r['launches'])}, "
-                  f"attention calls on the card by the plain route {r['plain_on_card']}")
-            check(all(v > 0 for v in r["launches"].values()),
-                  "22a: a kernel was not launched")
-            check(r["plain_on_card"] == 0, "22a: an attention missed the kernels")
-        print(f"time: phase 22a {time.perf_counter() - t_phase:.1f} s")
+    # 22a
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rows = {"flash_attention_fwd": _k3_rows(torch, F, g, SP22_K3_SHAPES)}
+    rows.update(_sp_backward_rows(torch, F, SP22_BWD_SHAPES, seed=24))
+    torch.cuda.empty_cache()
+    for r in gloo.run(sp_rank_added_kv, timeout=300):
+        for what, err, tol in r["checks"]:
+            print(f"sp 22a rank {r['rank']}: {what}: {err:.3e} (tol {tol:.3e})")
+            check(err <= tol, f"22a rank {r['rank']}: {what}")
+        print(f"sp 22a rank {r['rank']}: launches {json.dumps(r['launches'])}, "
+              f"attention calls on the card by the plain route {r['plain_on_card']}")
+        check(all(v > 0 for v in r["launches"].values()),
+              "22a: a kernel was not launched")
+        check(r["plain_on_card"] == 0, "22a: an attention missed the kernels")
+    print(f"time: phase 22a {time.perf_counter() - t_phase:.1f} s")
 
-        # 22b
-        t0 = time.perf_counter()
-        res = gloo.run(sp_rank_t2i22, steps, timeout=480)
-        launches["sp22"], _ = _sp22_full_report(
-            "sp22-768", res, steps, DECODER_LAUNCHES, smi,
-            f"768^2, prior 25, decoder DDPM {steps}, CFG 4 and 4, bf16; phase 10, "
-            "unsharded: 10.46 GiB")
-        print(f"time: phase 22b {time.perf_counter() - t0:.1f} s")
+    # 22b
+    t0 = time.perf_counter()
+    res = gloo.run(sp_rank_t2i22, steps, timeout=480)
+    launches["sp22"], _ = _sp22_full_report(
+        "sp22-768", res, steps, DECODER_LAUNCHES, smi,
+        f"768^2, prior 25, decoder DDPM {steps}, CFG 4 and 4, bf16; phase 10, "
+        "unsharded: 10.46 GiB")
+    print(f"time: phase 22b {time.perf_counter() - t0:.1f} s")
 
-        # 22c
-        t0 = time.perf_counter()
-        res = gloo.run(sp_rank_t2i20, steps, timeout=480)
-        launches["sp20"], _ = _sp22_full_report(
-            "sp20-512", res, steps, KL_DECODER_LAUNCHES, smi,
-            f"512^2, DDIM {steps} at eta 0.05, guidance 7, bf16")
-        print(f"time: phase 22c {time.perf_counter() - t0:.1f} s")
+    # 22c
+    t0 = time.perf_counter()
+    res = gloo.run(sp_rank_t2i20, steps, timeout=480)
+    launches["sp20"], _ = _sp22_full_report(
+        "sp20-512", res, steps, KL_DECODER_LAUNCHES, smi,
+        f"512^2, DDIM {steps} at eta 0.05, guidance 7, bf16")
+    print(f"time: phase 22c {time.perf_counter() - t0:.1f} s")
 
-        # 22d
-        t0 = time.perf_counter()
-        res = gloo.run(sp_rank_lora22, lora_steps, timeout=480)
-        r0 = res[0]
-        loss_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
-        names = sorted(r0["ref_grads"])
-        a = torch.cat([r0["grads"][n].reshape(-1).double() for n in names])
-        b = torch.cat([r0["ref_grads"][n].reshape(-1).double() for n in names])
-        grad_err = ((a - b).norm() / b.norm()).item()
-        print(f"sp-lora22-768: UNet22 and {r0['n_factors']} factor values built in "
-              f"{max(r['build_s'] for r in res):.2f} s a rank; the unsharded step on rank 0: "
-              f"loss {r0['ref_loss']:.6f}; the sharded warm-up step "
-              f"{max(r['warm_s'] for r in res):.3f} s, loss {r0['loss']:.6f}, rel err "
-              f"{loss_err:.3e} (tol {SP_TRAIN_LOSS_TOL}); the factors' gradients rel_l2 "
-              f"{grad_err:.3e} (tol {SP_TRAIN_GRAD_TOL})")
-        check(loss_err <= SP_TRAIN_LOSS_TOL, "sp-lora22-768: the sharded loss")
-        check(grad_err <= SP_TRAIN_GRAD_TOL, "sp-lora22-768: the factors' gradients")
-        for i, r in enumerate(res):
-            check(r["digests"] == r0["digests"],
-                  f"sp-lora22-768: rank {i}'s factors differ from rank 0's")
-            check(r["same_base"], f"sp-lora22-768 rank {i}: the base changed")
-            check(r["warm_launches"] == SP_LORA22_LAUNCHES,
-                  f"sp-lora22-768 rank {i}: warm-up launches {r['warm_launches']}")
-            for s in r["steps"]:
-                check(s["launches"] == SP_LORA22_LAUNCHES and s["plain_on_card"] == 0,
-                      f"sp-lora22-768 rank {i}: launches {s['launches']}, plain route "
-                      f"{s['plain_on_card']}")
-                check(math.isfinite(s["loss"]), f"sp-lora22-768 rank {i}: loss not finite")
-            print(f"sp-lora22-768 rank {i}: steps " + ", ".join(
-                f"{s['seconds']:.3f} s (all-reduce {s['reduce_s']:.4f} s, loss "
-                f"{s['loss']:.5f})" for s in r["steps"]) + f"; peak {r['peak_gib']:.2f} GiB;"
-                f" launches a step {json.dumps(r['steps'][-1]['launches'])}")
-        n = len(r0["steps"])
-        step_s = sum(max(r["steps"][i]["seconds"] for r in res) for i in range(n)) / n
-        red_s = sum(max(r["steps"][i]["reduce_s"] for r in res) for i in range(n)) / n
-        print(f"sp-lora22-768: {step_s:.4f} s/step (the slowest rank, mean of {n}), the "
-              f"factors' all-reduce {red_s:.4f} s of it; 768², batch 1, mesh (data 1, sp "
-              f"{SP_WORLD}) sharing the card over gloo, bf16 base, rank-4 factors, Adam "
-              f"1e-4; the factors bitwise equal across the ranks after every step, the "
-              f"base unchanged; peak per rank " + ", ".join(
-                  f"{r['peak_gib']:.2f}" for r in res)
-              + f" GiB (lora22-768 unsharded: 6.14 GiB); {smi}")
-        small = r0["small"]
-        print(f"sp-lora22 small fp32 (data 2, sp 2): losses {small['losses'][0]} against "
-              f"unsharded {small['losses'][1]}; factors rel_l2 {small['rel_l2']:.3e} "
-              f"(tol 1e-5)")
-        check(small["rel_l2"] <= 1e-5, "sp-lora22 small fp32: factors")
-        check(all(r["small"]["digests"] == small["digests"] for r in res),
-              "sp-lora22 small fp32: factors differ across the ranks")
-        launches["sp_lora22"] = r0["steps"][-1]["launches"]
-        print(f"time: phase 22d {time.perf_counter() - t0:.1f} s")
-    finally:
-        gloo.close()
+    # 22d
+    t0 = time.perf_counter()
+    res = gloo.run(sp_rank_lora22, lora_steps, timeout=480)
+    r0 = res[0]
+    loss_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    names = sorted(r0["ref_grads"])
+    a = torch.cat([r0["grads"][n].reshape(-1).double() for n in names])
+    b = torch.cat([r0["ref_grads"][n].reshape(-1).double() for n in names])
+    grad_err = ((a - b).norm() / b.norm()).item()
+    print(f"sp-lora22-768: UNet22 and {r0['n_factors']} factor values built in "
+          f"{max(r['build_s'] for r in res):.2f} s a rank; the unsharded step on rank 0: "
+          f"loss {r0['ref_loss']:.6f}; the sharded warm-up step "
+          f"{max(r['warm_s'] for r in res):.3f} s, loss {r0['loss']:.6f}, rel err "
+          f"{loss_err:.3e} (tol {SP_TRAIN_LOSS_TOL}); the factors' gradients rel_l2 "
+          f"{grad_err:.3e} (tol {SP_TRAIN_GRAD_TOL})")
+    check(loss_err <= SP_TRAIN_LOSS_TOL, "sp-lora22-768: the sharded loss")
+    check(grad_err <= SP_TRAIN_GRAD_TOL, "sp-lora22-768: the factors' gradients")
+    for i, r in enumerate(res):
+        check(r["digests"] == r0["digests"],
+              f"sp-lora22-768: rank {i}'s factors differ from rank 0's")
+        check(r["same_base"], f"sp-lora22-768 rank {i}: the base changed")
+        check(r["warm_launches"] == SP_LORA22_LAUNCHES,
+              f"sp-lora22-768 rank {i}: warm-up launches {r['warm_launches']}")
+        for s in r["steps"]:
+            check(s["launches"] == SP_LORA22_LAUNCHES and s["plain_on_card"] == 0,
+                  f"sp-lora22-768 rank {i}: launches {s['launches']}, plain route "
+                  f"{s['plain_on_card']}")
+            check(math.isfinite(s["loss"]), f"sp-lora22-768 rank {i}: loss not finite")
+        print(f"sp-lora22-768 rank {i}: steps " + ", ".join(
+            f"{s['seconds']:.3f} s (all-reduce {s['reduce_s']:.4f} s, loss "
+            f"{s['loss']:.5f})" for s in r["steps"]) + f"; peak {r['peak_gib']:.2f} GiB;"
+            f" launches a step {json.dumps(r['steps'][-1]['launches'])}")
+    n = len(r0["steps"])
+    step_s = sum(max(r["steps"][i]["seconds"] for r in res) for i in range(n)) / n
+    red_s = sum(max(r["steps"][i]["reduce_s"] for r in res) for i in range(n)) / n
+    print(f"sp-lora22-768: {step_s:.4f} s/step (the slowest rank, mean of {n}), the "
+          f"factors' all-reduce {red_s:.4f} s of it; 768², batch 1, mesh (data 1, sp "
+          f"{SP_WORLD}) sharing the card over gloo, bf16 base, rank-4 factors, Adam "
+          f"1e-4; the factors bitwise equal across the ranks after every step, the "
+          f"base unchanged; peak per rank " + ", ".join(
+              f"{r['peak_gib']:.2f}" for r in res)
+          + f" GiB (lora22-768 unsharded: 6.14 GiB); {smi}")
+    small = r0["small"]
+    print(f"sp-lora22 small fp32 (data 2, sp 2): losses {small['losses'][0]} against "
+          f"unsharded {small['losses'][1]}; factors rel_l2 {small['rel_l2']:.3e} "
+          f"(tol 1e-5)")
+    check(small["rel_l2"] <= 1e-5, "sp-lora22 small fp32: factors")
+    check(all(r["small"]["digests"] == small["digests"] for r in res),
+          "sp-lora22 small fp32: factors differ across the ranks")
+    launches["sp_lora22"] = r0["steps"][-1]["launches"]
+    print(f"time: phase 22d {time.perf_counter() - t0:.1f} s")
     return launches, rows
 
 
@@ -5244,7 +5545,7 @@ def _tp_call_counts(pipe) -> dict:
     return calls
 
 
-def tp_rank_t2i21(mesh, steps: int):
+def tp_rank_t2i21(mesh, steps: int, prior_steps: int = 25):
     """23b on one rank: tp21-768.  The full-width 2.1 pipeline (bf16, seed
     0, as 20b's), unsharded on rank 0 first with the noise injected (its
     latents and launches kept), then ``shard(model_parallel=4,
@@ -5266,7 +5567,8 @@ def tp_rank_t2i21(mesh, steps: int):
     rng = np.random.RandomState(20)
     kw = dict(SP21, num_steps=steps, noise=rng.randn(1, 96, 96, 4).astype(np.float32),
               prior_noise=rng.randn(1, 768).astype(np.float32),
-              prior_noise_seq=rng.randn(25, 1, 768).astype(np.float32))
+              prior_noise_seq=rng.randn(25, 1, 768).astype(np.float32)[:prior_steps],
+              prior_steps=str(prior_steps))
     t0 = time.perf_counter()
     pipe = _sp_pipe(torch)
     torch.cuda.synchronize()
@@ -5324,72 +5626,68 @@ def tp_rank_t2i21(mesh, steps: int):
     return out
 
 
-def phase_tp(torch, smi: str, steps: int) -> dict:
-    """23: tensor-parallel inference on 4 gloo ranks sharing the card (a
-    fresh pool under a deadline): 23a the small width in fp32, 23b
-    tp21-768.  Returns tp21-768's launches on rank 0."""
-    from kandinsky2_tpu_torch.parallel.launch import RankPool
-
+def phase_tp(torch, smi: str, steps: int, prior_steps: int, gloo) -> dict:
+    """23: tensor-parallel inference on ``gloo``, 4 gloo ranks sharing the
+    card (every run under a deadline): 23a the small width in fp32, 23b
+    tp21-768 at DDIM ``steps`` and ``prior_steps``.  Returns tp21-768's
+    launches on rank 0."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phase 23: tp21-768 at DDIM {steps}; the card's memory in use: {smi_memory()}")
-    gloo = RankPool(SP_WORLD, "gloo", device="cuda", init_timeout=300)
-    gloo.start()
-    try:
-        # 23a
-        res = gloo.run(tp_rank_small, timeout=300)
-        for case, (rel, spread) in res[0].items():
-            print(f"tp 23a small fp32 {case}: sharded vs unsharded rel_l2 {rel:.4e} (tol "
-                  f"{SP_FP32_TOL}); the ranks' images differ by at most "
-                  f"{max(r[case][1] for r in res):.3e}")
-            check(rel <= SP_FP32_TOL, f"23a {case}")
-            check(all(r[case][1] == 0.0 for r in res), f"23a {case}: the ranks differ")
-        print(f"time: phase 23a {time.perf_counter() - t_phase:.1f} s")
+    print(f"phase 23: tp21-768 at DDIM {steps}, prior {prior_steps}; the card's memory in "
+          f"use: {smi_memory()}")
+    # 23a
+    res = gloo.run(tp_rank_small, timeout=300)
+    for case, (rel, spread) in res[0].items():
+        print(f"tp 23a small fp32 {case}: sharded vs unsharded rel_l2 {rel:.4e} (tol "
+              f"{SP_FP32_TOL}); the ranks' images differ by at most "
+              f"{max(r[case][1] for r in res):.3e}")
+        check(rel <= SP_FP32_TOL, f"23a {case}")
+        check(all(r[case][1] == 0.0 for r in res), f"23a {case}: the ranks differ")
+    print(f"time: phase 23a {time.perf_counter() - t_phase:.1f} s")
 
-        # 23b
-        t0 = time.perf_counter()
-        res = gloo.run(tp_rank_t2i21, steps, timeout=600)
-        r0 = res[0]
-        rep = r0["report"]
-        shape, finite, std, diff = r0["image"]
-        print(f"tp21-768: built the full pipeline on each rank in "
-              f"{max(r['build_s'] for r in res):.2f} s, sharded it in "
-              f"{max(r['shard_s'] for r in res):.2f} s; shard(): {rep['summary']}; "
-              f"fallbacks {rep['fallbacks'][:8]}")
-        check(not rep["fallbacks"] and rep["candidate_frac"] >= 0.9, "tp21-768: coverage")
-        print(f"tp21-768: image {shape} finite {finite} std {std:.4f}, max |sharded - "
-              f"unsharded| {diff:.4e}; latents rel_l2 {r0['latent_rel_l2']:.4e} (tol "
-              f"{SP21_LATENT_TOL}); the ranks' latents differ by at most "
-              f"{max(r['ranks_max_diff'] for r in res):.3e}")
-        check(finite and std > 0 and shape == (1, 768, 768, 3), "tp21-768 image")
-        check(r0["latent_rel_l2"] <= SP21_LATENT_TOL, "tp21-768 latents")
-        check_full_launches("tp21-768 rank 0 unsharded", r0["unsharded_launches"], steps,
-                            encoded=False)
-        for i, r in enumerate(res):
-            check_full_launches(f"tp21-768 rank {i}", r["launches"], steps, encoded=False)
-            check(r["launches"] == r0["unsharded_launches"],
-                  f"tp21-768 rank {i}: launches differ from the unsharded call's")
-            check(r["plain_on_card"] == 0, f"tp21-768 rank {i}: attention missed K3")
-            check(r["ranks_max_diff"] == 0.0, f"tp21-768 rank {i}: latents differ")
-        unet, prior = r0["calls"]["unet"], r0["calls"]["prior"]
-        print(f"tp21-768: collectives an image {json.dumps(r0['collectives'])}; "
-              f"{sorted(set(unet))} a UNet call ({len(unet)} calls), "
-              f"{sorted(set(prior))} a prior call ({len(prior)} calls), "
-              f"{sum(r0['collectives'].values()) - sum(unet) - sum(prior)} in the text "
-              f"encoders, the CLIP towers and the MoVQ; host seconds in the UNet calls "
-              f"{sum(r0['calls']['unet_s']):.3f}, in the prior calls "
-              f"{sum(r0['calls']['prior_s']):.3f}")
-        sec = max(r["seconds"] for r in res)
-        print(f"tp21-768: {sec:.4f} s/image on {SP_WORLD} ranks sharing the card (768^2, "
-              f"DDIM {steps}, prior 25, CFG 4, bf16, mesh (data 1, model {SP_WORLD})); "
-              f"weights per rank " + ", ".join(f"{r['weights_gib']:.2f}" for r in res)
-              + f" GiB of {r0['weights_gib_unsharded']:.2f}; peak memory per rank "
-              + ", ".join(f"{r['peak_gib']:.2f}" for r in res)
-              + f" GiB (phase 5, unsharded: 7.37 GiB); {smi}")
-        print(f"time: phase 23b {time.perf_counter() - t0:.1f} s")
-    finally:
-        gloo.close()
+    # 23b
+    t0 = time.perf_counter()
+    res = gloo.run(tp_rank_t2i21, steps, prior_steps, timeout=600)
+    r0 = res[0]
+    rep = r0["report"]
+    shape, finite, std, diff = r0["image"]
+    print(f"tp21-768: built the full pipeline on each rank in "
+          f"{max(r['build_s'] for r in res):.2f} s, sharded it in "
+          f"{max(r['shard_s'] for r in res):.2f} s; shard(): {rep['summary']}; "
+          f"fallbacks {rep['fallbacks'][:8]}")
+    check(not rep["fallbacks"] and rep["candidate_frac"] >= 0.9, "tp21-768: coverage")
+    print(f"tp21-768: image {shape} finite {finite} std {std:.4f}, max |sharded - "
+          f"unsharded| {diff:.4e}; latents rel_l2 {r0['latent_rel_l2']:.4e} (tol "
+          f"{SP21_LATENT_TOL}); the ranks' latents differ by at most "
+          f"{max(r['ranks_max_diff'] for r in res):.3e}")
+    check(finite and std > 0 and shape == (1, 768, 768, 3), "tp21-768 image")
+    check(r0["latent_rel_l2"] <= SP21_LATENT_TOL, "tp21-768 latents")
+    check_full_launches("tp21-768 rank 0 unsharded", r0["unsharded_launches"], steps,
+                        encoded=False)
+    for i, r in enumerate(res):
+        check_full_launches(f"tp21-768 rank {i}", r["launches"], steps, encoded=False)
+        check(r["launches"] == r0["unsharded_launches"],
+              f"tp21-768 rank {i}: launches differ from the unsharded call's")
+        check(r["plain_on_card"] == 0, f"tp21-768 rank {i}: attention missed K3")
+        check(r["ranks_max_diff"] == 0.0, f"tp21-768 rank {i}: latents differ")
+    unet, prior = r0["calls"]["unet"], r0["calls"]["prior"]
+    print(f"tp21-768: collectives an image {json.dumps(r0['collectives'])}; "
+          f"{sorted(set(unet))} a UNet call ({len(unet)} calls), "
+          f"{sorted(set(prior))} a prior call ({len(prior)} calls), "
+          f"{sum(r0['collectives'].values()) - sum(unet) - sum(prior)} in the text "
+          f"encoders, the CLIP towers and the MoVQ; host seconds in the UNet calls "
+          f"{sum(r0['calls']['unet_s']):.3f}, in the prior calls "
+          f"{sum(r0['calls']['prior_s']):.3f}")
+    sec = max(r["seconds"] for r in res)
+    print(f"tp21-768: {sec:.4f} s/image on {SP_WORLD} ranks sharing the card (768^2, "
+          f"DDIM {steps}, prior {prior_steps}, CFG 4, bf16, mesh (data 1, model "
+          f"{SP_WORLD})); "
+          f"weights per rank " + ", ".join(f"{r['weights_gib']:.2f}" for r in res)
+          + f" GiB of {r0['weights_gib_unsharded']:.2f}; peak memory per rank "
+          + ", ".join(f"{r['peak_gib']:.2f}" for r in res)
+          + f" GiB (phase 5, unsharded: 7.37 GiB); {smi}")
+    print(f"time: phase 23b {time.perf_counter() - t0:.1f} s")
     return r0["launches"]
 
 
@@ -5599,29 +5897,51 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("phase 19c")
 
-    # 20. spatial parallelism: the primitives, sp21-768 and highres-sp on 4
-    # gloo ranks sharing the card (and the primitives on 1 NCCL rank); 20b
-    # at DDIM 5 where the script would otherwise pass LATE_CUT_AT_S (phase 20
-    # takes about a minute at DDIM 10)
-    sp_steps = SP21["num_steps"] if time.perf_counter() - t_script + 60 <= LATE_CUT_AT_S else 5
-    sp21_counts, highres_counts, sp_rows = phase_spatial(torch, smi, sp_steps)
-    lap("phase 20")
+    # 20-24: the parallel phases, every one on the same pool of 4 gloo
+    # ranks sharing the card (started once: a start cost up to 25 s) and 20a and
+    # 21a on 1 NCCL rank too.  The ranks' allocators grow their segments in
+    # place (less fragmentation where four ranks fill the card at 4096²);
+    # this process's is set already
+    from kandinsky2_tpu_torch.parallel.launch import RankPool
 
-    # 23. tensor-parallel inference: the small width and tp21-768 on a fresh
-    # pool of 4 gloo ranks sharing the card, at sp21-768's depth (before 21
-    # and 22, whose depth follows the script's clock)
-    tp21_counts = phase_tp(torch, smi, sp_steps)
-    lap("phase 23")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    gloo = RankPool(SP_WORLD, "gloo", device="cuda", init_timeout=300)
+    nccl = RankPool(1, "nccl", device="cuda", init_timeout=300)
+    gloo.start()
+    nccl.start()
+    try:
+        # 20. spatial parallelism: the primitives, sp21-768 and highres-sp;
+        # 20b at DDIM 5 where the script would otherwise pass LATE_CUT_AT_S
+        # (phase 20 takes about a minute at DDIM 10)
+        sp_steps = (SP21["num_steps"] if time.perf_counter() - t_script + 60 <= LATE_CUT_AT_S
+                    else 5)
+        sp21_counts, highres_counts, sp_rows = phase_spatial(torch, smi, sp_steps, gloo,
+                                                             nccl)
+        lap("phase 20")
 
-    # 21. row-sharded training: the backward primitives, the small width and
-    # sp-train-768 on 4 gloo ranks sharing the card
-    sp_train_counts, sp_bwd_rows = phase_sp_train(torch, smi, t_script)
-    lap("phase 21")
+        # 23. tensor-parallel inference: the small width and tp21-768 at
+        # sp21-768's depth, its prior at 5 steps past TIGHT_AT_S (before 21
+        # and 22, whose depth follows the script's clock)
+        prior_steps = 25 if time.perf_counter() - t_script <= TIGHT_AT_S else 5
+        tp21_counts = phase_tp(torch, smi, sp_steps, prior_steps, gloo)
+        lap("phase 23")
 
-    # 22. row-sharded 2.2 and 2.0 inference and sharded LoRA tuning of the
-    # UNet22 on a fresh pool of 4 gloo ranks sharing the card
-    sp22_counts, sp22_rows = phase_sp22(torch, smi, t_script)
-    lap("phase 22")
+        # 21. row-sharded training: the backward primitives, the small width
+        # and sp-train-768; 24. ZeRO-3 (FSDP) training, the small width and
+        # fsdp-train-768
+        sp_train_counts, sp_bwd_rows = phase_sp_train(torch, smi, t_script, gloo, nccl)
+        nccl.close()
+        lap("phase 21")
+        fsdp_counts = phase_fsdp(torch, smi, t_script, gloo)
+        lap("phase 24")
+
+        # 22. row-sharded 2.2 and 2.0 inference and sharded LoRA tuning of the
+        # UNet22
+        sp22_counts, sp22_rows = phase_sp22(torch, smi, t_script, gloo)
+        lap("phase 22")
+    finally:
+        gloo.close()
+        nccl.close()
 
     meta = {
         "group_norm_stats": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
@@ -5664,6 +5984,7 @@ def main() -> int:
             "sp21_launches": sp21_counts[name],
             "highres_sp_launches": highres_counts[name],
             "sp_train_launches": sp_train_counts[name],
+            "fsdp_train_launches": fsdp_counts[name],
             **{f"{cell}_launches": sp22_counts[cell][name] for cell in sp22_counts},
             "tp21_launches": tp21_counts[name],
             "max_abs_err": max(r["err"] for r in rows),

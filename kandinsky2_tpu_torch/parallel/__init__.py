@@ -1,8 +1,10 @@
-"""Spatial (row), data and tensor parallelism over ``torch.distributed``,
-the counterpart of ``kandinsky2_tpu/parallel/`` but its FSDP half:
+"""Spatial (row), data, tensor and ZeRO-3 state parallelism over
+``torch.distributed``, the counterpart of ``kandinsky2_tpu/parallel/``:
 ``mesh`` (the one-axis mesh of the ranks, the ``(data, sp)`` mesh of
 sharded training, and the ``(data, model)`` mesh of ``make_mesh`` with the
-tensor-parallel rule, its audit, ``shard_params`` and ``shard_pipeline``),
+tensor-parallel rule, its audit, ``shard_params`` and ``shard_pipeline``,
+and the FSDP placement ``fsdp_state_shardings``), ``fsdp`` (the sliced
+train state, its gathers by unit and the whole-state gather and place),
 ``tensor_parallel`` (the column- and row-parallel layers),
 ``collectives`` (ppermute, psum, pmean, all_gather, each differentiable
 through its transpose, and the bucketed gradient all-reduce
@@ -18,9 +20,11 @@ from .mesh import (
     Mesh,
     MeshAxis,
     ShardingReport,
+    _fsdp_augment,
     axis_index,
     axis_size,
     data_sharding,
+    fsdp_state_shardings,
     make_mesh,
     replicate,
     shard_params,

@@ -33,8 +33,12 @@ sharded form of ``parallel/tensor_parallel.py``, which gathers or sums
 the output over the model axis.  Ranks that differ only on the data axis
 compute the same thing, as JAX's placement replicates the work there.
 
-The FSDP half of the JAX module (``fsdp_state_shardings``,
-``_fsdp_augment``) is not ported yet.
+ZeRO-3 state sharding (``_fsdp_augment``, ``fsdp_state_shardings``): JAX's
+rule, decided on JAX's view of each parameter as the tensor-parallel rule
+is, gives every large leaf of the train state (parameters, EMA shadow,
+optimizer moments) a shard over the ``data`` axis on its largest dim that
+the axis divides; ``parallel/fsdp.py`` keeps each rank's slice and
+gathers the whole parameters for the step.
 """
 
 from __future__ import annotations
@@ -448,6 +452,82 @@ def shard_params(module: nn.Module, mesh: Mesh, min_size: int = 1024,
                 "bytes sharded; did a module rename break the marker rules?"
             )
     return module
+
+
+def _fsdp_augment(spec: PartitionSpec, shape, axis: str, axis_size: int,
+                  min_elems: int) -> PartitionSpec:
+    """Add a ZeRO-style shard of ``axis`` to ``spec`` on the largest dim that
+    divides evenly and is not already sharded.  Returns ``spec`` unchanged for
+    small leaves (< ``min_elems`` elements) or when nothing divides."""
+    size = int(math.prod(shape))
+    if size < min_elems or axis_size <= 1:
+        return spec
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    best, best_dim = -1, -1
+    for i, (d, e) in enumerate(zip(shape, entries)):
+        if e is None and d % axis_size == 0 and d > best:
+            best, best_dim = d, i
+    if best_dim < 0:
+        return spec
+    entries[best_dim] = axis
+    return P(*entries)
+
+
+def _torch_entries(spec: PartitionSpec, dims: tuple) -> PartitionSpec:
+    """A JAX spec moved onto the torch dims (``dims``: the torch dim of each
+    JAX dim, from :func:`jax_view`), one entry a torch dim."""
+    entries = [None] * len(dims)
+    for i, ax in enumerate(spec):
+        if ax is not None:
+            entries[dims[i]] = ax
+    return P(*entries)
+
+
+def fsdp_state_shardings(state, mesh, *, axis: str = DATA_AXIS, tp: bool = False,
+                         min_elems: int = 1 << 16, tp_min_size: int = 1024) -> dict:
+    """ZeRO-3-style specs for a whole train state (``train_unclip.TrainState``:
+    its model's parameters, its EMA shadow and its optimizer's state): every
+    large leaf is sharded over the ``axis`` mesh axis on its largest
+    evenly-divisible dimension, dividing optimizer+parameter memory by the
+    axis size.
+
+    With ``tp=True``, parameter (and EMA) leaves first get the tensor-parallel
+    rule (`_param_spec`) on the model axis, then the FSDP shard on a remaining
+    dimension — composed TP x FSDP.  JAX matches an optimizer-state leaf by
+    its shape alone; here each moment takes its own parameter's spec (an
+    Adafactor row or column factor its parameter's without the reduced dim),
+    so a rank updates exactly the slice it holds.
+
+    Each spec is decided on JAX's view of the whole parameter (:func:`jax_view`:
+    flax path, JAX shape, so the largest-dim rule breaks ties on JAX's layout)
+    and returned on the torch dims: ``{"params": {name: spec}, "ema": {name:
+    spec} or None, "optimizer": {name: {state key: spec}}}``.  ``mesh`` is a
+    :class:`Mesh` or its ``{axis: size}`` (an audit needs no process group);
+    a parameter already cut by ``parallel/fsdp.py`` or ``shard_params`` is
+    read at its whole shape."""
+    from .fsdp import full_shape, optimizer_state_specs
+
+    axis_sizes = dict(mesh) if isinstance(mesh, dict) else mesh.shape
+    axis_size = axis_sizes.get(axis, 1)
+    params = {}
+    for name, p, owner in _named_params(state.model):
+        whole = torch.empty(full_shape(p), dtype=p.dtype, device="meta")
+        path, arr, dims = jax_view(name, whole, owner)
+        spec = P()
+        if tp and axis_sizes.get(MODEL_AXIS, 1) > 1:
+            spec = _param_spec(path, arr, tp_min_size)
+            ok = all(arr.shape[i] % axis_sizes[ax] == 0
+                     for i, ax in enumerate(spec) if ax is not None)
+            if not ok:
+                spec = P()
+        params[name] = _torch_entries(
+            _fsdp_augment(spec, arr.shape, axis, axis_size, min_elems), dims)
+    ema = getattr(state, "ema_params", None)
+    optimizer = getattr(state, "optimizer", None)
+    return {"params": params,
+            "ema": None if ema is None else {name: params[name] for name in ema},
+            "optimizer": {} if optimizer is None else
+            optimizer_state_specs(optimizer, state.model, params)}
 
 
 def shard_pipeline(pipe, mesh: Optional[Mesh] = None,

@@ -65,12 +65,13 @@ def load_checkpoint(fname: str) -> dict:
 
 
 def save_train_state(path: str, state, step: Optional[int] = None) -> str:
-    """Write ``<path>/state_<step>.pt`` from ``state.state_dict()`` and the
-    ``latest_state`` marker."""
+    """Write ``<path>/state_<step>.pt`` from ``state.state_dict()`` (or
+    ``state`` itself where it is that dict already, ``step`` then given)
+    and the ``latest_state`` marker."""
     step = state.step if step is None else step
     os.makedirs(path, exist_ok=True)
     fname = os.path.join(path, f"state_{step:08d}.pt")
-    _atomic_save(state.state_dict(), fname)
+    _atomic_save(state if isinstance(state, dict) else state.state_dict(), fname)
     _write_marker(path, "latest_state", step, fname)
     return fname
 

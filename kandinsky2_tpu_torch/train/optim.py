@@ -37,11 +37,18 @@ take (TypeError, as optax raises), before anything is built.
 
 ``Adam`` and ``SGD`` step all their tensors with ``torch._foreach_*``
 ops; ``Adafactor``'s factored statistics are per tensor, one pass over
-the tensors a step.  ``torch.optim.Adafactor`` follows another recipe
-(relative step sizes, its own decay and epsilons), so it is not used.
-The state of each tensor is ``step`` and its moments; a moment kept in
-another dtype than its parameter's keeps it through ``load_state_dict``
-(which would cast it to the parameter's).
+the tensors a step.  A parameter that holds a slice of a whole tensor
+(``parallel/fsdp.py``'s ``mesh_cuts``) is stepped as its whole tensor
+would be: the elementwise steps (Adam, SGD, the EMA) run on the slice as
+they are, while Adafactor decides the factored dims on the whole shape and
+takes each of its means over a cut dim (the row and column means of g²,
+the row factor's normaliser, the RMS of the update and of the parameter)
+as a ``psum`` of the slices' sums over the whole count, three flat
+``psum``s a step for all the sliced tensors.  ``torch.optim.Adafactor``
+follows another recipe (relative step sizes, its own decay and epsilons),
+so it is not used.  The state of each tensor is ``step`` and its moments;
+a moment kept in another dtype than its parameter's keeps it through
+``load_state_dict`` (which would cast it to the parameter's).
 
 Layouts differ (torch OI / OIHW against flax IO / HWIO), but the factored
 pair is always the two largest dims, so a tensor factors over the same
@@ -56,11 +63,15 @@ the trainable parameters (the counterpart of ``masked_optimizer``).
 
 from __future__ import annotations
 
+import math
 from collections import defaultdict
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import psum
+from ..parallel.fsdp import cuts, full_shape
 
 RES_MARKERS = ("in_layers", "h_upd", "x_upd", "emb_layers", "out_layers")
 ATTN_MARKERS = ("proj_out", "qkv")
@@ -144,6 +155,47 @@ def _rms(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.mean(x * x))
 
 
+class _Mean:
+    __slots__ = ("value",)
+
+
+class _SlicedMeans:
+    """Means of slices over dims of their whole tensors: a local mean where
+    no reduced dim is cut, else the local sum, kept until :meth:`flush`
+    ``psum``s every pending sum over the same axes in one flat call and
+    divides each by its whole count."""
+
+    def __init__(self):
+        self.pending = []
+
+    def mean(self, x, dim, cut: dict, whole, keepdim: bool = False) -> _Mean:
+        """The mean of ``x`` over ``dim`` (None: every dim); ``cut`` {dim:
+        axis} and ``whole`` (the whole shape) describe ``x``'s slice."""
+        out = _Mean()
+        dims = tuple(range(x.dim())) if dim is None else (dim,)
+        axes = tuple(cut[d] for d in dims if d in cut)
+        if not axes:
+            out.value = x.mean() if dim is None else x.mean(dim, keepdim=keepdim)
+            return out
+        part = x.sum() if dim is None else x.sum(dim, keepdim=keepdim)
+        self.pending.append((out, part, axes, math.prod(whole[d] for d in dims)))
+        return out
+
+    def flush(self) -> None:
+        groups = {}
+        for item in self.pending:
+            key = (tuple(ax.name for ax in item[2]), item[1].dtype)
+            groups.setdefault(key, []).append(item)
+        for items in groups.values():
+            flat = torch.cat([part.reshape(-1) for _, part, _, _ in items])
+            for ax in items[0][2]:
+                flat = psum(flat, ax)
+            for (out, part, _, count), s in zip(
+                    items, flat.split([part.numel() for _, part, _, _ in items])):
+                out.value = s.view_as(part) / count
+        self.pending = []
+
+
 class _OptaxOptimizer(torch.optim.Optimizer):
     """A torch optimizer whose moments may be kept in another dtype than
     their parameter's, and keep it through ``load_state_dict``."""
@@ -190,12 +242,19 @@ class Adafactor(_OptaxOptimizer):
         if closure is not None:
             raise ValueError("Adafactor takes no closure")
         for group in self.param_groups:
-            for p in self._stepping(group):
-                p.sub_(self._update(p, p.grad, group))
+            params = self._stepping(group)
+            for p in params:
+                if not cuts(p):
+                    p.sub_(self._update(p, p.grad, group))
+            sliced = [p for p in params if cuts(p)]
+            if sliced:
+                self._step_sliced(sliced, group)
 
-    def _update(self, p, grad, group) -> torch.Tensor:
+    def _begin(self, p, group):
+        """(state, factored dims on the whole shape, keep, mix) of ``p``'s
+        step, its state made on the first."""
         state = self.state[p]
-        dims = _factored_dims(tuple(p.shape), group["factored"],
+        dims = _factored_dims(full_shape(p), group["factored"],
                               group["min_dim_size_to_factor"])
         if not state:
             state["step"] = 0
@@ -212,7 +271,10 @@ class Adafactor(_OptaxOptimizer):
         with np.errstate(all="ignore"):
             t = np.float32(state["step"] - group["decay_offset"] + 1)
             decay = np.float32(1) - t ** np.float32(-group["decay_rate"])
-        keep, mix = float(decay), float(np.float32(1) - decay)
+        return state, dims, float(decay), float(np.float32(1) - decay)
+
+    def _update(self, p, grad, group) -> torch.Tensor:
+        state, dims, keep, mix = self._begin(p, group)
         grad_sqr = grad * grad + group["eps"]
         if dims is None:
             v = state["v"].mul_(keep).add_(grad_sqr, alpha=mix)
@@ -225,12 +287,75 @@ class Adafactor(_OptaxOptimizer):
             row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt()
             u = grad * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
         state["step"] += 1
+        return self._finish(p, u, state, group,
+                            _rms(u) if group["clipping_threshold"] is not None else None,
+                            _rms(p) if group["multiply_by_parameter_scale"] else None)
+
+    def _step_sliced(self, params, group) -> None:
+        """The step of parameters that hold slices (``parallel/fsdp.py``):
+        ``_update``'s arithmetic on the slice, each mean over a cut dim the
+        sum over the slice, ``psum``'d over the cut's axes, over the whole
+        count.  Three flat ``psum``s a step: the g² row and column sums with
+        Σp², the row factor's normaliser, then Σu²."""
+        means = _SlicedMeans()
+        jobs = []
+        for p in params:
+            state, dims, keep, mix = self._begin(p, group)
+            cut, whole = dict(cuts(p)), full_shape(p)
+            grad_sqr = p.grad * p.grad + group["eps"]
+            job = {"p": p, "state": state, "dims": dims, "keep": keep, "mix": mix,
+                   "cut": cut, "whole": whole, "grad_sqr": grad_sqr}
+            if dims is not None:
+                d1, d0 = dims
+                job["row"] = means.mean(grad_sqr, d0, cut, whole)
+                job["col"] = means.mean(grad_sqr, d1, cut, whole)
+            if group["multiply_by_parameter_scale"]:
+                job["p_ms"] = means.mean(p * p, None, cut, whole)
+            jobs.append(job)
+        means.flush()
+        for job in jobs:
+            state, dims, grad = job["state"], job["dims"], job["p"].grad
+            if dims is None:
+                v = state["v"].mul_(job["keep"]).add_(job["grad_sqr"], alpha=job["mix"])
+                job["u"] = grad * v.rsqrt()
+                continue
+            d1, d0 = dims
+            state["v_row"].mul_(job["keep"]).add_(job["row"].value, alpha=job["mix"])
+            state["v_col"].mul_(job["keep"]).add_(job["col"].value, alpha=job["mix"])
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_cut = {d - (d > d0): ax for d, ax in job["cut"].items() if d != d0}
+            row_whole = job["whole"][:d0] + job["whole"][d0 + 1:]
+            job["row_mean"] = means.mean(state["v_row"], reduced_d1, row_cut, row_whole,
+                                         keepdim=True)
+        means.flush()
+        for job in jobs:
+            state, dims, grad = job["state"], job["dims"], job["p"].grad
+            if dims is not None:
+                d1, d0 = dims
+                row_factor = (state["v_row"] / job["row_mean"].value).rsqrt()
+                col_factor = state["v_col"].rsqrt()
+                job["u"] = grad * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            state["step"] += 1
+            if group["clipping_threshold"] is not None:
+                job["u_ms"] = means.mean(job["u"] * job["u"], None, job["cut"],
+                                         job["whole"])
+        means.flush()
+        for job in jobs:
+            rms = lambda key: torch.sqrt(job[key].value) if key in job else None
+            job["p"].sub_(self._finish(job["p"], job["u"], job["state"], group,
+                                       rms("u_ms"), rms("p_ms")))
+
+    @staticmethod
+    def _finish(p, u, state, group, rms_u, rms_p) -> torch.Tensor:
+        """The update after the second-moment scaling: the clip (``rms_u``
+        the RMS of ``u``), the learning rate, the parameter scale (``rms_p``
+        that of ``p`` before the step), the momentum and the weight decay."""
         if group["clipping_threshold"] is not None:
-            u = u / torch.clamp(_rms(u) / group["clipping_threshold"], min=1.0)
+            u = u / torch.clamp(rms_u / group["clipping_threshold"], min=1.0)
         if group["learning_rate"] is not None:
             u = u * group["learning_rate"]
         if group["multiply_by_parameter_scale"]:
-            u = u * torch.clamp(_rms(p), min=1e-3)
+            u = u * torch.clamp(rms_p, min=1e-3)
         if group["momentum"] is not None:
             m, ema = group["momentum"], state["ema"]
             wide = torch.promote_types(u.dtype, ema.dtype)

@@ -60,6 +60,9 @@ class FP32MasterOptimizer:
     def __init__(self, params, optimizer_factory: Callable):
         self.live = list(params)
         self.masters = [p.detach().float().clone().requires_grad_() for p in self.live]
+        for p, m in zip(self.live, self.masters):
+            if hasattr(p, "mesh_cuts"):  # a slice (parallel/fsdp.py): its master too
+                m.mesh_cuts = p.mesh_cuts
         self.inner = optimizer_factory(self.masters)
 
     @torch.no_grad()

@@ -22,6 +22,7 @@ latents times the mask.
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
 import numpy as np
 import torch
@@ -137,41 +138,49 @@ def run(cfg: dict, device="cuda"):
     else gloo (the ranks sharing the card, or on the CPU); each rank runs
     the spatial x data parallel step (``train_unclip(mesh_shape=(D, S))``)
     on the same batches, rank 0 writes the checkpoints, and ``run`` returns
-    rank 0's ``{"step", "world"}``.  ``parallel: {fsdp: N}`` raises: the
-    ZeRO-sharded state is not ported."""
+    rank 0's ``{"step", "world"}``.  ``parallel: {fsdp: N}`` spawns N ranks
+    the same way, each running the ZeRO-sharded step
+    (``train_unclip(fsdp=N)``); as in the JAX CLI, ``fsdp`` wins over
+    ``data`` and ``sp`` in the same mapping.  ``parallel`` must be a
+    mapping: anything else raises TypeError before anything is built."""
     par = cfg.get("parallel")
     if par:
+        if not isinstance(par, dict):
+            raise TypeError(f"parallel: a mapping, {{data: D, sp: S}} or {{fsdp: N}}; "
+                            f"got {par!r}")
         if "fsdp" in par:
-            raise NotImplementedError(
-                "parallel: {fsdp: N}: the ZeRO-sharded train state is not ported to "
-                "PyTorch yet (ROADMAP.md Queue 1 item 4, part 3, slice b); use "
-                "parallel: {data: D, sp: S}")
+            if par["fsdp"] is None:
+                return _train(cfg, device)
+            return run_parallel(cfg, device=device, fsdp=int(par["fsdp"]))
         return run_parallel(cfg, (int(par.get("data", 1)), int(par.get("sp", 1))),
                             device)
     return _train(cfg, device)
 
 
-def run_parallel(cfg: dict, mesh_shape: tuple, device="cuda"):
-    """``run`` on a (data, sp) mesh of D·S ranks spawned here, under a
-    deadline of a week; rank 0's summary."""
+def run_parallel(cfg: dict, mesh_shape: Optional[tuple] = None, device="cuda",
+                 fsdp: Optional[int] = None):
+    """``run`` on a (data, sp) mesh of D·S ranks, or on ``fsdp`` ranks of
+    the sharded state, spawned here under a deadline of a week; rank 0's
+    summary."""
     from ..parallel.launch import RankPool
 
-    world = mesh_shape[0] * mesh_shape[1]
+    world = fsdp if fsdp is not None else mesh_shape[0] * mesh_shape[1]
     backend = ("nccl" if device == "cuda" and torch.cuda.device_count() >= world
                else "gloo")
     with RankPool(world, backend, device=device) as pool:
-        return pool.run(_train_rank, cfg, tuple(mesh_shape), device,
+        return pool.run(_train_rank, cfg, mesh_shape, device, fsdp,
                         timeout=7 * 86400.0)[0]
 
 
-def _train_rank(mesh, cfg: dict, mesh_shape: tuple, device: str) -> dict:
+def _train_rank(mesh, cfg: dict, mesh_shape, device: str, fsdp=None) -> dict:
     """One rank of ``run_parallel``: the same seeded masks on every rank."""
     np.random.seed(0)
-    state = _train(cfg, device, mesh_shape)
-    return {"step": state.step, "world": mesh_shape[0] * mesh_shape[1]}
+    state = _train(cfg, device, tuple(mesh_shape) if mesh_shape else None, fsdp)
+    world = fsdp if fsdp is not None else mesh_shape[0] * mesh_shape[1]
+    return {"step": None if state is None else state.step, "world": world}
 
 
-def _train(cfg: dict, device, mesh_shape=None):
+def _train(cfg: dict, device, mesh_shape=None, fsdp=None):
     optimizer_factory = optimizer_from_config(cfg["optim_params"])
     pipe = build_pipeline(cfg, device)
     dtr = cfg["data"]["train"]
@@ -199,6 +208,7 @@ def _train(cfg: dict, device, mesh_shape=None):
         remat=bool(cfg.get("remat", False)),
         accum_steps=int(cfg.get("accum_steps", 1)),
         mesh_shape=mesh_shape,
+        fsdp=fsdp,
     )
 
 

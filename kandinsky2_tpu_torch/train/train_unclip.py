@@ -15,9 +15,15 @@ trainer_2_1_uclip.py:39-81), on one device or over a mesh of ranks.
   ranks: examples sharded over ``data``, latent rows over ``sp`` (the
   row-sharded UNet of ``parallel/spatial.py``), parameters, optimizer and
   EMA replicated.
+* ``make_fsdp_train_fn`` — the same step with the train state ZeRO-3-sharded
+  over the ``data`` axis (``parallel/fsdp.py``): each rank holds a slice of
+  every large parameter, EMA and optimizer tensor, gathers the whole
+  parameters block by block for its examples, and updates its slices; with
+  ``tp`` the tensor-parallel layers of ``shard_params`` on ``model`` too.
 * ``train_unclip`` — the loop with its periodic whole-state save and its
   resume, then the inference weight export; ``mesh_shape=(d, s)`` runs it
-  on every rank of a ``d·s``-rank group through ``make_spdp_train_fn``.
+  on every rank of a ``d·s``-rank group through ``make_spdp_train_fn``,
+  ``fsdp=N`` on N ranks through ``make_fsdp_train_fn``.
 
 Freezing (train_utils/utils.py:212-229) is ``requires_grad_(False)`` on the
 frozen parameters, and the optimizer holds only the trainable ones.  The
@@ -33,8 +39,9 @@ Sharded steps follow the JAX step's convention inside
 are their transposes (``parallel/collectives.py``), and the gradients are
 ``pmean``'d over ``sp`` and then over ``data``: the result is the
 unsharded gradient of the whole batch, bitwise the same on every rank, so
-the replicated optimizer and EMA stay bitwise equal.  Not in this module
-yet: the FSDP train function (``make_fsdp_train_fn``).
+the replicated optimizer and EMA stay bitwise equal.  The FSDP step scales
+its gradients with ``parallel.fsdp.reduce_grads`` instead: a slice's
+gradient arrives summed over the ranks by the gather's reduce-scatter.
 """
 
 from __future__ import annotations
@@ -43,14 +50,24 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..configs import schedule_kwargs
 from ..diffusion.gaussian import LossType, MeanType, Schedule, VarType, make_schedule
 from ..diffusion.gaussian import training_losses
+from ..parallel import fsdp as _fsdp
 from ..parallel import spatial as _sp
 from ..parallel.collectives import pmean, pmean_grads
+from ..parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    fsdp_state_shardings,
+    make_mesh,
+    shard_params,
+)
 from .checkpoint import (
     latest_train_state,
     restore_train_state,
@@ -82,6 +99,15 @@ class TrainState:
     step: int = 0
 
     def state_dict(self) -> dict:
+        return self.local_state_dict()
+
+    def load_state_dict(self, saved: dict) -> None:
+        """Restore in place; raise ValueError if the saved state was built
+        with another model, optimizer, EMA or sampler structure."""
+        self.load_local_state_dict(saved)
+
+    def local_state_dict(self) -> dict:
+        """The tensors this process holds (a sharded state's slices)."""
         return {
             "params": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -91,10 +117,9 @@ class TrainState:
             "generator": self.generator.get_state(),
         }
 
-    def load_state_dict(self, saved: dict) -> None:
-        """Restore in place; raise ValueError if the saved state was built
-        with another model, optimizer, EMA or sampler structure."""
-        have = self.state_dict()
+    def load_local_state_dict(self, saved: dict) -> None:
+        """Load tensors in the shapes this process holds them."""
+        have = self.local_state_dict()
         drift = [k for k in ("ema", "sampler") if (saved[k] is None) != (have[k] is None)]
         if set(saved["params"]) != set(have["params"]):
             drift.append("params")
@@ -116,6 +141,20 @@ class TrainState:
         self.generator.set_state(saved["generator"])
 
 
+class FSDPTrainState(TrainState):
+    """A ``TrainState`` sharded by ``make_fsdp_train_fn``: its ``state_dict``
+    gathers the whole state (collective: every rank calls it) in the
+    unsharded format, its ``load_state_dict`` keeps this rank's slices of
+    such a dict, so whole-state checkpoints move between sharded and
+    unsharded runs."""
+
+    def state_dict(self) -> dict:
+        return _fsdp.gather_state(self)
+
+    def load_state_dict(self, saved: dict) -> None:
+        _fsdp.place_state(self, saved)
+
+
 def unclip_loss(unet: nn.Module, sched: Schedule, batch: dict, t, noise, weights,
                 *, mean_type: MeanType, var_type: VarType, loss_type: LossType,
                 remat: bool = False, sp_axis=None):
@@ -132,7 +171,11 @@ def unclip_loss(unet: nn.Module, sched: Schedule, batch: dict, t, noise, weights
 
     def model_fn(x_t, t_model):
         if remat:
-            return checkpoint(unet, x_t, t_model, *cond, use_reentrant=False, **inpaint)
+            # the recomputation runs the whole forward (no early stop), so the
+            # hooks around each block (the FSDP gathers) run in pairs
+            with set_checkpoint_early_stop(False):
+                return checkpoint(unet, x_t, t_model, *cond, use_reentrant=False,
+                                  **inpaint)
         return unet(x_t, t_model, *cond, **inpaint)
 
     terms = training_losses(
@@ -185,6 +228,7 @@ def make_unclip_train_step(
     accum_steps: int = 1,
     data_axis=None,
     sp_axis=None,
+    reduce_grads: Optional[Callable] = None,
 ):
     """(init_state, train_step) for ``unet`` on the device its parameters
     lie on.
@@ -194,12 +238,15 @@ def make_unclip_train_step(
     the trainable parameters with ``optimizer_factory``, the EMA shadow (a
     copy of every parameter), the sampler and the generator.
 
-    ``train_step(state, batch, t=None, noise=None)`` runs one step in place
-    and returns the metrics (mse, vb, loss) as 0-dim tensors.  ``t`` [B]
-    and ``noise`` (the latents' shape) are drawn from ``state.generator``
-    (t first) unless given.  ``accum_steps`` > 1 splits the batch into that
-    many microbatches and accumulates their gradients: the update is the
-    full batch's, while activation memory is one microbatch's.
+    ``train_step(state, batch, t=None, noise=None, rows=None)`` runs one
+    step in place and returns the metrics (mse, vb, loss) as 0-dim tensors.
+    ``t`` [B] and ``noise`` (the latents' shape) are drawn from
+    ``state.generator`` (t first) unless given.  ``rows`` (a slice of the
+    batch's examples): the step draws for the whole batch as the unsharded
+    step does, then trains on those examples alone (the FSDP step's
+    share).  ``accum_steps`` > 1 splits the batch into that many
+    microbatches and accumulates their gradients: the update is the full
+    batch's, while activation memory is one microbatch's.
 
     ``data_axis`` / ``sp_axis`` (``parallel.mesh.MeshAxis``; see
     ``make_spdp_train_fn``): the batch, ``t`` and ``noise`` are this rank's
@@ -207,7 +254,8 @@ def make_unclip_train_step(
     ``t`` and ``noise`` come from ``_shard_generators``.  The UNet runs
     row-sharded over ``sp_axis`` for the step (``using_sp_axis``, also
     around the backward, where ``remat`` recomputes the forward); the
-    gradients are ``pmean``'d over ``sp_axis``, then ``data_axis``, the
+    gradients are ``pmean``'d over ``sp_axis``, then ``data_axis`` (or
+    handed to ``reduce_grads``, the trainable parameters in order), the
     loss and metrics over ``data_axis``, and the sampler takes every data
     shard's (t, loss) pairs.
     """
@@ -236,13 +284,14 @@ def make_unclip_train_step(
                      if schedule_sampler == "loss-second-moment" else None),
         )
 
-    def train_step(state: TrainState, batch: dict, t=None, noise=None) -> dict:
+    def train_step(state: TrainState, batch: dict, t=None, noise=None,
+                   rows: Optional[slice] = None) -> dict:
         latents = batch["image_latents"]
         B = latents.shape[0]
-        if B % accum_steps:
+        if rows is None and B % accum_steps:
             raise ValueError(f"batch size {B} not divisible by accum_steps {accum_steps}")
         gen_t = gen_n = state.generator
-        if sharded and (t is None or noise is None):
+        if sharded and rows is None and (t is None or noise is None):
             gen_t, gen_n = _shard_generators(state.generator, data_axis, sp_axis)
         if t is None:
             if state.sampler is not None:
@@ -257,6 +306,13 @@ def make_unclip_train_step(
             noise = torch.randn(latents.shape, generator=gen_n,
                                 device=device, dtype=torch.float32)
         noise = torch.as_tensor(noise, device=device).float()
+        if rows is not None:
+            batch = {k: v[rows] for k, v in batch.items()}
+            t, weights, noise = t[rows], weights[rows], noise[rows]
+            B = t.shape[0]
+            if B % accum_steps:
+                raise ValueError(f"a rank's {B} examples not divisible by accum_steps "
+                                 f"{accum_steps}")
 
         m = B // accum_steps
         loss = torch.zeros((), device=device)
@@ -272,9 +328,12 @@ def make_unclip_train_step(
                 parts.append({k: v.detach() for k, v in terms_m.items()})
         terms = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
         trainable = [p for p in unet.parameters() if p.requires_grad]
-        for axis in (sp_axis, data_axis):
-            if axis is not None:
-                pmean_grads(trainable, axis)
+        if reduce_grads is not None:
+            reduce_grads(trainable)
+        else:
+            for axis in (sp_axis, data_axis):
+                if axis is not None:
+                    pmean_grads(trainable, axis)
 
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
@@ -341,6 +400,77 @@ def make_spdp_train_fn(
     return init_state, train_fn
 
 
+def make_fsdp_train_fn(
+    unet: nn.Module,
+    diffusion_config: dict,
+    optimizer_factory: Callable,
+    mesh,
+    *,
+    tp: bool = False,
+    min_elems: int = 1 << 16,
+    tp_min_size: int = 1024,
+    **step_kwargs,
+):
+    """(init_fn, train_fn, place_state) with the train state ZeRO-3-sharded
+    over the mesh's ``data`` axis (``kandinsky2_tpu/train/train_unclip.py:
+    332-400``): parameter, optimizer and EMA memory all divide by the data
+    size, which is what lets the full 1.22B decoder train with Adam moments
+    and an EMA shadow where one device cannot hold them replicated.
+
+    ``mesh`` is a ``(data, model)`` ``parallel.mesh.Mesh`` (``make_mesh``);
+    every rank of it calls these with the same arguments.  ``init_fn(
+    trainable=None, seed=0)`` applies the freeze mask, places the model's
+    parameters (``fsdp_state_shardings(tp=, min_elems=, tp_min_size=)``;
+    with ``tp`` first ``shard_params`` on the model axis, then the data
+    cut on a remaining dim), keeps this rank's slices
+    (``parallel.fsdp.shard_state_``), then builds the optimizer and the EMA
+    on the slices; it returns an ``FSDPTrainState``.
+
+    ``train_fn(state, batch, t=None, noise=None)`` takes the whole batch on
+    every rank (its size divisible by the data size), draws ``t`` and
+    ``noise`` for the whole batch from the shared generator exactly as the
+    unsharded step does (or takes them whole), and trains on this rank's
+    examples: the UNet gathers its parameters block by block, the
+    gradients come back reduce-scattered and are scaled by
+    ``parallel.fsdp.reduce_grads``, the optimizer and EMA step the slices;
+    the loss-aware sampler takes every rank's (t, loss) in data order and
+    the metrics are ``pmean``'d over ``data``.  ``accum_steps`` splits each
+    rank's examples.  The update is the unsharded step's on the whole
+    batch, up to the order of the sums.
+
+    ``place_state(state, saved)`` loads a whole saved state (the unsharded
+    format) into a sharded one, as a resume does."""
+    data = mesh.axis(DATA_AXIS)
+    model = mesh.axis(MODEL_AXIS) if tp else None
+    axes = [data] + ([model] if model is not None else [])
+    init_state, train_step = make_unclip_train_step(
+        unet, diffusion_config, optimizer_factory, data_axis=data,
+        reduce_grads=lambda params: _fsdp.reduce_grads(params, axes), **step_kwargs)
+
+    def init_fn(trainable: Optional[dict] = None, seed: int = 0) -> FSDPTrainState:
+        specs = fsdp_state_shardings(TrainState(unet, None, None, None), mesh, tp=tp,
+                                     min_elems=min_elems, tp_min_size=tp_min_size)
+        if tp:
+            shard_params(unet, mesh, min_size=tp_min_size)
+        _fsdp.shard_state_(TrainState(unet, None, None, None), mesh, specs)
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+        state = init_state(trainable, seed)
+        return FSDPTrainState(**{f.name: getattr(state, f.name)
+                                 for f in dataclasses.fields(TrainState)})
+
+    def train_fn(state: FSDPTrainState, batch: dict, t=None, noise=None) -> dict:
+        B = batch["image_latents"].shape[0]
+        if B % data.size:
+            raise ValueError(f"batch size {B} not divisible by the data axis size "
+                             f"{data.size}")
+        b = B // data.size
+        return train_step(state, batch, t, noise, rows=slice(data.index * b,
+                                                             (data.index + 1) * b))
+
+    return init_fn, train_fn, _fsdp.place_state
+
+
 def fit(state: TrainState, train_step: Callable, loader, prepare_batch: Callable, *,
         num_epochs: int, save_every: int, save_path: str, log_every: int,
         writer: bool = True) -> TrainState:
@@ -350,21 +480,34 @@ def fit(state: TrainState, train_step: Callable, loader, prepare_batch: Callable
     whole state every ``save_every`` steps and at the end, then export the
     model's weights for inference.  Given the same batches, a resumed run
     is bitwise identical to an uninterrupted one.  On a mesh every rank
-    runs it and resumes; only the ``writer`` (rank 0) logs and saves."""
+    runs it and resumes; only the ``writer`` (rank 0) logs and saves.  A
+    sharded state (``FSDPTrainState``) is gathered on every rank for each
+    save, so its files have the unsharded format, and each rank keeps its
+    slices of the file it resumes from."""
     fname, _ = latest_train_state(save_path)
     if fname:
         restore_train_state(fname, state)
+
+    sharded = isinstance(state, FSDPTrainState)
+
+    def save(export: bool = False) -> None:
+        if not (writer or sharded):
+            return
+        whole = _fsdp.gather_state(state, dst=0) if sharded else state.state_dict()
+        if writer:
+            save_train_state(save_path, whole, state.step)
+            if export:
+                save_checkpoint(save_path, whole["params"], state.step)
+
     for _ in range(num_epochs):
         for raw in loader:
             metrics = train_step(state, prepare_batch(raw))
             if writer and state.step % log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 print(f"step {state.step}: {m}", flush=True)
-            if writer and state.step % save_every == 0:
-                save_train_state(save_path, state)
-    if writer:
-        save_train_state(save_path, state)
-        save_checkpoint(save_path, state.model.state_dict(), state.step)
+            if state.step % save_every == 0:
+                save()
+    save(export=True)
     return state
 
 
@@ -388,7 +531,7 @@ def train_unclip(
     accum_steps: int = 1,
     mesh_shape: Optional[tuple] = None,
     fsdp: Optional[int] = None,
-) -> TrainState:
+) -> Optional[TrainState]:
     """Training loop (trainer_2_1_uclip.py:39-81).  ``prepare_batch(raw)``
     runs the frozen encoders and returns the step's batch; ``fit`` saves,
     resumes and exports.
@@ -398,23 +541,33 @@ def train_unclip(
     loader, and the step is ``make_spdp_train_fn``'s over that mesh (batch
     divisible by ``data``, latent rows by ``sp * 2^(levels-1)``; either may
     be 1); rank 0 logs and writes the checkpoints, and a resume restores
-    every rank.  ``fsdp`` (the ZeRO-sharded state) is not ported."""
+    every rank.
+
+    ``fsdp=N`` instead ZeRO-shards the whole train state (parameters,
+    optimizer moments, EMA) over an N-rank data axis
+    (``make_fsdp_train_fn``): every rank of a group of at least N ranks
+    calls this with the same arguments; the first N train (the batch
+    divisible by N) and the others return None.  Each save gathers the
+    whole state on every rank and rank 0 writes it in the unsharded
+    format; a resume keeps each rank's slices of it."""
     if fsdp is not None and mesh_shape is not None:
         raise ValueError("fsdp and mesh_shape (spatial x data) are separate paths; "
                          "pick one")
-    if fsdp is not None:
-        raise NotImplementedError(
-            "fsdp: the ZeRO-sharded train state (make_fsdp_train_fn) is not ported "
-            "to PyTorch yet (ROADMAP.md Queue 1 item 4, part 3, slice b); use "
-            "parallel: {data: D, sp: S}")
     kw = dict(schedule_sampler=schedule_sampler, ema_decay=ema_decay, remat=remat,
               accum_steps=accum_steps)
     writer = True
-    if mesh_shape is not None:
-        import torch.distributed as dist
-
-        from ..parallel.mesh import Mesh
-
+    if fsdp is not None:
+        n = int(fsdp)
+        if not dist.is_initialized() or dist.get_world_size() < n:
+            raise ValueError(f"fsdp={n} needs a torch.distributed group of at least {n} "
+                             "ranks (parallel.launch)")
+        mesh = make_mesh(n, model_parallel=1)
+        if mesh is None:
+            return None
+        init_state, train_step, _ = make_fsdp_train_fn(
+            unet, diffusion_config, optimizer_factory, mesh, **kw)
+        writer = dist.get_rank() == 0
+    elif mesh_shape is not None:
         d, s = (int(v) for v in mesh_shape)
         if not dist.is_initialized() or dist.get_world_size() != d * s:
             raise ValueError(f"mesh_shape {tuple(mesh_shape)} needs a torch.distributed "

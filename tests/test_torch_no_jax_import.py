@@ -55,7 +55,7 @@ def test_port_imports_no_jax():
                  "examples.common", "examples.train_lora_22", "examples.run_all",
                  "parallel.mesh", "parallel.collectives", "parallel.spatial",
                  "parallel.launch", "examples.highres_sp_decode", "examples.train_sp",
-                 "parallel.tensor_parallel"):
+                 "parallel.tensor_parallel", "parallel.fsdp"):
         assert f"kandinsky2_tpu_torch.{name}" in proc.stdout.split(), name
 
 
@@ -69,10 +69,13 @@ def test_entry_points_default_to_the_card():
     ``make_spdp_train_fn``) where their UNet is: neither takes a device of
     its own.  Tensor parallelism (``make_mesh``, ``shard_params``,
     ``shard_pipeline`` and every pipeline's ``shard``) runs where the
-    pipeline is too: none takes a device."""
+    pipeline is too: none takes a device.  Nor does FSDP
+    (``make_fsdp_train_fn``, ``train_unclip(fsdp=)``, the placement and
+    ``parallel.fsdp``): it runs where the UNet is, and the CLI that spawns
+    its ranks (``run``, ``run_parallel``) defaults to the card."""
     import inspect
 
-    from kandinsky2_tpu_torch.parallel import launch, mesh
+    from kandinsky2_tpu_torch.parallel import fsdp, launch, mesh
     from kandinsky2_tpu_torch.pipelines import Kandinsky2, Kandinsky2_1, Kandinsky2_2
     from kandinsky2_tpu_torch.train import train_2_1_unclip, train_lora, train_unclip
 
@@ -96,7 +99,9 @@ def test_entry_points_default_to_the_card():
     for fn in (train_lora.make_sp_lora_train_fn, train_lora.make_lora_train_step,
                train_unclip.make_spdp_train_fn, mesh.make_mesh, mesh.shard_params,
                mesh.shard_pipeline, Kandinsky2.shard, Kandinsky2_1.shard,
-               Kandinsky2_2.shard):
+               Kandinsky2_2.shard, train_unclip.make_fsdp_train_fn,
+               train_unclip.train_unclip, mesh.fsdp_state_shardings, fsdp.shard_state_,
+               fsdp.gather_state, fsdp.place_state):
         assert "device" not in inspect.signature(fn).parameters, fn
 
 

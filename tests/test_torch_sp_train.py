@@ -24,7 +24,8 @@ JAX side runs in this process on the virtual devices of
   unsharded step;
 * ``make_prior_train_step(data_axis=)`` against JAX's under ``shard_map``;
 * ``train_unclip(mesh_shape=)``'s save on rank 0 and resume on every rank,
-  and the CLI's ``parallel`` key on the four ranks, ``fsdp`` refused.
+  and the CLI's ``parallel`` key on the four ranks: ``{data: 2, sp: 2}``,
+  and ``{fsdp: 2}`` on two of them.
 
 Optimizer: ``optax.sgd``.  Adam's first update is the sign of each
 gradient, which rounding decides for the conv biases whose gradient is
@@ -491,8 +492,10 @@ def test_train_unclip_mesh_saves_on_rank_0_and_resumes_every_rank(pool, tmp_path
 def test_cli_parallel_key_trains_on_ranks_and_fsdp_raises(pool, tmp_path, monkeypatch):
     """``parallel: {data: 2, sp: 2}`` runs the spdp step on 4 CPU ranks (the
     tiny YAML of test_torch_train.py, two steps, checkpoints from rank 0;
-    the CLI's rank pool is this module's, lent for the run); ``{fsdp: N}``
-    and ``train_unclip(fsdp=)`` name what is missing."""
+    the CLI's rank pool is this module's, lent for the run); ``{fsdp: 2}``
+    runs the ZeRO-sharded step on the first two of them for two steps, and
+    rank 0 saves the whole state; ``train_unclip(fsdp=)`` with no process
+    group, and with ``mesh_shape=`` too, raises."""
     from PIL import Image
 
     from kandinsky2_tpu_torch.parallel import launch
@@ -500,7 +503,7 @@ def test_cli_parallel_key_trains_on_ranks_and_fsdp_raises(pool, tmp_path, monkey
 
     class Lent:
         def __init__(self, world, backend, device):
-            assert (world, backend, device) == (N, "gloo", "cpu")
+            assert (world, backend, device) in ((N, "gloo", "cpu"), (2, "gloo", "cpu"))
 
         def __enter__(self):
             return pool
@@ -523,10 +526,21 @@ def test_cli_parallel_key_trains_on_ranks_and_fsdp_raises(pool, tmp_path, monkey
     out = tcli.run(cfg, device="cpu")
     assert out == {"step": 2, "world": N}
     assert tckpt.latest_train_state(str(tmp_path / "ckpt"))[1] == 2
-    cfg["parallel"] = {"fsdp": 2}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4, part 3"):
-        tcli.run(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4, part 3"):
+    cfg["parallel"] = {"fsdp": 2, "data": 4}  # fsdp wins, as in the JAX CLI
+    cfg["save_path"] = str(tmp_path / "fsdp")
+    out = tcli.run(cfg, device="cpu")
+    assert out == {"step": 2, "world": 2}
+    fname, step = tckpt.latest_train_state(str(tmp_path / "fsdp"))
+    assert step == 2
+    saved = torch.load(fname, weights_only=True)
+    whole = tckpt.load_checkpoint(tckpt.latest_checkpoint(str(tmp_path / "fsdp"))[0])
+    spdp = torch.load(tckpt.latest_train_state(str(tmp_path / "ckpt"))[0], weights_only=True)
+    for key in ("params", "ema"):  # the unsharded format
+        assert {k: tuple(v.shape) for k, v in saved[key].items()} == {
+            k: tuple(v.shape) for k, v in spdp[key].items()}, key
+    for k, v in whole.items():
+        assert torch.equal(v, saved["params"][k]), k
+    with pytest.raises(ValueError, match="torch.distributed group"):
         tunclip.train_unclip(unet=None, diffusion_config={}, loader=[],
                              prepare_batch=None, fsdp=2)
     with pytest.raises(ValueError, match="pick one"):

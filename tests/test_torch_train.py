@@ -535,11 +535,12 @@ def test_inpainting_batch_and_step_match_jax(tmp_path):
                       "params": {"learning_rate": 1e-4, "mask": {"kernel": True}}}},
 ])
 def test_run_rejects_what_the_port_lacks(change):
-    """``run`` refuses, before building anything, a YAML that asks for a
-    parallel mode, an optimizer other than optax's adafactor, adam, adamw
-    and sgd, or a mask over the JAX parameter tree."""
+    """``run`` refuses, before building anything, a YAML whose ``parallel``
+    is not a mapping (TypeError), an optimizer other than optax's
+    adafactor, adam, adamw and sgd, or a mask over the JAX parameter tree
+    (NotImplementedError)."""
     cfg = dict(tcli.small_train_config("", "", ""), **change)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError if "parallel" in change else NotImplementedError):
         tcli.run(cfg, device="cpu")
 
 
