@@ -23,6 +23,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import schedules as _sched
 from .gaussian import (
@@ -42,12 +43,15 @@ def _step_noise(generator, noise_seq, pos: int, x: torch.Tensor) -> torch.Tensor
 
 
 def _call(model_fn, x, ts, state, pos, stateful):
-    """One model call: ``(out in fp32, state)``."""
-    if stateful:
-        out, state = model_fn(x, ts, state, pos)
-    else:
-        out = model_fn(x, ts)
-    return out.float(), state
+    """One model call: ``(out in fp32, state)``, inside the span
+    ``diffusion.model``, which every loop's model call opens: a trace
+    counts the model calls by it."""
+    with record_function("diffusion.model"):
+        if stateful:
+            out, state = model_fn(x, ts, state, pos)
+        else:
+            out = model_fn(x, ts)
+        return out.float(), state
 
 
 def p_sample_loop(
@@ -112,7 +116,7 @@ def ddim_respaced_loop(
     nd = x.ndim
     for pos, i in enumerate(range(num - 1, -1, -1)):
         t = torch.full((B,), i, dtype=torch.int64, device=x.device)
-        model_out = model_fn(x, sched.model_timesteps(t)).float()
+        model_out, _ = _call(model_fn, x, sched.model_timesteps(t), None, pos, False)
         out = p_mean_variance(
             sched, model_out, x, t, mean_type=mean_type, var_type=var_type,
             clip_denoised=clip_denoised, denoised_fn=denoised_fn,

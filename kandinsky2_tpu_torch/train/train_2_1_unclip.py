@@ -26,6 +26,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..configs import CONFIG_2_1, deep_copy_config, small_config
 from ..pipelines.kandinsky2_1 import Kandinsky2_1
@@ -86,16 +87,18 @@ def make_prepare_batch(pipe: Kandinsky2_1):
     """``prepare_batch(raw)``: the loader's numpy batch -> the train step's
     batch on the pipeline's device (scaled MoVQ latents, XLM-R full and
     pooled embeddings, CLIP image embedding; for an inpainting pipeline a
-    random mask [B, h, w, 1] per latent and the masked latents)."""
+    random mask [B, h, w, 1] per latent and the masked latents).  Each
+    frozen encoder runs inside its ``k21.*`` span, as in the pipeline."""
     dev = pipe.device
     inpainting = pipe.task_type == "inpainting"
 
     @torch.no_grad()
     def prepare_batch(raw: dict) -> dict:
         latents = pipe.movq_encode(raw["image"]) * pipe.scale
-        full, pooled = pipe.text_encoder(
-            torch.as_tensor(raw["tokens"], device=dev).long(),
-            torch.as_tensor(raw["mask"], device=dev))
+        with record_function("k21.text_encoder"):
+            full, pooled = pipe.text_encoder(
+                torch.as_tensor(raw["tokens"], device=dev).long(),
+                torch.as_tensor(raw["mask"], device=dev))
         image_emb = pipe.encode_images(raw["clip_image"])
         batch = {"image_latents": latents, "full_emb": full,
                  "pooled_emb": pooled, "image_emb": image_emb}

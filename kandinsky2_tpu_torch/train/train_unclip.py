@@ -8,8 +8,11 @@ trainer_2_1_uclip.py:39-81), on one device or over a mesh of ranks.
   sampling (uniform or loss-aware), q_sample, the UNet forward (under
   ``torch.utils.checkpoint`` with ``remat``), the loss and its backward
   (over ``accum_steps`` microbatches), the optimizer step, the EMA and the
-  sampler update.  Where the JAX step returns a new state, this one updates
-  the ``TrainState`` in place: the parameters, their gradients and the
+  sampler update.  Each microbatch's loss and backward are the
+  ``torch.profiler`` spans ``train.forward`` and ``train.backward``, the
+  EMA ``train.ema``; the optimizer's step is torch.optim's own span.
+  Where the JAX step returns a new state, this one updates the
+  ``TrainState`` in place: the parameters, their gradients and the
   optimizer state are never held twice.
 * ``make_spdp_train_fn`` — the same step over a ``(data, sp)`` mesh of
   ranks: examples sharded over ``data``, latent rows over ``sp`` (the
@@ -52,6 +55,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..configs import schedule_kwargs
@@ -321,9 +325,11 @@ def make_unclip_train_step(
             for i in range(accum_steps):
                 sl = slice(i * m, (i + 1) * m)
                 mb = {k: v[sl] for k, v in batch.items()}
-                loss_m, terms_m = unclip_loss(unet, sched, mb, t[sl], noise[sl],
-                                              weights[sl], **loss_kw)
-                (loss_m / accum_steps).backward()
+                with record_function("train.forward"):
+                    loss_m, terms_m = unclip_loss(unet, sched, mb, t[sl], noise[sl],
+                                                  weights[sl], **loss_kw)
+                with record_function("train.backward"):
+                    (loss_m / accum_steps).backward()
                 loss += loss_m.detach() / accum_steps
                 parts.append({k: v.detach() for k, v in terms_m.items()})
         terms = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
@@ -338,8 +344,9 @@ def make_unclip_train_step(
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         if state.ema_params is not None:
-            ema_update(state.ema_params, dict(unet.named_parameters()), ema_decay,
-                       num_updates=state.step)
+            with record_function("train.ema"):
+                ema_update(state.ema_params, dict(unet.named_parameters()), ema_decay,
+                           num_updates=state.step)
         if state.sampler is not None:
             state.sampler.update(t, terms["loss"], axis=data_axis)
         state.step += 1

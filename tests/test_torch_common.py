@@ -65,6 +65,28 @@ def assert_close(got, want, tol, what=""):
     assert err <= tol * scale, f"{what}: max abs err {err:.3e} > {tol * scale:.3e}"
 
 
+def profiled_spans(fn):
+    """(``fn()``, {span name: [(start ns, end ns), ...]}): the port's
+    ``record_function`` spans over one call under the profiler.  The
+    autograd profiler is the one ``torch.profiler.profile`` drives, without
+    the imports that make the latter's first start take seconds; the spans
+    come from its raw events, not its per-op tables, which take seconds
+    more to build."""
+    with torch.autograd.profiler.profile(use_kineto=True) as prof:
+        out = fn()
+    spans = {}
+    for e in prof.kineto_results.events():
+        if e.is_user_annotation():
+            spans.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    return out, spans
+
+
+def spans_inside(spans, name, parent):
+    """How many spans ``name`` start inside a span ``parent``."""
+    outer = spans.get(parent, [])
+    return sum(any(a <= s <= b for a, b in outer) for s, _ in spans.get(name, []))
+
+
 def test_config_copy_matches_jax_package():
     """The tests hand the port's configs to both packages, so its copies of
     ``CONFIG_2_1`` and ``CONFIG_2_0`` must be the JAX package's."""

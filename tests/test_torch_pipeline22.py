@@ -19,7 +19,9 @@ from test_torch_common import (
     flash_route,
     inject_prior22,
     parity_pipelines22,
+    profiled_spans,
     seeded_noise,
+    spans_inside,
 )
 
 PROMPT = "red sand dunes under a violet sky"
@@ -133,6 +135,16 @@ def test_zero_embed_and_text_encoder_match_jax(pipes):
     assert_close(th, jh, 1e-4, "hidden")
     assert_close(tproj, jproj, 1e-4, "projection")
     np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+
+
+def test_text2img_opens_a_span_per_model_call(pipes):
+    """The spans ``diffusion.model`` a call opens, by the stage span their
+    start lies in: the prior's 3 model calls and the decoder's 4."""
+    _, tp, _ = pipes
+    _, spans = profiled_spans(lambda: tp.generate_text2img(
+        PROMPT, decoder_steps=4, prior_steps=3, h=64, w=64, output="float", **_noise()))
+    assert (len(spans["diffusion.model"]), spans_inside(spans, "diffusion.model", "k22.prior"),
+            spans_inside(spans, "diffusion.model", "k22.unet_ddpm")) == (7, 3, 4)
 
 
 # --- the same guard errors as the JAX pipeline ---------------------------------

@@ -11,7 +11,8 @@ import torch
 from kandinsky2_tpu import diffusion as jd
 from kandinsky2_tpu.diffusion import samplers as js
 from kandinsky2_tpu_torch import diffusion as td
-from test_torch_common import assert_close
+from kandinsky2_tpu_torch.diffusion.paired import ddpm_ladder, paired_ancestral_loop
+from test_torch_common import assert_close, profiled_spans
 
 T = torch.from_numpy
 TABLE_TOL = 1e-6
@@ -276,6 +277,50 @@ def test_loops_match_jax(case):
     want, got = LOOPS[case]()
     assert_close(got, want, LOOP_TOL, case)
     assert np.std(np.asarray(want)) > 1e-3, "the toy trajectory collapsed"
+
+
+def _spans_per_call(loop, c_out):
+    """(model calls, ``diffusion.model`` spans) of one run of ``loop(toy)``
+    on the port's side alone; the toy returns ``c_out`` channels (6: eps
+    and the learned variance)."""
+    calls = []
+    f = _ttoy(_weights(7, c_out))
+
+    def toy(x, t):
+        calls.append(1)
+        return f(x, t)
+
+    _, spans = profiled_spans(lambda: loop(toy))
+    return len(calls), len(spans.get("diffusion.model", []))
+
+
+SPAN_LOOPS = {
+    "ddim_respaced_loop": (5, 3, lambda toy: td.ddim_respaced_loop(
+        toy, td.make_schedule(**PRIOR, timestep_respacing="ddim5"), T(_x_T()),
+        mean_type=td.MeanType.START_X, var_type=td.VarType.FIXED_SMALL,
+        clip_denoised=False, channel_axis=-1)),
+    "p_sample_loop": (6, 6, lambda toy: td.p_sample_loop(
+        toy, td.make_schedule(**DECODER, timestep_respacing="10"), T(_x_T()),
+        init_step=6, channel_axis=-1)),
+    "ddim_loop": (8, 3, lambda toy: td.ddim_loop(toy, td.make_ddim_tables(_base(), 8),
+                                                 T(_x_T()))),
+    # PLMS's first step calls the model twice
+    "plms_loop": (9, 3, lambda toy: td.plms_loop(toy, td.make_ddim_tables(_base(), 8),
+                                                 T(_x_T()))),
+    "dpmpp_2m_loop": (8, 3, lambda toy: td.dpmpp_2m_loop(
+        toy, td.make_dpmpp_tables(_base(), 8), T(_x_T()))),
+    "paired_ancestral_loop": (4, 6, lambda toy: paired_ancestral_loop(
+        toy, _base(), ddpm_ladder(4), T(_x_T()), torch.Generator().manual_seed(0))),
+}
+
+
+@pytest.mark.parametrize("loop", list(SPAN_LOOPS))
+def test_each_model_call_opens_one_span(loop):
+    """Every loop of ``diffusion/`` makes its model calls inside the span
+    ``diffusion.model``, one span a call: a trace counts the UNet's and the
+    prior's calls by it."""
+    steps, c_out, run = SPAN_LOOPS[loop]
+    assert _spans_per_call(run, c_out) == (steps, steps)
 
 
 @pytest.mark.parametrize("scale", [0.5, 3.0, 40.0])

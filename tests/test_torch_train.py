@@ -38,7 +38,13 @@ from kandinsky2_tpu_torch.weights.from_jax import (
     load_jax_params,
     torch_key_for,
 )
-from test_torch_common import MODULE_TOL, TINY_UNET, assert_close, numpy_params
+from test_torch_common import (
+    MODULE_TOL,
+    TINY_UNET,
+    assert_close,
+    numpy_params,
+    profiled_spans,
+)
 
 T = torch.from_numpy
 DCFG = jcfg.CONFIG_2_1["diffusion_config"]
@@ -377,6 +383,33 @@ def test_accum_steps_and_remat_match_the_plain_step(jax_ref):
     for name, p in plain.items():
         assert_close(accum[name], p, 1e-5, f"accum {name}")
         assert torch.equal(remat[name], p), f"remat {name}"
+
+
+def _adafactor_step(jax_ref, accum_steps=1):
+    """(loss, parameters, EMA) after one Adafactor step of the tiny UNet on
+    ``jax_ref``'s batch, t and noise."""
+    tm = _torch_unet(jax_ref["params"])
+    init_state, train_step = ttrain.make_unclip_train_step(
+        tm, DCFG, lambda ps: toptim.Adafactor(ps, learning_rate=LR), accum_steps=accum_steps)
+    state = init_state(toptim.decoder_freeze_mask(tm, freeze_resblocks=True))
+    metrics = train_step(state, _torch_batch(jax_ref["batch"]),
+                         t=torch.tensor(jax_ref["t"]), noise=torch.tensor(jax_ref["noise"]))
+    return metrics["loss"], dict(tm.named_parameters()), state.ema_params
+
+
+@pytest.mark.parametrize("accum_steps", [1, 2])
+def test_train_step_opens_its_spans_and_the_profiler_changes_nothing(jax_ref, accum_steps):
+    """A step opens ``train.forward`` and ``train.backward`` once a
+    microbatch and ``train.ema`` once; under the profiler its loss, its
+    parameters and their EMA are bitwise those of the step without it."""
+    (loss, params, ema), spans = profiled_spans(lambda: _adafactor_step(jax_ref, accum_steps))
+    counts = {n: len(spans.get(n, [])) for n in ("train.forward", "train.backward", "train.ema")}
+    assert counts == {"train.forward": accum_steps, "train.backward": accum_steps,
+                      "train.ema": 1}
+    loss0, params0, ema0 = _adafactor_step(jax_ref, accum_steps)
+    assert torch.equal(loss, loss0)
+    for name, p in params.items():
+        assert torch.equal(p, params0[name]) and torch.equal(ema[name], ema0[name]), name
 
 
 # --- loop, checkpoint and CLI ---------------------------------------------
