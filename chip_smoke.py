@@ -78,7 +78,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    bitwise repeatable, K5's delta
    against rowsum(dO·O); timed in turns with the plain backward, the whole
    backward (K5 + K4) and the backward of ``scaled_dot_product_attention``,
-   each beside its bound; and
+   each beside its bound; GroupNorm's backward kernels (K1's moments, B1
+   and B2: ``group_norm_backward``) against the plain closed form at the
+   decoder training step's layouts (ds1 to ds8, the ds8 concatenation and
+   the fp32 output head, batch 2, and ds1 at the cell's batch 32) with
+   every gradient, bitwise repeatable, timed in turns with the plain
+   closed form and ``native_group_norm_backward`` (no FiLM or SiLU) beside
+   the bound x and gy read once, dx written once; and
    GroupNormFunction's gradients against autograd of the plain
    formulation, with CUDA-event times.
 7. train, small: the decoder fine-tuning CLI's ``run`` on a small config
@@ -92,9 +98,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    remat; prepare_batch (MoVQ encode, XLM-R, CLIP ViT) and train_step as
    train_unclip calls them: a first step in which every trainable
    parameter must get a finite, non-zero gradient, a warm-up step and five
-   timed steps, during which the kernels launch exactly K1 = K2 = 119,
-   K3 = 25 and K4 = K5 = 22 times a step with no attention call on the
-   card by the plain route; then a profiled step.
+   timed steps, during which the kernels launch exactly K1 = 214 (119
+   forward, 95 the GroupNorm backwards' moments), K2 = 119, the GroupNorm
+   backward (B1 + B2) 95, K3 = 25 and K4 = K5 = 22 times a step with no
+   attention call on the card by the plain route; then a profiled step.
 
 9. 2.2 tasks, small: every Kandinsky 2.2 entry point at a small width
    with 64-wide UNet heads (so that K3 runs) on the card (kernels, bf16)
@@ -149,11 +156,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches pinned: lora22-768 (UNet22 of
    weights.configs22.pipeline_overrides(task_type="text2img") with a bf16 base,
    rank-4 factors on default_target, Adam 1e-4, latents [1, 96, 96, 4], 5
-   steps: K1 = K2 = 95, K3 = K4 = K5 = 22 a step; the base bitwise
+   steps: K1 = 179, K2 = 95, the GroupNorm backward 84 (the first down
+   block's 11 norms lie before every adapter), K3 = K4 = K5 = 22 a step;
+   the base bitwise
    unchanged, the factors moved, merge then unmerge back to the base
    within bf16 rounding), distill22-768 (the same UNet as the bf16
    teacher, an fp32 student, Adam 1e-4, num_student_steps 500, 3 steps:
-   K1 = K2 = 285, K3 = 66, K4 = K5 = 22), prior-train (the prior CLI's
+   K1 = 380, K2 = 285, the GroupNorm backward 95, K3 = 66, K4 = K5 =
+   22), prior-train (the prior CLI's
    run on config_prior.yaml over five seeded pictures, then 5 steps on its
    model, batch and Adafactor: no kernel launched) and inpaint-train-768
    (phase 8 on a task_type="inpainting" pipeline, masks from
@@ -231,7 +241,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    conv kernel, a vector and a bf16 tensor: masters and fp32 state within
    1e-5 relative L2, bf16 within 2^-8, a state_dict round trip bitwise;
    19b train-adamw-768 (phase 8 with optax.adamw at 1e-4, its launches
-   pinned at K1 = K2 = 119, K3 = 25, K4 = K5 = 22 a step, the optimizer
+   pinned as phase 8's, the optimizer
    state 8 B a trainable value) and prior-train-adamw (phase 14's prior
    CLI run with optax.adamw); phases 8, 14's inpaint-train-768 and 19b also
    profile one optimizer step alone; 19c every example of
@@ -343,8 +353,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    example a rank, ``fsdp=4``; rank 0 first runs the same step unsharded
    (``accum_steps=4``) with the same t and noise: the loss within 1e-2, the
    gathered trainable parameters and their update within 5e-2 relative L2,
-   frozen slices bitwise unchanged, K1 = K2 = 190, K3 = 44, K4
-   = K5 = 22 a rank (the unsharded step's per example), none by the plain
+   frozen slices bitwise unchanged, K1 = 285, K2 = 190, the GroupNorm
+   backward 95, K3 = 44, K4 = K5 = 22 a rank (the unsharded step's per
+   example), none by the plain
    route; the state's bytes at rest and peak memory per rank, s/step (the
    slowest rank's), the gathers' and reduce-scatters' seconds and counts.
 Phases 20b and 23b run DDIM 5, 21b one timed step and 24b only its
@@ -383,6 +394,11 @@ UNET_LAUNCHES, DECODER_LAUNCHES, ENCODER_LAUNCHES = (95, 22), (33, 4), (24, 3)
 # the 2.0 KL-VAE's: its decoder 30 GroupNorms and 1 attention (the mid
 # block's), its encoder 22 and 1; Text2ImUNet20's torso is 2.1's (95, 22)
 KL_DECODER_LAUNCHES, KL_ENCODER_LAUNCHES = (30, 1), (22, 1)
+# a LoRA step on the published UNet22 differentiates 84 of its 95 GroupNorms:
+# the first down block's 11 lie before every adapted attention projection,
+# on frozen inputs (a GroupNorm backward a differentiated norm, each K1's
+# moments entry, then B1 and B2)
+LORA22_NORM_BACKWARDS = 84
 # phase 12's full-width 2.0 text2img: generate_text2img's own defaults
 # (512², DDIM at eta 0.05, guidance 7, batch 1) at 50 steps in place of 100,
 # a depth cut that keeps the whole script within its time limit
@@ -1893,6 +1909,8 @@ def phase_kernels_backward(torch, results):
         del qg, kg, vg, out, dot
     del q, k, v, do, o, lse, delta, dq, dk, dv, ref, dq2, dk2, dv2, delta2
 
+    group_norm_backward_rows(torch, gn, randn, results)
+
     # GroupNormFunction at the UNet ds1 shape, with FiLM and SiLU
     x = randn((1, 96, 96, 384))
     scale = 1 + 0.1 * randn((384,), torch.float32)
@@ -1911,8 +1929,8 @@ def phase_kernels_backward(torch, results):
     got, want = fn(), plain()
     torch.cuda.synchronize()
     errs = [rel_err(a, b) for a, b in zip(got, want)]
-    # the backward is autograd of the same plain formulation: equal up to
-    # bf16 rounding of the gradients of the bf16 inputs
+    # the backward (K1's moments, B1, B2) against autograd of the plain
+    # formulation: equal up to bf16 rounding of the bf16 inputs' gradients
     check(all(e <= 1e-2 for e in errs), "GroupNormFunction gradients disagree")
     # about a hundred launches per forward + backward: 4 of them fit the queue
     t = timed_turns({"function": fn, "plain": plain}, 4)
@@ -1922,6 +1940,74 @@ def phase_kernels_backward(torch, results):
           f"fb {errs[4]:.3e} (tol 1e-2); Function {f_ms:.4f} ms, autograd of the "
           f"plain formulation {p_ms:.4f} ms")
     torch.cuda.synchronize()
+
+
+def group_norm_backward_rows(torch, gn, randn, results):
+    """K1's moments, B1 and B2 (``group_norm_backward``) at the decoder
+    training step's GroupNorm layouts, with FiLM, SiLU and every gradient,
+    against the plain closed form: in bf16 within one rounding (2^-7 of the
+    largest value), in fp32 dx within 1e-5 of it (the same fp32 math up to
+    the fast activation and the group sums' order) and the FiLM pair, scale
+    and bias, sums over every row, within 1e-4 of it (K1's tolerance for its
+    sums); two calls bitwise equal (fixed-order sums, no atomics).  Timed in
+    turns with the plain closed form and, as a yardstick only,
+    ``native_group_norm_backward`` on an NCHW copy (no FiLM or SiLU)."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    shapes = [("unet ds1", (2, 96 * 96, 384), bf16), ("unet ds2", (2, 48 * 48, 768), bf16),
+              ("unet ds4", (2, 24 * 24, 1152), bf16), ("unet ds8", (2, 12 * 12, 1536), bf16),
+              ("unet ds8 skip-concat", (2, 12 * 12, 3072), bf16),
+              ("unet out.0 fp32", (2, 96 * 96, 384), fp32),
+              ("batch 32: unet ds1", (32, 96 * 96, 384), bf16)]
+    for label, shape, dtype in shapes:
+        B, N, C = shape
+        es = torch.finfo(dtype).bits // 8
+        x, gy = (0.5 + randn(shape, fp32)).to(dtype), randn(shape, dtype)
+        scale = 1 + 0.1 * randn((C,), fp32)
+        bias = 0.1 * randn((C,), fp32)
+        film = (randn((B, 1, 1, 2 * C), fp32) * torch.tensor(
+            [0.1] * C + [1.0] * C, device="cuda")).to(dtype).chunk(2, dim=-1)
+        bwd = lambda: gn.group_norm_backward(gy, x, scale, bias, 32, 1e-5, 1.0, film)
+        got, again = bwd(), bwd()
+        want = gn.group_norm_backward_plain(gy, x, scale, bias, 32, 1e-5, 1.0, film)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(repeat, f"group_norm_backward is not bitwise repeatable at {label}")
+        errs = []
+        for k, (g_, w) in enumerate(zip(got, want)):
+            check(g_.dtype == w.dtype and g_.shape == w.shape,
+                  f"group_norm_backward gradient {k} at {label}: {g_.dtype} {g_.shape}")
+            ref = w.float().abs().max().item()
+            tol = 2 ** -7 if g_.dtype == bf16 else 1e-5 if k == 0 else 1e-4
+            err = (g_.float() - w.float()).abs().max().item()
+            check(err <= tol * ref, f"group_norm_backward gradient {k} disagrees at {label}")
+            errs.append(err / ref)
+        err_abs = max((g_.float() - w.float()).abs().max().item() for g_, w in zip(got, want))
+        print(f"B1 + B2    {label} {shape} {str(dtype)[6:]}: max_abs_err {err_abs:.3e} "
+              f"max_rel_err dx {errs[0]:.3e} dscale {errs[1]:.3e} dbias {errs[2]:.3e} dfs "
+              f"{errs[3]:.3e} dfb {errs[4]:.3e} (tol {'2^-7' if dtype == bf16 else '1e-5 dx, 1e-4'}"
+              f"); bitwise repeatable {repeat}")
+        del got, again, want
+        xs = cold_copies(torch.stack([gy, x]))
+        xn = x.reshape(B, N, C).permute(0, 2, 1).contiguous()
+        gyn = gy.reshape(B, N, C).permute(0, 2, 1).contiguous()
+        w16 = scale.to(dtype)
+        _, mean, rstd = torch.ops.aten.native_group_norm(xn, w16, bias.to(dtype), B, C, N,
+                                                        32, 1e-5)
+        t = timed_turns({
+            "kernel": lambda: gn.group_norm_backward(*xs().unbind(0), scale, bias, 32, 1e-5,
+                                                     1.0, film),
+            "plain": lambda: gn.group_norm_backward_plain(*xs().unbind(0), scale, bias, 32,
+                                                          1e-5, 1.0, film),
+            "library": lambda: torch.ops.aten.native_group_norm_backward(
+                gyn, xn, mean, rstd, w16, B, C, N, 32, [True, True, True])}, 5)
+        # x and gy read once, dx written once (B1 reads both, B2 both again);
+        # about 30 fp32 operations an element: the activation's gradient in
+        # each, the sums and dx's multiply-adds
+        bb = bound(30 * B * N * C, 3 * B * N * C * es, PEAK_FP32)
+        _print_times("B1 + B2   ", label, t, *bb)
+        results["group_norm_backward"].append(_row(label, shape, err_abs, t, *bb))
+        del x, gy, xs, xn, gyn, mean, rstd
+        torch.cuda.empty_cache()
 
 
 def _small_batch(torch, np, mc, seed):
@@ -2139,12 +2225,14 @@ def phase_train_full(torch, np, smi: str, name="train full", task_type="text2img
     # a step: the UNet's 95 GroupNorms and 22 attentions forward, the MoVQ
     # encoder's 24 and 3 in prepare_batch, and 22 attention backwards (the
     # UNet attends at ds 2, 4 and 8 in 3 input and 4 output blocks a level,
-    # and in the middle block)
+    # and in the middle block) and 95 GroupNorm backwards (each K1's moments
+    # entry, then B1 and B2)
     norms = UNET_LAUNCHES[0] + ENCODER_LAUNCHES[0]
     attns = UNET_LAUNCHES[1] + ENCODER_LAUNCHES[1]
     result = timed_steps(
         torch, np, name, lambda: train_step(state, prepare_batch(raw))["loss"], 5, smi,
-        {"group_norm_stats": norms, "group_norm_apply": norms,
+        {"group_norm_stats": norms + UNET_LAUNCHES[0], "group_norm_apply": norms,
+         "group_norm_backward": UNET_LAUNCHES[0],
          "flash_attention_fwd": attns, "flash_attention_bwd_dq": 22,
          "flash_attention_bwd_dkv": 22}, reset_peak=False)
     frozen_same = all(torch.equal(p, before[n]) for n, p in unet.named_parameters()
@@ -2411,7 +2499,8 @@ def phase_train22_full(torch, np, smi: str) -> dict:
     step = make_lora_train_step(eps_fn, unet, acp_decoder22(np))
     out["lora"] = timed_steps(
         torch, np, "lora22-768", lambda: step(state, x0, cond)["loss"], 5, smi,
-        {"group_norm_stats": norms, "group_norm_apply": norms,
+        {"group_norm_stats": norms + LORA22_NORM_BACKWARDS,
+         "group_norm_apply": norms, "group_norm_backward": LORA22_NORM_BACKWARDS,
          "flash_attention_fwd": attns, "flash_attention_bwd_dq": attns,
          "flash_attention_bwd_dkv": attns})
     same = all(torch.equal(p, base[n]) for n, p in unet.named_parameters())
@@ -2447,7 +2536,8 @@ def phase_train22_full(torch, np, smi: str) -> dict:
     dstep = make_distill_step(eps_fn, teacher, acp_decoder22(np), num_student_steps=500)
     out["distill"] = timed_steps(
         torch, np, "distill22-768", lambda: dstep(dstate, x0, cond)["loss"], 3, smi,
-        {"group_norm_stats": 3 * norms, "group_norm_apply": 3 * norms,
+        {"group_norm_stats": 4 * norms, "group_norm_apply": 3 * norms,
+         "group_norm_backward": norms,
          "flash_attention_fwd": 3 * attns, "flash_attention_bwd_dq": attns,
          "flash_attention_bwd_dkv": attns})
     same = all(torch.equal(p, base[n]) for n, p in unet.named_parameters())
@@ -3948,9 +4038,15 @@ SP_TRAIN_LOSS_TOL, SP_TRAIN_GRAD_TOL = 1e-2, 5e-2
 # sharded GroupNorm's backward is autograd of its plain formulation)
 SP_TRAIN_LAUNCHES = {"group_norm_stats": 2 * UNET_LAUNCHES[0],
                      "group_norm_apply": 2 * UNET_LAUNCHES[0],
+                     "group_norm_backward": 0,
                      "flash_attention_fwd": 2 * UNET_LAUNCHES[1],
                      "flash_attention_bwd_dq": UNET_LAUNCHES[1],
                      "flash_attention_bwd_dkv": UNET_LAUNCHES[1]}
+# fsdp-train-768 a step a rank: the same with the unsharded GroupNorm, whose
+# backward is K1's moments entry, B1 and B2 (one more K1 launch a norm)
+FSDP_TRAIN_LAUNCHES = dict(SP_TRAIN_LAUNCHES,
+                           group_norm_stats=3 * UNET_LAUNCHES[0],
+                           group_norm_backward=UNET_LAUNCHES[0])
 # the shard shapes (B·H, T, S) of a rank at 768², batch 1, 4 ranks: local
 # query rows against the gathered K/V after the 87 text tokens, and one
 # ring step's block (the local rows against a visiting block at ds2)
@@ -4403,7 +4499,7 @@ def phase_sp_train(torch, smi: str, t_script: float, gloo, nccl):
     n_attn, n_norm = r0["n_attn"], r0["n_norm"]
     steps_ring = 1 + SP_WORLD  # the text prefix, then one a ring step
     want = {"group_norm_stats": n_norm, "group_norm_apply": n_norm,
-            "flash_attention_fwd": n_attn * steps_ring,
+            "group_norm_backward": 0, "flash_attention_fwd": n_attn * steps_ring,
             "flash_attention_bwd_dq": n_attn * steps_ring,
             "flash_attention_bwd_dkv": n_attn * steps_ring}
     for r in res:
@@ -4746,15 +4842,15 @@ def phase_fsdp(torch, smi: str, t_script: float, gloo) -> dict:
     check(r0["params_rel_l2"] <= SP_TRAIN_GRAD_TOL and r0["finite"],
           "fsdp-train-768: the gathered parameters")
     check(r0["update_rel_l2"] <= SP_TRAIN_GRAD_TOL, "fsdp-train-768: the update")
-    check(ref_per_example == SP_TRAIN_LAUNCHES,
+    check(ref_per_example == FSDP_TRAIN_LAUNCHES,
           f"fsdp-train-768: the unsharded step's launches {r0['ref_launches']}")
     for i, r in enumerate(res):
         check(r["frozen_same"], f"fsdp-train-768 rank {i}: a frozen slice changed")
-        check(r["launches"] == SP_TRAIN_LAUNCHES and r["plain_on_card"] == 0,
+        check(r["launches"] == FSDP_TRAIN_LAUNCHES and r["plain_on_card"] == 0,
               f"fsdp-train-768 rank {i}: launches {r['launches']}, plain route "
               f"{r['plain_on_card']}")
         for s in r["steps"]:
-            check(s["launches"] == SP_TRAIN_LAUNCHES and math.isfinite(s["loss"]),
+            check(s["launches"] == FSDP_TRAIN_LAUNCHES and math.isfinite(s["loss"]),
                   f"fsdp-train-768 rank {i}: a timed step's launches or loss")
         print(f"fsdp-train-768 rank {i}: checked step {r['checked_s']:.3f} s, of it "
               + ", ".join(f"{k} {v:.3f} s" for k, v in r["collective_s"].items())
@@ -4812,6 +4908,7 @@ SP22_ATTN = (("ds2", 768, 12, 48), ("ds4", 1280, 20, 24), ("ds8", 1536, 24, 12))
 # its backward; the sharded GroupNorm's backward launches no kernel)
 SP_LORA22_LAUNCHES = {"group_norm_stats": UNET_LAUNCHES[0],
                       "group_norm_apply": UNET_LAUNCHES[0],
+                      "group_norm_backward": 0,
                       "flash_attention_fwd": UNET_LAUNCHES[1],
                       "flash_attention_bwd_dq": UNET_LAUNCHES[1],
                       "flash_attention_bwd_dkv": UNET_LAUNCHES[1]}
@@ -5746,8 +5843,8 @@ def main() -> int:
 
     # 3. forward kernels against their plain versions
     results = {name: [] for name in ("group_norm_stats", "group_norm_apply",
-                                     "flash_attention_fwd", "flash_attention_bwd_dkv",
-                                     "flash_attention_bwd_dq")}
+                                     "group_norm_backward", "flash_attention_fwd",
+                                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
     phase_kernels(torch, results)
     lap("phase 3")
 
@@ -5948,6 +6045,9 @@ def main() -> int:
                              "kandinsky2_tpu/ops/group_norm.py:86"),
         "group_norm_apply": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
                              "kandinsky2_tpu/ops/group_norm.py:119"),
+        "group_norm_backward": ("cuda", "kandinsky2_tpu_torch/csrc/group_norm.cu",
+                                "kandinsky2_tpu/ops/group_norm.py:167 (XLA's backward of "
+                                "_xla_reference; no Pallas kernel)"),
         "flash_attention_fwd": ("cuda", "kandinsky2_tpu_torch/csrc/flash_attention.cu",
                                 "kandinsky2_tpu/ops/flash_attention.py:172"),
         "flash_attention_bwd_dkv": ("cuda", "kandinsky2_tpu_torch/csrc/flash_attention.cu",
@@ -5963,8 +6063,8 @@ def main() -> int:
                        key=lambda r: r["plain_ms"])
         # the forward kernels' main path is the slice (phase 5), the backward
         # kernels' the full-width train steps (phase 8)
-        launches = train_counts[name] if name.startswith("flash_attention_bwd") \
-            else counts[name]
+        backward = name.startswith("flash_attention_bwd") or name == "group_norm_backward"
+        launches = train_counts[name] if backward else counts[name]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "train_launches": train_counts[name],

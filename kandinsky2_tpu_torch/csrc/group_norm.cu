@@ -100,6 +100,82 @@
 //   issue-bound below its bytes).
 // * y is stored with the default cache policy: the next convolution reads
 //   it from L2.
+//
+// B1 and B2, the backward, replace no Pallas kernel: the JAX package
+// differentiates _xla_reference, the XLA formulation of the same norm, and
+// XLA fuses that backward into a few passes over x and gy.  Run eagerly, the
+// same autograd is some twenty-five full-size fp32 launches a norm.  Per
+// batch row b and group g of cnt = N C / G elements, with f_c = 1 + fs_c (1
+// without FiLM), w_c = scale_c f_c, the forward's a_c = r_g w_c and b_c, and
+// x^ = (x - mean_g) r_g:
+//
+//   g^  = gy * d/dy [y sigmoid(swish y)] at the forward's y = a x + b
+//         (gy where swish is 0)
+//   S_c = sum_n g^,  T_c = sum_n g^ x^ = r_g (sum_n g^ (x - p_g) - m_g S_c)
+//   dfb = S_c,  dfs = scale_c T_c + bias_c S_c
+//   dscale = sum_b f_c T_c,  dbias = sum_b f_c S_c
+//   dx  = r_g (w_c g^ - A_g - x^ B_g),  A_g = sum_{c in g} w_c S_c / cnt,
+//         B_g = sum_{c in g} w_c T_c / cnt
+//       = a_c g^ + kx_g (x - p_g) + k0_g,  kx = -r^2 B_g,  k0 = r (r B_g m_g - A_g)
+//
+// x enters every product less the group's pivot p_g (m_g = mean_g - p_g),
+// as in K1's sums, and y too, as a_c (x - p_g) + (bias_c - m_g r_g scale_c)
+// f_c + fb_c, so no term cancels where a group's mean lies far from zero.
+// All arithmetic is fp32; dx is rounded once to x's dtype.
+//
+// Bound on the H100: a few flops per element against x and gy read twice
+// and dx written once, with x read once more for the statistics (K1's
+// moments entry): 12 bytes an element in bf16, so bound by device-memory
+// bytes.  The bound quoted beside it (chip_smoke.py, kernel_ab.py, PERF.md)
+// is x and gy read once and dx written once, 3 B N C es over 3.35 TB/s:
+// 0.41 ms at the decoder training step's [32, 9216, 384] bf16.
+//
+// Design.
+// * One foreign call, k2_group_norm_backward: K1's moments entry
+//   (k2_group_norm_moments, unchanged, counted as a K1 launch) writes each
+//   group's pivot and shifted sums [B, G, 3]; B1 and B2 derive the pivot,
+//   m_g and r_g from them exactly as K1's finish does.
+// * B1 (group_norm_bwd_reduce_kernel): a block is TY rows of a strip of cw
+//   chunks, cw the narrowest divisor of C / VEC from 8 to 64 (a warp reads
+//   128-byte rows), so that small batches still make enough blocks without
+//   many row splits; the plan launches about four blocks an SM over the
+//   batch rows, strips and row splits.  Timed against two, eight and
+//   sixteen and against K2's wide strips (H100, whole backward): at batch
+//   32 within 2 % of the best at ds2, ds4, ds8 and the fp32 head, and
+//   7-8 % behind eight or sixteen with wide strips at ds1 (0.5263 against
+//   0.4927 ms for eight); at batch 2, ds1 (LoRA and distillation run batch
+//   1 or 2, and so does an FSDP rank), 10 % behind two blocks an SM
+//   (0.0546 against 0.0496 ms) and ahead of wide strips (0.0625 ms).  No
+//   one count was best at every shape.  The block computes its strip's
+//   pivots, a and b once into shared memory; a thread owns one VEC-wide
+//   chunk (16-byte loads as K1's), recomputes y and g^ in registers from
+//   x and gy (BWD_UNROLL loads of each in flight) and sums S and
+//   sum g^ (x - p) for its channels.  The
+//   block sums its rows per channel through shared memory in a fixed order
+//   into per-channel partials [B, splits, 2, C]; the last block of a batch
+//   row (K1's per-b counter) sums them over the splits in order, writes dfb
+//   and dfs in the FiLM pair's dtype, the per-b partials f T and f S of
+//   dscale and dbias (one sum over b by the caller), the group sums A_g and
+//   B_g (a warp a group with a shuffle tree), and B2's per-channel
+//   coefficients a, b (about the pivot), kx, k0 and p.  That finish keeps
+//   the group statistics and per-channel values in shared memory and
+//   issues the loads of FINISH_UNROLL channels at once: it is the tail of
+//   the launch.  Splits are capped at 32, since the finish reads every
+//   split's partials of its batch row.
+// * B2 (group_norm_bwd_apply_kernel): the same blocks, each thread loading
+//   its chunk's five coefficients once and streaming its rows with
+//   BWD_UNROLL loads of x and gy in flight; it recomputes g^ and writes
+//   dx = a g^ + kx (x - p) + k0.
+// * No float atomics: every sum is taken in an order fixed by the shape, so
+//   the gradients are bitwise repeatable.  Nothing is allocated; where a
+//   gradient is not wanted its pointer is null and it is not written (B2
+//   is not launched without dx).
+// * The activation's derivative uses __expf and __fdividef (ex2.approx,
+//   rcp.approx), within a few fp32 ulp of the exact sigmoid.  SiLU takes
+//   the general activation's kernels (z = 1 y is y exactly): fourteen B1
+//   and fourteen B2 instantiations, not twenty-one of each, which takes
+//   nvcc of this file from 28 to 21 s on the card's host at no cost to
+//   the kernels (the forward alone: 8 s).
 
 // Host entries.  ops/group_norm.py computes each shape's Plan once (K1's
 // splits and rows, K2's splits and strip, both blocks' threads, the parameter
@@ -113,6 +189,8 @@
 // dynamic (2 TY C + 2 G) floats, 16 KB to 24 KB at the path's shapes.  K2:
 // 30 to 58 registers (54 to 58 for bf16 with 16-byte loads), no spills, no
 // shared memory.
+
+#include <algorithm>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -460,6 +538,376 @@ ApplyKernel apply_kernel_of(int x_bf16, int vec, int mode) {
   return nullptr;
 }
 
+// ---- B1 and B2: the backward ------------------------------------------------
+
+constexpr int BWD_UNROLL = 4;     // row loads of x and of gy in flight per thread
+constexpr int BWD_THREADS = 256;  // a block is TY rows of a strip of at most 64 chunks
+constexpr int FINISH_UNROLL = 4;  // B1's finish: channels a thread loads at once
+
+struct BwdParams {
+  const void* scale;  // [C]
+  const void* bias;   // [C]
+  const void* fs;     // [B, C] with batch stride film_sb, or null
+  const void* fb;
+  const float* moments;  // [B, G, 3] from K1's moments entry
+  ll film_sb;
+  int param_bf16, film_bf16;
+  float eps, cnt, swish;
+};
+
+__device__ __forceinline__ void store_param(void* p, ll i, float v, int is_bf16) {
+  if (is_bf16)
+    static_cast<bf16*>(p)[i] = __float2bfloat16(v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
+
+// a group's pivot, mean less the pivot and 1 / std from its moments, as
+// K1's finish computes them
+__device__ __forceinline__ void group_stats(const float* mo, float cnt, float eps,
+                                            float& pivot, float& m, float& rstd) {
+  pivot = mo[0];
+  m = mo[1] / cnt;
+  const float var = fmaxf(mo[2] / cnt - m * m, 0.f);
+  rstd = 1.f / sqrtf(var + eps);
+}
+
+// channel c's scale, bias and FiLM pair (fs, fb; 0 without FiLM)
+__device__ __forceinline__ void load_affine(const BwdParams& p, int b, int c, float& sc,
+                                            float& bi, float& f1, float& f2) {
+  sc = load_param(p.scale, c, p.param_bf16);
+  bi = load_param(p.bias, c, p.param_bf16);
+  f1 = f2 = 0.f;
+  if (p.fs != nullptr) {
+    const ll i = static_cast<ll>(b) * p.film_sb + c;
+    f1 = load_param(p.fs, i, p.film_bf16);
+    f2 = load_param(p.fb, i, p.film_bf16);
+  }
+}
+
+// a channel's a and b about the pivot, folded as K1 folds them: the
+// pre-activation is a (x - pivot) + b, with no term of the size of the mean
+__device__ __forceinline__ void fold_coef(bool film, float sc, float bi, float f1,
+                                          float f2, float m, float rstd, float& a,
+                                          float& bb) {
+  a = rstd * sc;
+  bb = bi - m * a;
+  if (film) {
+    const float f = 1.f + f1;
+    a *= f;
+    bb = bb * f + f2;
+  }
+}
+
+// g times the activation's derivative at the pre-activation y: for
+// y sigmoid(z), z = swish y, that is sigmoid(z) (1 + z (1 - sigmoid(z)));
+// MODE 0 (no activation) g itself.  __expf and __fdividef, as K2's fp32 path
+__device__ __forceinline__ float act_grad_mode(float g, float y, float swish, int mode) {
+  if (mode == 0) return g;
+  const float z = swish * y;
+  const float s = __fdividef(1.f, 1.f + __expf(-z));
+  return g * s * fmaf(z, 1.f - s, 1.f);
+}
+
+// B1's finish, in the last block of batch row b: it sums the blocks'
+// partials of row b over the splits in order and writes dfb, dfs, the
+// affine partials and B2's coefficients, then zeroes the row's counter.
+// None of it depends on x's dtype, the width or the activation, but out of
+// line (compiled once) it cost B1 8 to 12 % of its time for 2 s of nvcc.
+__device__ __forceinline__ void bwd_finish(const BwdParams& p, const float* __restrict__ part,
+                                        unsigned* __restrict__ counter,
+                                        float* __restrict__ coef, void* __restrict__ dfs,
+                                        void* __restrict__ dfb, float* __restrict__ dgb,
+                                        int b, int B, int C, int G, int splits) {
+  extern __shared__ float sm[];
+  const int cs = C / G;
+  const float* mom = p.moments + static_cast<ll>(b) * G * 3;
+  // the finish, in shared memory: per group the pivot, m, r and the sums
+  // A_g, B_g; per channel w S, w T (w = scale (1 + fs)) and a, b
+  float* ws = sm;
+  float* wt = ws + C;
+  float* fa = wt + C;
+  float* fbb = fa + C;
+  float* gp = fbb + C;
+  float* gm = gp + G;
+  float* gr = gm + G;
+  float* ga = gr + G;
+  float* gb = ga + G;
+  for (int g = threadIdx.x; g < G; g += blockDim.x)
+    group_stats(mom + 3 * g, p.cnt, p.eps, gp[g], gm[g], gr[g]);
+  __syncthreads();
+  // per channel, FINISH_UNROLL channels a thread at a time with all their
+  // loads issued first: S_c, T_c = sum g^ x^ = r (U_c - m S_c), the FiLM
+  // pair's gradients and the affine pair's partials of b
+  const float* mine = part + static_cast<ll>(b) * splits * 2 * C;
+  for (int c0 = threadIdx.x; c0 < C; c0 += FINISH_UNROLL * blockDim.x) {
+    float S[FINISH_UNROLL], U[FINISH_UNROLL], sc[FINISH_UNROLL], bi[FINISH_UNROLL],
+        f1[FINISH_UNROLL], f2[FINISH_UNROLL];
+#pragma unroll
+    for (int k = 0; k < FINISH_UNROLL; ++k) {
+      const int c = c0 + k * blockDim.x;
+      S[k] = U[k] = 0.f;
+      if (c >= C) continue;
+      load_affine(p, b, c, sc[k], bi[k], f1[k], f2[k]);
+#pragma unroll 8
+      for (int s = 0; s < splits; ++s) {
+        S[k] += __ldcg(mine + static_cast<ll>(s) * 2 * C + c);
+        U[k] += __ldcg(mine + static_cast<ll>(s) * 2 * C + C + c);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < FINISH_UNROLL; ++k) {
+      const int c = c0 + k * blockDim.x;
+      if (c >= C) break;
+      const int g = c / cs;
+      const float Tc = gr[g] * (U[k] - gm[g] * S[k]);
+      const float f = p.fs == nullptr ? 1.f : 1.f + f1[k];
+      const ll bc = static_cast<ll>(b) * C + c;
+      if (dfb != nullptr) store_param(dfb, bc, S[k], p.film_bf16);
+      if (dfs != nullptr) store_param(dfs, bc, fmaf(sc[k], Tc, bi[k] * S[k]), p.film_bf16);
+      if (dgb != nullptr) {
+        dgb[static_cast<ll>(b) * 2 * C + c] = f * Tc;
+        dgb[static_cast<ll>(b) * 2 * C + C + c] = f * S[k];
+      }
+      ws[c] = sc[k] * f * S[k];
+      wt[c] = sc[k] * f * Tc;
+      fold_coef(p.fs != nullptr, sc[k], bi[k], f1[k], f2[k], gm[g], gr[g], fa[c], fbb[c]);
+    }
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;  // whole warps only (blockDim >= 128)
+  for (int g = warp; warp < nwarps && g < G; g += nwarps) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int c = lane; c < cs; c += 32) {
+      t1 += ws[g * cs + c];
+      t2 += wt[g * cs + c];
+    }
+    warp_sum2(t1, t2);
+    if (lane == 0) {
+      ga[g] = t1 / p.cnt;
+      gb[g] = t2 / p.cnt;
+    }
+  }
+  __syncthreads();
+  // B2's coefficients [5][B][C]: dx = a g^ + kx (x - pivot) + k0, with
+  // kx = -r^2 B_g and k0 = r (r B_g m - A_g); a and b (about the pivot)
+  // recompute g^
+  const ll BC = static_cast<ll>(B) * C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const int g = c / cs;
+    float* o = coef + static_cast<ll>(b) * C + c;
+    o[0] = fa[c];
+    o[BC] = fbb[c];
+    o[2 * BC] = -gr[g] * gr[g] * gb[g];
+    o[3 * BC] = gr[g] * fmaf(gr[g] * gb[g], gm[g], -ga[g]);
+    o[4 * BC] = gp[g];
+  }
+  if (threadIdx.x == 0) counter[b] = 0u;
+}
+
+// B1.  A block is TY rows of a strip of cw chunks over rows
+// [sp N / splits, (sp + 1) N / splits); grid.x is (row splits) x (strips),
+// grid.y B.  The last block of a batch row sums the blocks' per-channel
+// partials [B, splits, 2, C] and writes everything per channel and group.
+template <typename T, int VEC, int MODE>
+__global__ void __launch_bounds__(BWD_THREADS, 2)
+group_norm_bwd_reduce_kernel(const void* __restrict__ xv, const void* __restrict__ gv,
+                             int N, int C, int G, int cw, const BwdParams p,
+                             float* __restrict__ part, unsigned* __restrict__ counter,
+                             float* __restrict__ coef, void* __restrict__ dfs,
+                             void* __restrict__ dfb, float* __restrict__ dgb) {
+  typedef typename Raw<VEC * sizeof(T)>::type R;
+  // [2][TY][W] sums and [3][W] coefficients, then the finish's 4 C + 5 G
+  extern __shared__ float sm[];
+  __shared__ bool is_last;
+  const int strips = C / VEC / cw, W = cw * VEC;
+  const int TY = blockDim.x / cw;
+  const int tx = threadIdx.x % cw, ty = threadIdx.x / cw;
+  const int strip = blockIdx.x % strips, sp = blockIdx.x / strips;
+  const int splits = gridDim.x / strips, b = blockIdx.y, B = gridDim.y;
+  const int cs = C / G;
+  const int c0 = (strip * cw + tx) * VEC;
+  const float* mom = p.moments + static_cast<ll>(b) * G * 3;
+
+  // 1. the strip's channels' pivots, a and b, once a block through shared
+  // memory (at the small shapes a thread sums only a few rows)
+  float* cf = sm + 2 * TY * W;
+  for (int k = threadIdx.x; k < W; k += blockDim.x) {
+    float m, r, sc, bi, f1, f2, a = 0.f, bb = 0.f;
+    group_stats(mom + 3 * ((strip * W + k) / cs), p.cnt, p.eps, cf[2 * W + k], m, r);
+    if (MODE != 0) {
+      load_affine(p, b, strip * W + k, sc, bi, f1, f2);
+      fold_coef(p.fs != nullptr, sc, bi, f1, f2, m, r, a, bb);
+    }
+    cf[k] = a;
+    cf[W + k] = bb;
+  }
+  __syncthreads();
+  float av[VEC], bv[VEC], pv[VEC], s1[VEC], s2[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    av[i] = cf[tx * VEC + i];
+    bv[i] = cf[W + tx * VEC + i];
+    pv[i] = cf[2 * W + tx * VEC + i];
+    s1[i] = s2[i] = 0.f;
+  }
+
+  // 2. S = sum g^ and U = sum g^ (x - pivot) over this thread's rows, with
+  // g^ the output gradient through the activation
+  const ll base = static_cast<ll>(b) * N * C + c0;
+  const T* x = static_cast<const T*>(xv) + base;
+  const T* gy = static_cast<const T*>(gv) + base;
+  const int r1 = static_cast<int>(static_cast<ll>(sp + 1) * N / splits);
+  for (int n = static_cast<int>(static_cast<ll>(sp) * N / splits) + ty; n < r1;
+       n += BWD_UNROLL * TY) {
+    R xr[BWD_UNROLL], gr[BWD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < BWD_UNROLL; ++u)
+      if (n + u * TY < r1) {
+        const ll o = static_cast<ll>(n + u * TY) * C;
+        xr[u] = __ldg(reinterpret_cast<const R*>(x + o));
+        gr[u] = __ldg(reinterpret_cast<const R*>(gy + o));
+      }
+#pragma unroll
+    for (int u = 0; u < BWD_UNROLL; ++u) {
+      if (n + u * TY >= r1) break;
+      const T* xe = reinterpret_cast<const T*>(&xr[u]);
+      const T* ge = reinterpret_cast<const T*>(&gr[u]);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float d = to_f(xe[i]) - pv[i];
+        const float gh = act_grad_mode(to_f(ge[i]), fmaf(d, av[i], bv[i]), p.swish, MODE);
+        s1[i] += gh;
+        s2[i] = fmaf(gh, d, s2[i]);
+      }
+    }
+  }
+
+  // 3. the block's per-channel partials, over its TY rows in order
+  float* q1 = sm;
+  float* q2 = sm + TY * W;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    q1[ty * W + tx * VEC + i] = s1[i];
+    q2[ty * W + tx * VEC + i] = s2[i];
+  }
+  __syncthreads();
+  float* out = part + (static_cast<ll>(b) * splits + sp) * 2 * C + strip * W;
+  for (int c = threadIdx.x; c < W; c += blockDim.x) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int y = 0; y < TY; ++y) {
+      t1 += q1[y * W + c];
+      t2 += q2[y * W + c];
+    }
+    out[c] = t1;
+    out[C + c] = t2;
+  }
+
+  // 4. the last block of batch row b to finish sums every block's partials
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(&counter[b], 1u) == static_cast<unsigned>(gridDim.x - 1);
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  bwd_finish(p, part, counter, coef, dfs, dfb, dgb, b, B, C, G, splits);
+}
+
+// B2.  The same blocks as B1's over rows [sp N / splits, (sp + 1) N /
+// splits), each thread every TY-th row with BWD_UNROLL loads of x and of gy
+// in flight.
+template <typename T, int VEC, int MODE>
+__global__ void __launch_bounds__(BWD_THREADS, 2)
+group_norm_bwd_apply_kernel(const void* __restrict__ xv, const void* __restrict__ gv,
+                            const float* __restrict__ coef, void* __restrict__ dxv,
+                            int N, int C, int cw, float swish) {
+  typedef typename Raw<VEC * sizeof(T)>::type R;
+  const int strips = C / VEC / cw;
+  const int TY = blockDim.x / cw;
+  const int tx = threadIdx.x % cw, ty = threadIdx.x / cw;
+  const int strip = blockIdx.x % strips, sp = blockIdx.x / strips;
+  const int splits = gridDim.x / strips, bi = blockIdx.y;
+  const int c = (strip * cw + tx) * VEC;
+  const ll BC = static_cast<ll>(gridDim.y) * C;
+  const float* co = coef + static_cast<ll>(bi) * C + c;
+  float av[VEC], bv[VEC] = {}, kx[VEC], k0[VEC], pv[VEC];
+  load_coef<VEC>(co, av);
+  if (MODE != 0) load_coef<VEC>(co + BC, bv);
+  load_coef<VEC>(co + 2 * BC, kx);
+  load_coef<VEC>(co + 3 * BC, k0);
+  load_coef<VEC>(co + 4 * BC, pv);
+  const ll base = static_cast<ll>(bi) * N * C + c;
+  const T* x = static_cast<const T*>(xv) + base;
+  const T* gy = static_cast<const T*>(gv) + base;
+  T* dx = static_cast<T*>(dxv) + base;
+  const int r1 = static_cast<int>(static_cast<ll>(sp + 1) * N / splits);
+  for (int n = static_cast<int>(static_cast<ll>(sp) * N / splits) + ty; n < r1;
+       n += BWD_UNROLL * TY) {
+    R xr[BWD_UNROLL], gr[BWD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < BWD_UNROLL; ++u)
+      if (n + u * TY < r1) {
+        const ll o = static_cast<ll>(n + u * TY) * C;
+        xr[u] = __ldg(reinterpret_cast<const R*>(x + o));
+        gr[u] = __ldg(reinterpret_cast<const R*>(gy + o));
+      }
+#pragma unroll
+    for (int u = 0; u < BWD_UNROLL; ++u) {
+      if (n + u * TY >= r1) break;
+      const T* xe = reinterpret_cast<const T*>(&xr[u]);
+      const T* ge = reinterpret_cast<const T*>(&gr[u]);
+      R o;
+      T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float d = to_f(xe[i]) - pv[i];
+        const float gh = act_grad_mode(to_f(ge[i]), fmaf(d, av[i], bv[i]), swish, MODE);
+        from_f(fmaf(av[i], gh, fmaf(kx[i], d, k0[i])), oe + i);
+      }
+      *reinterpret_cast<R*>(dx + static_cast<ll>(n + u * TY) * C) = o;
+    }
+  }
+}
+
+typedef void (*BwdReduceKernel)(const void*, const void*, int, int, int, int,
+                                const BwdParams, float*, unsigned*, float*, void*, void*,
+                                float*);
+typedef void (*BwdApplyKernel)(const void*, const void*, const float*, void*, int, int,
+                               int, float);
+
+template <typename T, int VEC>
+void bwd_kernels_of_mode(int mode, BwdReduceKernel& reduce, BwdApplyKernel& apply) {
+  switch (mode) {
+#define K2_BWD(M)                                            \
+  case M:                                                    \
+    reduce = group_norm_bwd_reduce_kernel<T, VEC, M>;        \
+    apply = group_norm_bwd_apply_kernel<T, VEC, M>;          \
+    return;
+    K2_BWD(0)
+    case 1:  // swish 1 takes the general activation: z = 1 * y is y exactly
+    K2_BWD(2)
+#undef K2_BWD
+  }
+}
+
+void bwd_kernels_of(int x_bf16, int vec, int mode, BwdReduceKernel& reduce,
+                    BwdApplyKernel& apply) {
+  reduce = nullptr;
+  apply = nullptr;
+  switch ((x_bf16 ? 100 : 0) + vec) {
+    case 108: return bwd_kernels_of_mode<bf16, 8>(mode, reduce, apply);
+    case 104: return bwd_kernels_of_mode<bf16, 4>(mode, reduce, apply);
+    case 102: return bwd_kernels_of_mode<bf16, 2>(mode, reduce, apply);
+    case 101: return bwd_kernels_of_mode<bf16, 1>(mode, reduce, apply);
+    case 4: return bwd_kernels_of_mode<float, 4>(mode, reduce, apply);
+    case 2: return bwd_kernels_of_mode<float, 2>(mode, reduce, apply);
+    case 1: return bwd_kernels_of_mode<float, 1>(mode, reduce, apply);
+  }
+}
+
 }  // namespace
 
 // ---- host ------------------------------------------------------------------
@@ -473,6 +921,8 @@ struct Plan {
   long long apply_splits, apply_cw, apply_threads;   // K2: row splits, strip, block
   long long swish_mode;                               // K2: MODE
   long long param_bf16, film_bf16, film_sb;           // K1's parameter layout
+  long long bwd_cw, bwd_threads;                      // B1 and B2: strip, block
+  long long bwd_splits, bwd_apply_splits;             // B1's and B2's row splits
   double eps, cnt, swish;
   void* counter;  // K1's per-b counters, zero
 };
@@ -594,17 +1044,78 @@ extern "C" int k2_group_norm(const Plan* q, const void* x, const void* scale,
   return err != 0 ? err : k2_group_norm_apply(q, x, a, b, y, stream);
 }
 
+// The whole backward: K1's moments, then B1, then B2 (where dx is wanted),
+// on one stream.  x and gy: contiguous [B, N, C] of one dtype, aligned to
+// vec elements; scale, bias, fs, fb as for K1 (fs, fb null without FiLM).
+// scratch: B2's coefficients [5, B, C] (16-byte aligned), the affine
+// partials [B, 2, C], the moments [B, G, 3], K1's partials
+// (B stats_splits G 2) and B1's ([B, bwd_splits, 2, C]), in that order.
+// dx ([B, N, C], x's dtype), dfs and dfb ([B, C], the FiLM pair's dtype) and
+// dgb (the affine partials in scratch, summed over b by the caller) may each
+// be null where that gradient is not wanted.  Returns a cudaError_t, or -1
+// for a shape, width or mode it does not take.
+extern "C" int k2_group_norm_backward(const Plan* q, const void* x, const void* gy,
+                                      const void* scale, const void* bias, const void* fs,
+                                      const void* fb, float* scratch, void* dx, void* dfs,
+                                      void* dfb, float* dgb, void* stream) {
+  BwdReduceKernel reduce;
+  BwdApplyKernel apply;
+  bwd_kernels_of(static_cast<int>(q->x_bf16), static_cast<int>(q->vec),
+                 static_cast<int>(q->swish_mode), reduce, apply);
+  const long long CH = q->C / q->vec, cw = q->bwd_cw, threads = q->bwd_threads;
+  if (reduce == nullptr || q->C % q->vec || q->C % q->G || cw < 1 || CH % cw ||
+      threads % cw || threads > BWD_THREADS || threads < 128 || q->bwd_splits < 1 ||
+      q->bwd_apply_splits < 1)
+    return -1;
+  const long long BC = q->B * q->C;
+  float* moments = scratch + 7 * BC;
+  float* kpart = moments + 3 * q->B * q->G;
+  float* bpart = kpart + q->B * q->stats_splits * q->G * 2;
+  int err = k2_group_norm_moments(q, x, moments, kpart, stream);
+  if (err != 0) return err;
+  const BwdParams p{scale, bias, fs, fb, moments, q->film_sb,
+                    static_cast<int>(q->param_bf16), static_cast<int>(q->film_bf16),
+                    static_cast<float>(q->eps), static_cast<float>(q->cnt),
+                    static_cast<float>(q->swish)};
+  // the block's sums [2][TY][cw vec] and coefficients [3][cw vec], then
+  // the finish's 4 C + 5 G floats
+  const size_t smem = sizeof(float) * static_cast<size_t>(
+      std::max(2 * threads * q->vec + 3 * cw * q->vec, 4 * q->C + 5 * q->G));
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        reduce, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid1(static_cast<unsigned>(q->bwd_splits * (CH / cw)),
+                   static_cast<unsigned>(q->B));
+  reduce<<<grid1, static_cast<unsigned>(threads), smem, s>>>(
+      x, gy, static_cast<int>(q->N), static_cast<int>(q->C), static_cast<int>(q->G),
+      static_cast<int>(cw), p, bpart, static_cast<unsigned*>(q->counter), scratch, dfs,
+      dfb, dgb);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || dx == nullptr) return err;
+  const dim3 grid2(static_cast<unsigned>(q->bwd_apply_splits * (CH / cw)),
+                   static_cast<unsigned>(q->B));
+  apply<<<grid2, static_cast<unsigned>(threads), 0, s>>>(
+      x, gy, scratch, dx, static_cast<int>(q->N), static_cast<int>(q->C),
+      static_cast<int>(cw), static_cast<float>(q->swish));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // What ops/group_norm.py mirrors: sizeof(Plan), UNROLL, APPLY_UNROLL,
-// MAX_THREADS, then each Plan field's offset in declared order.  Writes at
+// MAX_THREADS, BWD_UNROLL, BWD_THREADS, then each Plan field's offset in
+// declared order.  Writes at
 // most n of them to out and returns how many there are.
 extern "C" int k2_group_norm_layout(long long* out, int n) {
 #define K2_OFF(f) static_cast<long long>(offsetof(Plan, f))
   const long long v[] = {
-      sizeof(Plan), UNROLL, APPLY_UNROLL, MAX_THREADS,
+      sizeof(Plan), UNROLL, APPLY_UNROLL, MAX_THREADS, BWD_UNROLL, BWD_THREADS,
       K2_OFF(B), K2_OFF(N), K2_OFF(C), K2_OFF(G), K2_OFF(vec), K2_OFF(x_bf16),
       K2_OFF(stats_splits), K2_OFF(stats_rows), K2_OFF(stats_threads),
       K2_OFF(apply_splits), K2_OFF(apply_cw), K2_OFF(apply_threads), K2_OFF(swish_mode),
       K2_OFF(param_bf16), K2_OFF(film_bf16), K2_OFF(film_sb),
+      K2_OFF(bwd_cw), K2_OFF(bwd_threads), K2_OFF(bwd_splits), K2_OFF(bwd_apply_splits),
       K2_OFF(eps), K2_OFF(cnt), K2_OFF(swish), K2_OFF(counter)};
 #undef K2_OFF
   const int count = static_cast<int>(sizeof(v) / sizeof(v[0]));

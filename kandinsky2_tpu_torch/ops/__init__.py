@@ -13,6 +13,7 @@ from .attention import added_kv_attention, qkv_attention
 KERNEL_WRAPPERS = {
     "group_norm_stats": _group_norm.group_norm_stats,
     "group_norm_apply": _group_norm.group_norm_apply,
+    "group_norm_backward": _group_norm.group_norm_backward,
     "flash_attention_fwd": _flash.flash_attention_fwd,
     "flash_attention_bwd_dkv": _flash.flash_attention_bwd_dkv,
     "flash_attention_bwd_dq": _flash.flash_attention_bwd_dq,

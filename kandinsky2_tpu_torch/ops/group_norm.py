@@ -54,11 +54,21 @@ carries the cross-shard terms.
 
 Gradients: ``GroupNormFunction`` is the counterpart of the ``custom_vjp``
 of ``pallas_group_norm``.  Its forward is K1 + K2 and saves only the
-inputs; its backward recomputes the norm in plain PyTorch
-(``group_norm_plain``, the counterpart of ``_xla_reference``) and
-differentiates that, as the JAX package differentiates its XLA
-formulation.  The JAX package has no GroupNorm backward kernel, so neither
-has the port.
+inputs.  The JAX package differentiates its XLA formulation
+(``_xla_reference``), whose backward XLA fuses into a few passes; run
+eagerly, autograd of the plain norm was some twenty-five full-size fp32
+launches a norm.  So the port's backward is the gradient in closed form
+(``group_norm_backward``): on the card K1's moments entry, then B1
+``group_norm_bwd_reduce_kernel`` (x and gy read once: the per-channel sums
+of the output gradient through the activation, and of it times the
+normalised x; the FiLM and affine gradients and the per-group terms of dx)
+and B2 ``group_norm_bwd_apply_kernel`` (x and gy read again, dx written
+once), in one foreign call; on the CPU ``group_norm_backward_plain``, the
+same closed form in plain PyTorch.  Each gradient is computed only where
+its input needs one, and every sum is taken in an order fixed by the
+shape, so the gradients are bitwise repeatable.  ``group_norm_plain``
+stays the function they differentiate, and the tests hold the closed form
+against its autograd.
 
 Any C with C % groups == 0 is accepted (the TPU's C % 128 rule was a tiling
 rule of the TPU), up to 1024 loads of a row.  The CUDA source is built at
@@ -95,6 +105,15 @@ _APPLY_UNROLL = 4
 # read a and b fewer times than a full wave of occupancy
 _APPLY_BLOCKS_PER_SM = 2
 _MAX_CHUNKS = 1024
+# the backward's B1 and B2 (BWD_UNROLL and BWD_THREADS in the source): blocks
+# of TY rows of a strip of chunks, about _BWD_THREADS; about
+# _BWD_BLOCKS_PER_SM blocks an SM over the batch rows, strips and row splits;
+# B1 at most _BWD_MAX_SPLITS splits, since its finish reads every split's
+# partials of a batch row
+_BWD_THREADS = 256
+_BWD_UNROLL = 4
+_BWD_BLOCKS_PER_SM = 4
+_BWD_MAX_SPLITS = 32
 _MAX_BATCH = 4096
 _MAX_ROWS = 2**31 - 1
 
@@ -190,6 +209,15 @@ def apply_threads(chunks: int) -> int:
     return cw * max(1, _BLOCK_THREADS // cw)
 
 
+def bwd_strip(chunks: int) -> int:
+    """Chunks of a B1 and B2 block's strip: the narrowest divisor of
+    ``chunks`` from 8 to _APPLY_STRIP (a warp then reads rows of 128
+    bytes, and small batches still make many blocks), else its widest
+    divisor up to _APPLY_STRIP."""
+    divs = [d for d in range(1, min(chunks, _APPLY_STRIP) + 1) if chunks % d == 0]
+    return min((d for d in divs if d >= 8), default=divs[-1])
+
+
 class LaunchPlan(NamedTuple):
     """Both kernels' grids for one [B, N, C] shape at ``vec`` elements a
     load; each block is TY rows of a strip of chunks."""
@@ -199,11 +227,15 @@ class LaunchPlan(NamedTuple):
     apply_threads: int
     apply_cw: int      # K2's strip, in chunks
     apply_splits: int  # K2's grid is (apply_splits * C / vec / apply_cw, B)
+    bwd_threads: int
+    bwd_cw: int            # B1's and B2's strip, in chunks
+    bwd_splits: int        # B1's grid is (bwd_splits * C / vec / bwd_cw, B)
+    bwd_apply_splits: int  # B2's, with bwd_apply_splits
 
 
 def launch_plan(B: int, N: int, C: int, vec: int, sms: int = 132) -> LaunchPlan:
-    """The launch geometry of both kernels, from the shape and the card's
-    number of SMs."""
+    """The launch geometry of the four kernels, from the shape and the
+    card's number of SMs."""
     chunks = C // vec
     threads = stats_threads(chunks)
     ty = threads // chunks
@@ -219,7 +251,16 @@ def launch_plan(B: int, N: int, C: int, vec: int, sms: int = 132) -> LaunchPlan:
     columns = B * (chunks // cw)
     apply_splits = max(-(-groups // _APPLY_UNROLL),
                        min(groups, -(-sms * _APPLY_BLOCKS_PER_SM // columns)))
-    return LaunchPlan(threads, -(-N // rows), rows, athreads, cw, apply_splits)
+    # B1 and B2: about _BWD_BLOCKS_PER_SM blocks an SM in all; B1 at least
+    # one pass of its loads a thread and at most _BWD_MAX_SPLITS splits, B2
+    # at least one row a thread
+    bcw = bwd_strip(chunks)
+    bthreads = bcw * max(1, _BWD_THREADS // bcw)
+    bty = bthreads // bcw
+    want = -(-sms * _BWD_BLOCKS_PER_SM // (B * (chunks // bcw)))
+    bsplits = max(1, min(-(-N // (bty * _BWD_UNROLL)), _BWD_MAX_SPLITS, want))
+    return LaunchPlan(threads, -(-N // rows), rows, athreads, cw, apply_splits,
+                      bthreads, bcw, bsplits, max(1, min(-(-N // bty), want)))
 
 
 class _Plan(ctypes.Structure):
@@ -230,7 +271,8 @@ class _Plan(ctypes.Structure):
             "B", "N", "C", "G", "vec", "x_bf16",
             "stats_splits", "stats_rows", "stats_threads",
             "apply_splits", "apply_cw", "apply_threads", "swish_mode",
-            "param_bf16", "film_bf16", "film_sb")]
+            "param_bf16", "film_bf16", "film_sb",
+            "bwd_cw", "bwd_threads", "bwd_splits", "bwd_apply_splits")]
         + [(n, ctypes.c_double) for n in ("eps", "cnt", "swish")]
         + [("counter", ctypes.c_void_p)])
 
@@ -240,6 +282,10 @@ class _Launch(NamedTuple):
     plan: _Plan
     part: int     # floats of K1's partials, B * splits * G * 2
     scratch: int  # floats of k2_group_norm's scratch: a, b, then the partials
+    # floats of k2_group_norm_backward's scratch: B2's coefficients
+    # [5, B, C], the affine partials [B, 2, C], the moments [B, G, 3], K1's
+    # partials, B1's [B, bwd_splits, 2, C]
+    bwd_scratch: int = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -247,11 +293,13 @@ def _lib():
     lib = load_library("group_norm.cu")
     P, I = ctypes.c_void_p, ctypes.c_int
     for name, n in (("k2_group_norm_stats", 10), ("k2_group_norm_apply", 6),
-                    ("k2_group_norm", 9), ("k2_group_norm_moments", 5)):
+                    ("k2_group_norm", 9), ("k2_group_norm_moments", 5),
+                    ("k2_group_norm_backward", 13)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = [P] * n, I
     lib.k2_group_norm_layout.argtypes, lib.k2_group_norm_layout.restype = [P, I], I
-    want = [ctypes.sizeof(_Plan), _STATS_UNROLL, _APPLY_UNROLL, _MAX_CHUNKS] + [
+    want = [ctypes.sizeof(_Plan), _STATS_UNROLL, _APPLY_UNROLL, _MAX_CHUNKS,
+            _BWD_UNROLL, _BWD_THREADS] + [
         getattr(_Plan, name).offset for name, _ in _Plan._fields_]
     got = (ctypes.c_longlong * len(want))()
     if lib.k2_group_norm_layout(got, len(want)) != len(want) or list(got) != want:
@@ -320,8 +368,10 @@ def _plan(dtype, device, shape, align, num_groups, eps, swish, params, film,
     plan = _Plan(B=B, N=N, C=C, G=num_groups or 0, vec=vec, x_bf16=int(es == 2),
                  apply_splits=geo.apply_splits, apply_cw=geo.apply_cw,
                  apply_threads=geo.apply_threads,
+                 bwd_cw=geo.bwd_cw, bwd_threads=geo.bwd_threads,
+                 bwd_splits=geo.bwd_splits, bwd_apply_splits=geo.bwd_apply_splits,
                  swish_mode=mode, swish=swish)
-    part = 0
+    part = bwd = 0
     if num_groups is not None and params is not None:
         plan.param_bf16 = _param_bf16(params[0], "scale", device, 1, C)
         if _param_bf16(params[1], "bias", device, 1, C) != plan.param_bf16:
@@ -338,9 +388,10 @@ def _plan(dtype, device, shape, align, num_groups, eps, swish, params, film,
         plan.cnt = float(N * (C // num_groups))
         plan.counter = _counters(device, stream).data_ptr()
         part = B * geo.stats_splits * num_groups * 2
+        bwd = 7 * B * C + 3 * B * num_groups + part + 2 * B * geo.bwd_splits * C
     # k2_group_norm's scratch: a, b (b 16-byte aligned, since C % 4 == 0
     # where vec >= 4), then the per-block partials [B, splits, G, 2]
-    return _Launch(ctypes.addressof(plan), plan, part, 2 * B * C + part)
+    return _Launch(ctypes.addressof(plan), plan, part, 2 * B * C + part, bwd)
 
 
 def _norm_launch(x, scale, bias, film, num_groups, eps, swish, stream) -> _Launch:
@@ -442,11 +493,124 @@ def group_norm_plain(x, scale, bias, num_groups: int, eps: float,
     return group_norm_apply_plain(x3, a, b, swish).reshape(x.shape)
 
 
+_ALL_GRADS = (True,) * 5
+
+
+def group_norm_backward_plain(gy, x, scale, bias, num_groups: int, eps: float,
+                              swish: float = 0.0, film=None, needs=_ALL_GRADS):
+    """The gradients of ``group_norm_plain`` in closed form, in plain
+    PyTorch: (dx, dscale, dbias, dfs, dfb), each None where ``needs`` (x,
+    scale, bias, fs, fb) asks for none or there is no FiLM, each in its
+    input's dtype and shape.  Per batch row and group, with f = 1 + fs (1 without FiLM), w =
+    scale·f, x̂ = (x − mean)·r and ĝ the output gradient through the
+    activation: S = Σ ĝ and T = Σ ĝ·x̂ over the rows of each channel;
+    dfb = S, dfs = scale·T + bias·S, dscale = Σ_b f·T, dbias = Σ_b f·S,
+    dx = r·(w·ĝ − mean_g(w·S) − x̂·mean_g(w·T)) over the group's elements.
+    x enters each product less its group's pivot, as in K1's sums, and
+    the pre-activation too (a·(x − p) + b with b about the pivot), so that
+    nothing cancels where a group's mean lies far from zero.  All in fp32;
+    the function of B1 + B2."""
+    needs = needs if film is not None else (*needs[:3], False, False)
+    B, C = x.shape[0], x.shape[-1]
+    G, cs = num_groups, C // num_groups
+    x3 = x.reshape(B, -1, C)
+    cnt = float(x3.shape[1] * cs)
+    p, s1, s2 = group_norm_moments_plain(x3, G)
+    m = s1.reshape(B, G, cs).sum(-1) / cnt  # each group's mean less its pivot
+    var = torch.clamp(s2.reshape(B, G, cs).sum(-1) / cnt - m * m, min=0.0)
+    r = torch.rsqrt(var + eps)
+    a, b = _fold_affine(m, var, scale, bias, film, eps)  # y = a·(x − p) + b
+    per_c = lambda t: t.repeat_interleave(cs, dim=-1)
+    d = x3.float() - per_c(p)[:, None]
+    g = gy.reshape(x3.shape).float()
+    if swish:
+        z = swish * (d * a[:, None] + b[:, None])
+        sig = torch.sigmoid(z)
+        g = g * sig * (1.0 + z * (1.0 - sig))
+    S = g.sum(1)
+    T = per_c(r) * ((g * d).sum(1) - per_c(m) * S)
+    f = 1.0 if film is None else 1.0 + film[0].reshape(B, C).float()
+    gamma, beta = scale.float(), bias.float()
+    dx = dscale = dbias = dfs = dfb = None
+    if needs[0]:
+        A = (gamma * f * S).reshape(B, G, cs).sum(-1) / cnt
+        Bg = (gamma * f * T).reshape(B, G, cs).sum(-1) / cnt
+        kx, k0 = -r * r * Bg, r * (r * Bg * m - A)
+        dx = a[:, None] * g + per_c(kx)[:, None] * d + per_c(k0)[:, None]
+        dx = dx.to(x.dtype).reshape(x.shape)
+    if needs[1]:
+        dscale = (f * T).sum(0).to(scale.dtype).reshape(scale.shape)
+    if needs[2]:
+        dbias = (f * S).sum(0).to(bias.dtype).reshape(bias.shape)
+    if needs[3]:
+        dfs = (gamma * T + beta * S).to(film[0].dtype).reshape(film[0].shape)
+    if needs[4]:
+        dfb = S.to(film[1].dtype).reshape(film[1].shape)
+    return dx, dscale, dbias, dfs, dfb
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def group_norm_backward(gy, x, scale, bias, num_groups: int, eps: float,
+                        swish: float = 0.0, film=None, needs=_ALL_GRADS):
+    """The gradients of ``group_norm`` (``group_norm_backward_plain``'s
+    function and returns).  For a CPU tensor the plain version; for a CUDA
+    tensor one foreign call (``k2_group_norm_backward``): K1's moments
+    entry, counted as a K1 launch, then B1 and B2 (B2 only where dx is
+    wanted), counted once here, and one sum over the batch of the affine
+    pair's per-row partials where either is wanted.  x and gy: contiguous
+    [B, ..., C] of one shape and dtype; raises for anything the kernels do
+    not take."""
+    if x.device.type == "cpu":
+        return group_norm_backward_plain(gy, x, scale, bias, num_groups, eps, swish,
+                                         film, needs)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"group_norm_backward: no kernel for device {x.device}")
+    if (gy.device != x.device or gy.shape != x.shape or gy.dtype != x.dtype
+            or not x.is_contiguous() or not gy.is_contiguous()):
+        raise ValueError("group_norm_backward: needs contiguous x and gy of one "
+                         "shape and dtype on one card")
+    stream = _stream(x)
+    launch = _plan(x.dtype, x.device, x.shape, (x.data_ptr() | gy.data_ptr()) % 16,
+                   num_groups, float(eps), float(swish), (_layout(scale), _layout(bias)),
+                   None if film is None else (_layout(film[0]), _layout(film[1])),
+                   stream)
+    needs = needs if film is not None else (*needs[:3], False, False)
+    B, C = x.shape[0], x.shape[-1]
+    scratch = torch.empty(launch.bwd_scratch, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x) if needs[0] else None
+    dfs, dfb = (None, None) if film is None else (
+        torch.empty((B, C), dtype=f.dtype, device=x.device) if n else None
+        for f, n in zip(film, needs[3:]))
+    dgb = scratch[5 * B * C:7 * B * C] if needs[1] or needs[2] else None
+    group_norm_stats.launches += 1
+    group_norm_backward.launches += 1
+    err = _lib().k2_group_norm_backward(
+        launch.ref, x.data_ptr(), gy.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        *_film_ptrs(film), scratch.data_ptr(), _ptr(dx), _ptr(dfs), _ptr(dfb), _ptr(dgb),
+        stream)
+    check(err, "group_norm_backward kernel launch")
+    dscale = dbias = None
+    if dgb is not None:
+        sums = dgb.view(B, 2, C).sum(0)
+        dscale = sums[0].to(scale.dtype).view(scale.shape) if needs[1] else None
+        dbias = sums[1].to(bias.dtype).view(bias.shape) if needs[2] else None
+    if film is not None:
+        dfs, dfb = (None if t is None else t.view(f.shape) for t, f in zip((dfs, dfb), film))
+    return dx, dscale, dbias, dfs, dfb
+
+
+group_norm_backward.launches = 0
+
+
 class GroupNormFunction(torch.autograd.Function):
     """K1 + K2 forward (their plain versions for CPU tensors), saving only
-    the inputs; backward through autograd of ``group_norm_plain`` on the
-    saved inputs.  Gradients for x, scale, bias and the FiLM pair (fs, fb),
-    each None where that input needs none."""
+    the inputs; backward ``group_norm_backward`` on the saved inputs (K1's
+    moments, B1 and B2 on the card; the plain closed form on the CPU).
+    Gradients for x, scale, bias and the FiLM pair (fs, fb), each None
+    where that input needs none."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, fs, fb, num_groups, eps, swish):
@@ -457,17 +621,11 @@ class GroupNormFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:5]
-        with torch.enable_grad():
-            inputs = [None if t is None else t.detach().requires_grad_(n)
-                      for t, n in zip(saved, needs)]
-            x, scale, bias, fs, fb = inputs
-            y = group_norm_plain(x, scale, bias, *ctx.config,
-                                 film=None if fs is None else (fs, fb))
-            wanted = [t for t, n in zip(inputs, needs) if n]
-            grads = iter(torch.autograd.grad(y, wanted, gy) if wanted else ())
-        return (*(next(grads) if n else None for n in needs), None, None, None)
+        x, scale, bias, fs, fb = ctx.saved_tensors
+        grads = group_norm_backward(gy.contiguous(), x.contiguous(), scale, bias,
+                                    *ctx.config, film=None if fs is None else (fs, fb),
+                                    needs=ctx.needs_input_grad[:5])
+        return (*grads, None, None, None)
 
 
 def group_norm(x, scale, bias, num_groups: int, eps: float, swish: float = 0.0,

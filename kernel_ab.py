@@ -28,7 +28,17 @@ sources.  Every pair is timed in turns (other, this, this, other):
   launch (``torch.cuda._sleep(0)``); and at the UNet's ds8 shape, where
   the device keeps up with the host, host us per call of the whole op, of
   K1 and of K2;
-* host us per flash forward call.
+* host us per flash forward call;
+* GroupNorm's backward at the decoder training step's batch-32 shapes (the
+  UNet21's ds1 to ds8 and its fp32 output head), with FiLM, SiLU and every
+  gradient: device ms of the whole autograd backward through each tree's
+  ``group_norm`` (in turns), of this tree's ``group_norm_backward`` alone
+  (K1's moments, B1, B2 and the affine sum; checked against
+  ``group_norm_backward_plain`` first), of the plain closed form, and, as a
+  yardstick only, of ``torch.ops.aten.native_group_norm_backward`` on an
+  NCHW copy (no FiLM or SiLU), beside the bound: x and gy read once and dx
+  written once over 3.35 TB/s.  x and gy come from copies that together
+  exceed four L2s.
 
 Prints one line per measurement, after the card's name and power limit.
 """
@@ -40,7 +50,7 @@ import importlib.util
 import sys
 from pathlib import Path
 
-from chip_smoke import check, cold_copies, cuda_ms, host_us, smi_line
+from chip_smoke import PEAK_BYTES, check, cold_copies, cuda_ms, host_us, smi_line
 
 
 def turns(fns: dict, measure) -> dict:
@@ -187,7 +197,61 @@ def main(argv) -> int:
         print(f"K3 host per call B 2 T 144 S 231 H 24: other {th['other']:.1f} us, "
               f"this {th['this']:.1f} us")
     torch.cuda.synchronize()
+    group_norm_backward_rows(torch, gn, norms, randn)
     return 0
+
+
+def group_norm_backward_rows(torch, gn, norms, randn) -> None:
+    """The GroupNorm backward's rows at the decoder training step's batch-32
+    shapes (see the module's docstring)."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for label, shape, dtype in [
+        ("unet ds1", (32, 96, 96, 384), bf16), ("unet ds2", (32, 48, 48, 768), bf16),
+        ("unet ds4", (32, 24, 24, 1152), bf16), ("unet ds8", (32, 12, 12, 1536), bf16),
+        ("unet out.0 fp32", (32, 96, 96, 384), fp32),
+    ]:
+        B, C = shape[0], shape[-1]
+        x, gy = randn(*shape).to(dtype), randn(*shape).to(dtype)
+        scale = 1 + 0.1 * torch.randn(C, device="cuda")
+        bias = 0.1 * torch.randn(C, device="cuda")
+        emb = randn(B, 1, 1, 2 * C).to(dtype)
+        film = emb.chunk(2, dim=-1)
+        got = gn.group_norm_backward(gy, x, scale, bias, 32, 1e-5, 1.0, film)
+        want = gn.group_norm_backward_plain(gy, x, scale, bias, 32, 1e-5, 1.0, film)
+        for k, (g, w) in enumerate(zip(got, want)):
+            tol = 2 ** -7 if g.dtype == bf16 else 1e-5 if k == 0 else 1e-4
+            err = (g.float() - w.float()).abs().max().item()
+            check(err <= tol * w.float().abs().max().item(), f"backward {k} wrong at {label}")
+        del got, want
+        xs = cold_copies(torch.stack([x, gy]))
+
+        def through(mod):
+            """The whole autograd backward through ``mod.group_norm``."""
+            leaves = [t.detach().requires_grad_() for t in (x, scale, bias, *film)]
+            y = mod.group_norm(leaves[0], leaves[1], leaves[2], 32, 1e-5, 1.0,
+                               tuple(leaves[3:]))
+            return lambda: torch.autograd.grad(y, leaves, xs()[1], retain_graph=True)
+
+        tw = turns({n: through(m) for n, m in norms.items()}, lambda fn: cuda_ms(fn, 5))
+        tk = cuda_ms(lambda: gn.group_norm_backward(*xs().unbind(0)[::-1], scale, bias, 32,
+                                                    1e-5, 1.0, film), 10)
+        tp = cuda_ms(lambda: gn.group_norm_backward_plain(*xs().unbind(0)[::-1], scale, bias,
+                                                          32, 1e-5, 1.0, film), 3)
+        xn = x.reshape(B, -1, C).permute(0, 2, 1).contiguous()
+        gyn = gy.reshape(B, -1, C).permute(0, 2, 1).contiguous()
+        w = scale.to(dtype)
+        _, mean, rstd = torch.ops.aten.native_group_norm(xn, w, bias.to(dtype), B, C,
+                                                        xn.shape[-1], 32, 1e-5)
+        tl = cuda_ms(lambda: torch.ops.aten.native_group_norm_backward(
+            gyn, xn, mean, rstd, w, B, C, xn.shape[-1], 32, [True, True, True]), 10)
+        bound_ms = 3 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+        print(f"GroupNorm backward {label} {list(shape)} {str(dtype)[6:]} FiLM SiLU: "
+              f"autograd backward other {tw['other']:.4f} ms, this {tw['this']:.4f} ms; "
+              f"group_norm_backward {tk:.4f} ms (bound {bound_ms:.4f} ms by bytes, "
+              f"{100 * bound_ms / tk:.1f} %); plain closed form {tp:.4f} ms; library "
+              f"native_group_norm_backward NCHW {tl:.4f} ms")
+        del x, gy, xs, xn, gyn, mean, rstd
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

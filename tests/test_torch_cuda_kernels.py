@@ -2,7 +2,8 @@
 the card, at the shapes of the 768² 2.1 and 2.2 text2img paths, of the
 512² 2.0 path, of DPT-Large's attention and of the training steps (the
 2.1 decoder's, and the 2.2 UNet's in LoRA and distillation), in bf16; GroupNorm against fp64 far from zero mean;
-and the autograd Functions that carry gradients through them.
+GroupNorm's backward kernels against its plain closed form; and the
+autograd Functions that carry gradients through them.
 
 These tests need an NVIDIA GPU and skip without one.  They import no JAX,
 so they run where JAX is not installed, without the JAX-pinning conftest:
@@ -115,6 +116,93 @@ def test_group_norm_apply_kernel_matches_plain(gen, C, dtype, swish):
             ref = max(1.0, want.float().abs().max().item())
             tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * ref
             assert (got.float() - want.float()).abs().max().item() <= tol, (N, offset)
+
+
+# the UNet21's GroupNorm layouts in the decoder training step, at batch 2:
+# ds1 to ds8, the ds8 concatenation and the output head, which runs in fp32
+GN_TRAIN_SHAPES = [(2, 96 * 96, 384), (2, 48 * 48, 768), (2, 24 * 24, 1152),
+                   (2, 12 * 12, 1536), (2, 12 * 12, 3072)]
+
+
+def _gn_backward_inputs(gen, shape, dtype, film):
+    x = (0.5 + torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    C = shape[-1]
+    scale = 1 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(C, generator=gen, device="cuda")
+    pair = None
+    if film:  # the UNet's strided views of one [B, 1, 1, 2C] embedding
+        emb = torch.randn((shape[0], 1, 1, 2 * C), generator=gen, device="cuda")
+        pair = tuple((emb * torch.tensor([0.1] * C + [1.0] * C, device="cuda"))
+                     .to(dtype).chunk(2, dim=-1))
+    gy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return gy, x, scale, bias, pair
+
+
+@pytest.mark.parametrize("film,swish", [(True, 1.0), (False, 0.0), (False, 0.5)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GN_TRAIN_SHAPES)
+def test_group_norm_backward_matches_plain(gen, shape, dtype, film, swish):
+    """K1's moments, B1 and B2 (``group_norm_backward``) against the plain
+    closed form on the card, at the decoder training step's layouts, and
+    bitwise equal over two calls.  In bf16 at K2's tolerance, one rounding
+    (2^-7 of the largest value); in fp32 dx within 1e-5 of the largest
+    value (K2's: the same fp32 math up to ex2/rcp in the activation and the
+    group sums' order), and the FiLM pair, scale and bias, sums over every
+    row, within 1e-4 of it (K1's tolerance for its sums)."""
+    gy, x, scale, bias, pair = _gn_backward_inputs(gen, shape, dtype, film)
+    got = tgn.group_norm_backward(gy, x, scale, bias, 32, 1e-5, swish, pair)
+    again = tgn.group_norm_backward(gy, x, scale, bias, 32, 1e-5, swish, pair)
+    want = tgn.group_norm_backward_plain(gy, x, scale, bias, 32, 1e-5, swish, pair)
+    torch.cuda.synchronize()
+    for k, (g, a, w) in enumerate(zip(got, again, want)):
+        if w is None:
+            assert g is None and a is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        assert torch.equal(g, a), k
+        ref = w.float().abs().max().item()
+        tol = 2 ** -7 if g.dtype == torch.bfloat16 else 1e-5 if k == 0 else 1e-4
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * ref, (k, err, ref)
+
+
+def test_group_norm_backward_counts_and_refusals(gen):
+    """A GroupNorm's backward under autograd on the card is one call of
+    ``group_norm_backward`` (one count there and one K1 launch, its moments;
+    no autograd of the plain norm), asking only for the gradients the
+    inputs need; the wrapper raises, and does not fall back, for gy not
+    contiguous or of another dtype than x, x in fp16, or C not divisible by
+    the groups."""
+    gy, x, scale, bias, (fs, fb) = _gn_backward_inputs(gen, (2, 24 * 24, 1152),
+                                                       torch.bfloat16, True)
+    x.requires_grad_()
+    for f in (fs, fb):
+        f.requires_grad_()
+    before = (tgn.group_norm_backward.launches, tgn.group_norm_stats.launches,
+              tgn.group_norm_apply.launches)
+    y = tgn.group_norm(x, scale, bias, 32, 1e-5, swish=1.0, film=(fs, fb))
+    dx, dfs, dfb = torch.autograd.grad(y, (x, fs, fb), gy)
+    torch.cuda.synchronize()
+    after = (tgn.group_norm_backward.launches, tgn.group_norm_stats.launches,
+             tgn.group_norm_apply.launches)
+    assert [b - a for a, b in zip(before, after)] == [1, 2, 1]
+    want = tgn.group_norm_backward_plain(gy, x.detach(), scale, bias, 32, 1e-5, 1.0,
+                                         (fs.detach(), fb.detach()),
+                                         (True, False, False, True, True))
+    for g, w in zip((dx, dfs, dfb), (want[0], want[3], want[4])):
+        assert g.shape == w.shape
+        assert (g.float() - w.float()).abs().max() <= 2 ** -7 * w.float().abs().max()
+    x = x.detach()
+    with pytest.raises(ValueError):
+        tgn.group_norm_backward(gy.transpose(0, 1).contiguous().transpose(0, 1), x,
+                                scale, bias, 32, 1e-5)
+    with pytest.raises(ValueError):
+        tgn.group_norm_backward(gy.float(), x, scale, bias, 32, 1e-5)
+    with pytest.raises(TypeError):
+        tgn.group_norm_backward(gy.half(), x.half(), scale, bias, 32, 1e-5)
+    with pytest.raises(ValueError):
+        tgn.group_norm_backward(gy, x, scale, bias, 7, 1e-5)
+    assert tgn.group_norm_backward.launches == after[0]
 
 
 def test_group_norm_launches_two_kernels(gen):

@@ -1,7 +1,8 @@
 """The port's GroupNorm pair (K1 statistics + K2 apply, ``kandinsky2_tpu_torch/
 ops/group_norm.py``) against the JAX package's Pallas kernels in interpret
 mode and its plain XLA reference: the whole norm in fp32 at 1e-4, K1's
-coefficients at 1e-5, K2 at 1e-6; and the two kernels' launch plan."""
+coefficients at 1e-5, K2 at 1e-6; the backward's closed form against
+autograd of the plain norm; and the kernels' launch plan."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -198,6 +199,56 @@ def test_launch_plan_covers_every_element_once(shape, dtype, offset):
         assert (cols == 1).all()
 
 
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((32, 96 * 96, 384), torch.bfloat16, 0), ((32, 48 * 48, 768), torch.bfloat16, 0),
+    ((32, 24 * 24, 1152), torch.bfloat16, 0), ((32, 12 * 12, 1536), torch.bfloat16, 0),
+    ((32, 96 * 96, 384), torch.float32, 0), ((2, 12 * 12, 3072), torch.bfloat16, 0),
+    ((2, 96 * 96, 384), torch.bfloat16, 0), ((3, 1999, 96), torch.bfloat16, 0),
+    ((2, 37, 160), torch.float32, 0), ((2, 5, 36), torch.bfloat16, 0),
+    ((2, 1999, 384), torch.bfloat16, 2), ((1, 5, 160), torch.bfloat16, 2),
+    ((2, 7, 1072), torch.float32, 0),
+])
+def test_backward_plan_covers_every_element_once(shape, dtype, offset):
+    """B1's and B2's grids from ``launch_plan`` with the index math of
+    csrc/group_norm.cu: blocks of TY rows of a strip of chunks, 128 to 256
+    threads in whole rows of the strip (B1's finish sums a group with whole
+    warps), every channel once by the strips, every row of every batch
+    once by each strip's row splits, B1 within its shared memory and at
+    most _BWD_MAX_SPLITS splits, and about _BWD_BLOCKS_PER_SM blocks an SM
+    where the rows allow, on 132, 114 and 16 SMs.  At the decoder training
+    step's shapes, batch 2, a ragged N, C = 36, 96, 160 and 1072 (268
+    chunks, whose widest divisor up to 64 is 4) and a pointer two elements
+    past 16 bytes."""
+    B, N, C = shape
+    x = torch.empty(B * N * C + offset, dtype=dtype)[offset:]
+    vec = tgn.vec_width(C, x.data_ptr(), x.element_size())
+    chunks = C // vec
+    for sms in (132, 114, 16):
+        p = tgn.launch_plan(B, N, C, vec, sms)
+        cw, threads = p.bwd_cw, p.bwd_threads
+        assert chunks % cw == 0 and cw <= 64 and threads % cw == 0
+        assert 128 <= threads <= tgn._BWD_THREADS
+        assert cw >= 8 or all(chunks % d for d in range(cw + 1, 65))
+        ty, strips = threads // cw, chunks // cw
+        assert max(2 * threads * vec + 3 * cw * vec, 4 * C + 5 * 32) * 4 <= 227 * 1024
+        assert 1 <= p.bwd_splits <= tgn._BWD_MAX_SPLITS and p.bwd_apply_splits >= 1
+        want = -(-sms * tgn._BWD_BLOCKS_PER_SM // (B * strips))
+        assert p.bwd_splits == min(-(-N // (ty * tgn._BWD_UNROLL)), tgn._BWD_MAX_SPLITS,
+                                   want) or p.bwd_splits == 1
+        assert p.bwd_apply_splits == max(1, min(-(-N // ty), want))
+        for s in (p.bwd_splits, p.bwd_apply_splits):
+            assert s * strips < 2**31 and min((k + 1) * N // s - k * N // s
+                                              for k in range(s)) >= 1
+            assert _rows_once([(k * N // s + t, (k + 1) * N // s, ty)
+                               for k in range(s) for t in range(ty)], N)
+        cols = np.zeros(C, np.int64)
+        for strip in range(strips):
+            for tx in range(cw):
+                c = (strip * cw + tx) * vec
+                cols[c:c + vec] += 1
+        assert (cols == 1).all()
+
+
 def test_plan_struct_mirrors_the_cuda_source():
     """``_Plan`` has ``Plan``'s fields of csrc/group_norm.cu in its order and
     C types, and the Python copies of the kernels' constants have the
@@ -218,8 +269,10 @@ def test_plan_struct_mirrors_the_cuda_source():
             fields += [(n.strip(), ctype[kind]) for n in names.split(",")]
     assert [(n, t) for n, t in tgn._Plan._fields_] == fields
     const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
-    assert (const["UNROLL"], const["APPLY_UNROLL"], const["MAX_THREADS"]) == (
-        tgn._STATS_UNROLL, tgn._APPLY_UNROLL, tgn._MAX_CHUNKS)
+    assert (const["UNROLL"], const["APPLY_UNROLL"], const["MAX_THREADS"],
+            const["BWD_UNROLL"], const["BWD_THREADS"]) == (
+        tgn._STATS_UNROLL, tgn._APPLY_UNROLL, tgn._MAX_CHUNKS, tgn._BWD_UNROLL,
+        tgn._BWD_THREADS)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -231,6 +284,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
     for grad in (False, True):
         with torch.set_grad_enabled(grad), pytest.raises(RuntimeError):
             tgn.group_norm(x, x[0, 0], x[0, 0], 32, 1e-5)
+    with pytest.raises(RuntimeError):
+        tgn.group_norm_backward(x, x, x[0, 0], x[0, 0], 32, 1e-5)
 
 
 @pytest.fixture
@@ -277,3 +332,103 @@ def test_plain_group_norm_holds_far_from_zero_mean(mean_over_std):
         xt.double().permute(0, 2, 1), 32, eps=1e-5).permute(0, 2, 1)
     rel = ((got.double() - truth).norm() / truth.norm()).item()
     assert rel <= 1e-4, f"mean/std {mean_over_std}: rel_l2 {rel:.3e}"
+
+
+def _close_to_rounding(got, want, rtol32):
+    """fp32: within ``rtol32`` relative L2 of ``want``; bf16: every element
+    within one rounding (2^-8 of its value) of the fp32 ``want``, with
+    1e-5 of the largest value for the fp32 sums' order."""
+    if got.dtype == torch.float32:
+        return ((got - want).norm() / want.norm()).item() <= rtol32
+    return bool(((got.float() - want).abs()
+                 <= 2.0 ** -8 * want.abs() + 1e-5 * want.abs().max()).all())
+
+
+@pytest.mark.parametrize("C,groups", [(64, 32), (36, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("frozen", [False, True])
+@pytest.mark.parametrize("film", [None, "bc", "b11c"])
+@pytest.mark.parametrize("swish", [0.0, 1.0, 0.5])
+def test_backward_closed_form_matches_autograd(swish, film, frozen, dtype, C, groups):
+    """``group_norm_backward_plain``, the closed form (and B1 + B2's
+    function), against ``torch.autograd.grad`` of ``group_norm_plain`` on
+    the fp32 values of the same inputs: swish 0, 1 and 0.5; no FiLM, FiLM
+    [B, C] and [B, 1, 1, C]; scale and bias trained or frozen (no gradient
+    asked, none returned); fp32 and bf16 x (the FiLM pair in x's dtype); C
+    = 64 in 32 groups and C = 36 in 4 (not a multiple of 8).  Each gradient
+    in its input's dtype and shape.  fp32 within 1e-5 relative L2: the two
+    take the same fp32 sums in other orders (about 3e-7 here); bf16 within
+    one rounding of the fp32 autograd, since the closed form rounds once
+    (autograd of the plain norm rounds each ``x.float()`` path's gradient
+    to bf16 before it adds them, 3e-3 apart)."""
+    gen = torch.Generator().manual_seed(C + int(10 * swish))
+    r = lambda *s: torch.randn(s, generator=gen)
+    B = 2
+    x = (r(B, 3, 5, C) + 0.5).to(dtype)
+    scale, bias = 1 + 0.1 * r(C), 0.1 * r(C)
+    pair = None
+    if film:
+        shape = (B, C) if film == "bc" else (B, 1, 1, C)
+        pair = ((0.1 * r(*shape)).to(dtype), r(*shape).to(dtype))
+    gy = r(*x.shape).to(dtype)
+    ins = [x, scale, bias, *(pair or (None, None))]
+    needs = (True, not frozen, not frozen, pair is not None, pair is not None)
+    leaves = [None if t is None else t.detach().float().requires_grad_(n)
+              for t, n in zip(ins, needs)]
+    y = tgn.group_norm_plain(*leaves[:3], groups, 1e-5, swish,
+                             None if pair is None else tuple(leaves[3:]))
+    want = iter(torch.autograd.grad(y, [t for t, n in zip(leaves, needs) if n],
+                                    gy.float()))
+    got = tgn.group_norm_backward_plain(gy, x, scale, bias, groups, 1e-5, swish, pair,
+                                        needs)
+    for k, (g, n, t) in enumerate(zip(got, needs, ins)):
+        if not n:
+            assert g is None
+            continue
+        assert g.dtype == t.dtype and g.shape == t.shape, k
+        assert _close_to_rounding(g, next(want), 1e-5), k
+
+
+def test_backward_closed_form_far_from_zero_mean():
+    """The closed form against fp64 autograd of
+    ``torch.nn.functional.group_norm`` (with FiLM and SiLU) on the same fp32
+    input, where every group's mean lies 1000 standard deviations from
+    zero: every gradient within 1e-5 relative L2 (1.3e-7 here).  x enters
+    each product less its group's pivot, the pre-activation too; autograd
+    of the plain norm, whose y = x·a + b cancels there, reads 1.3e-4."""
+    B, N, C = 2, 64, 64
+    rng = np.random.RandomState(1000)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    x = f32(rng.randn(B, N, C) * 0.5 + 500.0)
+    scale, bias = f32(1 + 0.1 * rng.randn(C)), f32(0.1 * rng.randn(C))
+    fs, fb = f32(0.1 * rng.randn(B, C)), f32(rng.randn(B, C))
+    gy = f32(rng.randn(B, N, C))
+    ins = [t.double().requires_grad_() for t in (x, scale, bias, fs, fb)]
+    y = torch.nn.functional.group_norm(ins[0].permute(0, 2, 1), 32, ins[1], ins[2],
+                                       eps=1e-5).permute(0, 2, 1)
+    y = y * (1 + ins[3][:, None]) + ins[4][:, None]
+    truth = torch.autograd.grad(y * torch.sigmoid(y), ins, gy.double())
+    got = tgn.group_norm_backward_plain(gy, x, scale, bias, 32, 1e-5, 1.0, (fs, fb))
+    for k, (g, t) in enumerate(zip(got, truth)):
+        rel = ((g.double() - t).norm() / t.norm()).item()
+        assert rel <= 1e-5, (k, rel)
+
+
+def test_group_norm_function_backward_is_the_closed_form_on_the_cpu():
+    """Autograd through ``group_norm`` on CPU tensors runs
+    ``GroupNormFunction.backward``, which is ``group_norm_backward_plain``
+    on the saved inputs: bitwise the same gradients, for a non-contiguous
+    x, the UNet's strided FiLM views and frozen scale and bias."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 5, 4, 64), generator=gen).transpose(1, 2).requires_grad_()
+    scale, bias = torch.ones(64), torch.zeros(64)
+    emb = torch.randn((2, 1, 1, 128), generator=gen).requires_grad_()
+    fs, fb = emb.chunk(2, dim=-1)
+    y = tgn.group_norm(x, scale, bias, 32, 1e-5, swish=1.0, film=(fs, fb))
+    gy = torch.randn(y.shape, generator=gen)
+    got = torch.autograd.grad(y, (x, emb), gy)
+    want = tgn.group_norm_backward_plain(gy, x.detach(), scale, bias, 32, 1e-5, 1.0,
+                                         (fs.detach(), fb.detach()),
+                                         (True, False, False, True, True))
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], torch.cat(want[3:], dim=-1))
